@@ -5,22 +5,28 @@
 
 Builds the port's CUDA kernels from this checkout, holds each against its
 plain PyTorch version at the shapes the main paths give it, then drives the
-two main paths of the serving slice at full width — the cache-less scoring
-``LlamaForCausalLM.forward`` (flash-forward kernel) and the
-``ContinuousBatchingEngine`` (paged-decode kernel) — on Llama-542M
-(``benchmarks/serving_throughput.py``'s serving model: vocab 32000, hidden
-2048, ffn 5632, 8 layers, 16 heads, 16 kv heads, bf16) with random weights
-made from ``--seed``. Each main path runs with every kernel launch count set
-to 0 just before it and read just after; a kernel of the path that did not
-launch fails the run. Outputs are checked against the plain path and, at a
-small f32 size, against the CPU.
+port's main paths at full width on Llama-542M (vocab 32000, hidden 2048,
+ffn 5632, 8 layers, 16 heads, 16 kv heads, bf16) with random weights made
+from ``--seed``: the serving slice's cache-less scoring
+``LlamaForCausalLM.forward`` (flash-forward kernel) and
+``ContinuousBatchingEngine`` (paged-decode kernel), as
+``benchmarks/serving_throughput.py`` configures them, and the training
+slice's flagship step of ``bench.py:main()`` (B=4, S=2048, masterless bf16
+``AdamW(lr=1e-4, moment_dtype="bfloat16", use_stochastic_rounding=True,
+fused=True)`` through ``jit.to_static(...).multi_step``: flash forward and
+backward kernels, fused-AdamW kernel). Each main path runs with every
+kernel launch count set to 0 just before it and read just after; a kernel
+of the path that did not launch, or launched another number of times than
+the path needs, fails the run. Outputs are checked against the plain paths
+and, at a small f32 size, against the CPU.
 
 Prints one line per phase, then a ``{"kernels": [...]}`` JSON line, then the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when CUDA is absent or any phase fails.
 Imports nothing of JAX. Timings: CUDA events around repeated launches after
 warm-up; peaks are the H100 SXM data sheet's (3.35 TB/s HBM, 989 TFLOP/s
-dense bf16) at a 700 W power limit.
+dense bf16, 67 TFLOP/s f32 outside the tensor cores) at a 700 W power
+limit.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12
 
 # benchmarks/serving_throughput.py:848-851 (model) and :111-126 (serving)
 LLAMA_542M = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
@@ -44,6 +51,11 @@ SERVE = dict(max_batch=16, max_len=2048, block_size=64,
              decode_chunk=16)
 PROMPT_LENS = (256, 384, 512)
 N_REQUESTS, NEW_TOKENS = 32, 32
+# bench.py:434-441 (flagship model and batch) and :448-477 (optimizer)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
+TRAIN_LR = 1e-4
+GRAD_DEPTH = 2  # phase 8's layers: the plain attention path holds
+                # [4, 16, 2048, 2048] f32 scores per layer for backward
 
 # bf16 kernel vs plain version, |kernel - plain| <= ATOL + RTOL * |plain|:
 # paged decode: the plain path rounds logits to bf16, the kernel keeps f32;
@@ -52,6 +64,14 @@ N_REQUESTS, NEW_TOKENS = 32, 32
 # (2^-7 relative), so RTOL 2e-2 covers outputs of any size.
 PAGED_ATOL, FLASH_ATOL, RTOL = 3e-2, 2e-2, 2e-2
 LOGITS_REL_TOL = 5e-2  # 8 bf16 layers, kernel vs plain attention
+# flash backward, bf16: the kernels round P and dS to bf16 before their
+# products (the TPU kernels' rounding points) where the plain version keeps
+# f32; dq/dk/dv of unit scale then differ by a few bf16 ulps
+BWD_ATOL, BWD_RTOL, BWD_REL = 5e-2, 5e-2, 1e-2
+# phase 8: gradients of every parameter through 2 bf16 layers, kernels
+# against the plain paths (naive attention rounds its logits and
+# probabilities to bf16; the kernels keep scores in f32)
+GRAD_REL_TOL = 5e-2
 ARGMAX_MIN = 0.9
 
 
@@ -82,25 +102,35 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 @contextlib.contextmanager
-def plain_paths():
-    """Route attention through the plain PyTorch versions: the scoring
-    forward's naive attention, and the gather path for paged decode."""
+def plain_paths(optimizers=()):
+    """Route the main paths through the plain PyTorch versions: naive
+    attention (forward and its autograd backward) in place of the flash
+    kernels, the flash backward's plain version should the flash path be
+    taken, the gather path for paged decode, and the unfused update for
+    each AdamW in ``optimizers``."""
     from paddle_tpu_torch.nn.functional import attention as A
+    from paddle_tpu_torch.ops import flash_attention as FA
     from paddle_tpu_torch.ops import paged_attention as PA
 
-    saved = A._use_flash, PA.paged_decode
+    saved = A._use_flash, PA.paged_decode, FA.flash_attention_bwd
+    fused = [o._fused for o in optimizers]
     A._use_flash = lambda *a, **k: False
     PA.paged_decode = PA.paged_decode_plain
+    FA.flash_attention_bwd = FA.flash_attention_bwd_plain
+    for o in optimizers:
+        o._fused = False
     try:
         yield
     finally:
-        A._use_flash, PA.paged_decode = saved
+        A._use_flash, PA.paged_decode, FA.flash_attention_bwd = saved
+        for o, f in zip(optimizers, fused):
+            o._fused = f
 
 
 def rel_err(a, b) -> float:
@@ -183,6 +213,137 @@ def flash_case(torch, dev, gen, causal, hkv):
                 library_ms=library_ms)
 
 
+def flash_bwd_case(torch, dev, gen, causal, hkv):
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.flash_attention import (
+        _delta, flash_attention_bwd, flash_attention_bwd_dkv,
+        flash_attention_bwd_dq, flash_attention_bwd_plain, flash_attention_fwd)
+
+    B, S, H, D = 4, 2048, 16, 128
+    q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = (float((a.float() - w.float()).abs().max()), rel_err(a, w))
+        if not (torch.isfinite(a).all() and errs[name][1] <= BWD_REL
+                and torch.allclose(a.float(), w.float(), atol=BWD_ATOL,
+                                   rtol=BWD_RTOL)):
+            fail(f"flash backward causal={causal} hkv={hkv} {name}: max abs "
+                 f"err {errs[name][0]}, rel err {errs[name][1]} beyond atol "
+                 f"{BWD_ATOL} + rtol {BWD_RTOL} / rel {BWD_REL}")
+    del got, want
+    scale = 1.0 / D ** 0.5
+    delta = _delta(out, do)
+    dq_ms = time_ms(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                   causal, scale), 10)
+    dkv_ms = time_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                     causal, scale), 10)
+    plain_ms = time_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, out, lse, do, causal), 3)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    lib_out = TF.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=hkv != H)
+    do_t = do.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), do_t, retain_graph=True), 10)
+    pairs = S * (S + 1) / 2 if causal else S * S
+    reads = (2 * B * S * H * D + 2 * B * S * hkv * D) * 2 + 2 * B * H * S * 4
+    mm = 2.0 * B * H * pairs * D  # one Sq x Sk x D product
+    dq_bound = bound(reads + B * S * H * D * 2, 3 * mm)
+    dkv_bound = bound(reads + 2 * B * S * hkv * D * 2, 4 * mm)
+    return dict(causal=causal, hkv=hkv, errs=errs, dq_ms=dq_ms, dkv_ms=dkv_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                dq_bound=dq_bound, dkv_bound=dkv_bound,
+                dq_rate=f"{3 * mm / dq_ms / 1e9:.1f} TFLOP/s",
+                dkv_rate=f"{4 * mm / dkv_ms / 1e9:.1f} TFLOP/s")
+
+
+def adamw_case(torch, dev, gen, sr):
+    """The flagship's largest tensor: the 32000 x 2048 bf16 embedding with
+    bf16 moments, kernel against plain bit for bit."""
+    from paddle_tpu_torch.ops.fused_adamw import (
+        fused_adamw_hbm_bytes, fused_adamw_update, fused_adamw_update_plain)
+
+    shape, bf = (32000, 2048), torch.bfloat16
+    p = torch.randn(*shape, generator=gen, device=dev).to(bf)
+    g = (1e-2 * torch.randn(*shape, generator=gen, device=dev)).to(bf)
+    m = (1e-3 * torch.randn(*shape, generator=gen, device=dev)).to(bf)
+    v = (1e-5 * torch.rand(*shape, generator=gen, device=dev)).to(bf)
+    kw = dict(lr=TRAIN_LR, beta1=0.9, beta2=0.999, epsilon=1e-8,
+              beta1_pow=torch.tensor(0.9 ** 3, device=dev),
+              beta2_pow=torch.tensor(0.999 ** 3, device=dev), weight_decay=0.01,
+              sr_salts=(torch.tensor([0x9E3779B9, 0x2545F491], device=dev)
+                        if sr else None))
+    ref = [t.clone() for t in (p, m, v)]
+    fused_adamw_update(p, g, m, v, **kw)
+    fused_adamw_update_plain(ref[0], g, ref[1], ref[2], **kw)
+    torch.cuda.synchronize()
+    for a, b, name in zip((p, m, v), ref, "pmv"):
+        if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+            n_diff = int((a.view(torch.int16) != b.view(torch.int16)).sum())
+            fail(f"fused AdamW sr={sr}: {name} differs from the plain version "
+                 f"in {n_diff} elements")
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip((p, m, v), ref))
+    del ref
+    ms = time_ms(lambda: fused_adamw_update(p, g, m, v, **kw), 20)
+    plain_ms = time_ms(lambda: fused_adamw_update_plain(p, g, m, v, **kw), 3)
+    # torch's fused Adam(W) on the same tensors: another function (no SR,
+    # another epsilon and bias-correction form), timed for scale only
+    pf, gf, mf, vf = (t.clone() for t in (p, g, m, v))
+    steps = [torch.tensor(3.0, device=dev)]
+    lib_ms = time_ms(lambda: torch._fused_adamw_(
+        [pf], [gf], [mf], [vf], [], steps, lr=TRAIN_LR, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False), 20)
+    n = p.numel()
+    nbytes = fused_adamw_hbm_bytes(n, bf, bf, bf)
+    b_ms, b_by = bound(nbytes, 10.0 * n, F32_FLOPS_PER_S)
+    return dict(sr=sr, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                torch_fused_adamw_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                rate=f"{nbytes / ms / 1e6:.1f} GB/s")
+
+
+def bench_step(model, opt):
+    """``bench.py:479-488``: model(ids) -> cross_entropy -> backward ->
+    step -> clear_grad, under ``jit.to_static``."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.nn import functional as F
+
+    def step(ids, labels):
+        logits = model(ids)
+        b, s, v = logits.shape
+        loss = F.cross_entropy(logits.reshape(b * s, v), labels.reshape(b * s))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return jit.to_static(step, layers=[model], optimizers=[opt])
+
+
+def kernel_class(name: str) -> str:
+    """Bucket a profiled kernel name for the training step's time split."""
+    n = name.lower()
+    if "flash_fwd" in n:
+        return "attention forward"
+    if "dq_mma" in n or "dkv_mma" in n or "dq_scalar" in n or "dkv_scalar" in n:
+        return "attention backward"
+    if "adamw_kernel" in n:
+        return "AdamW kernel"
+    if any(k in n for k in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
+        return "GEMMs"
+    if any(k in n for k in ("logsumexp", "softmax", "nll", "reduce")):
+        return "reductions (loss, norms)"
+    return "elementwise and copies"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -248,6 +409,34 @@ def main() -> int:
               f"({r['bound_by']}) {r['rate']}, "
               f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound, "
               f"library_ms(sdpa)={r['library_ms']:.4f} [{card}]")
+
+    bwd_rows = []
+    for causal, hkv in ((True, 16), (False, 16), (True, 4)):
+        r = flash_bwd_case(torch, dev, gen, causal, hkv)
+        bwd_rows.append(r)
+        errs = " ".join(f"{n}={e[0]:.3g}/{e[1]:.3g}" for n, e in r["errs"].items())
+        print(f"phase 2 flash_bwd B=4 S=2048 H=16 KVH={hkv} D=128 "
+              f"causal={causal}: max abs/rel err {errs} (atol {BWD_ATOL} + "
+              f"rtol {BWD_RTOL}, rel {BWD_REL}); dq ms={r['dq_ms']:.3f} "
+              f"bound_ms={r['dq_bound'][0]:.4f} ({r['dq_bound'][1]}) "
+              f"{r['dq_rate']}, {100 * r['dq_bound'][0] / r['dq_ms']:.1f}% of "
+              f"bound; dkv ms={r['dkv_ms']:.3f} bound_ms="
+              f"{r['dkv_bound'][0]:.4f} ({r['dkv_bound'][1]}) {r['dkv_rate']}, "
+              f"{100 * r['dkv_bound'][0] / r['dkv_ms']:.1f}% of bound; plain "
+              f"(dq+dk+dv) ms={r['plain_ms']:.3f}, library_ms(sdpa backward, "
+              f"dq+dk+dv)={r['library_ms']:.4f} [{card}]")
+    adamw_rows = []
+    for sr in (False, True):
+        r = adamw_case(torch, dev, gen, sr)
+        adamw_rows.append(r)
+        print(f"phase 2 fused_adamw 32000x2048 bf16 p/g/m/v sr={sr}: bitwise "
+              f"equal to plain (max abs err {r['max_abs_err']}) ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']}) {r['rate']}, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound; "
+              f"torch._fused_adamw_ on the same tensors (another function, for "
+              f"scale) {r['torch_fused_adamw_ms']:.4f} ms [{card}]")
+    torch.cuda.empty_cache()
 
     # -- phase 3: scoring forward (main path of the flash kernel) ----------
     pt_seed(args.seed)
@@ -441,6 +630,177 @@ def main() -> int:
             and c6["flash_attention_fwd"] >= 1 and c6["paged_decode_attention"] >= 1):
         fail("the card disagrees with the CPU at the small f32 size")
 
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+
+    # -- phase 7: the flagship train step at full width ----------------------
+    import numpy as np
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def flagship(depth, fused=True):
+        pt_seed(args.seed)
+        cfg7 = LlamaConfig(**dict(LLAMA_542M, max_position_embeddings=2048,
+                                  num_hidden_layers=depth))
+        m = LlamaForCausalLM(cfg7, device=dev, dtype=torch.bfloat16)
+        o = AdamW(learning_rate=TRAIN_LR, parameters=m.parameters(),
+                  moment_dtype="bfloat16", use_stochastic_rounding=True,
+                  fused=fused)
+        return cfg7, m, o
+
+    cfg7, model, opt = flagship(LLAMA_542M["num_hidden_layers"])
+    n_tensors = len(list(model.parameters()))
+    compiled = bench_step(model, opt)
+    ids_np = np.random.RandomState(args.seed).randint(
+        0, cfg7.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+    labels = ids.clone()  # bench.py trains on labels = ids
+    torch.cuda.reset_peak_memory_stats()
+    warm = compiled(ids, labels)  # first step: lazy optimizer state
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = compiled.multi_step(ids, labels, steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    L7 = cfg7.num_hidden_layers
+    want_counts = {"flash_attention_fwd": L7 * TRAIN_STEPS,
+                   "flash_attention_bwd_dq": L7 * TRAIN_STEPS,
+                   "flash_attention_bwd_dkv": L7 * TRAIN_STEPS,
+                   "fused_adamw": n_tensors * TRAIN_STEPS,
+                   "paged_decode_attention": 0}
+    loss_list = [float(warm.detach())] + [float(x) for x in losses.cpu()]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = train_s / TRAIN_STEPS * 1e3
+    tok_s = tokens * TRAIN_STEPS / train_s
+    mfu = tok_s * model.flops_per_token(TRAIN_SEQ) / BF16_FLOPS_PER_S
+    print(f"phase 7 train Llama-542M bf16 ({model.num_params()} params in "
+          f"{n_tensors} tensors) B={TRAIN_BATCH} S={TRAIN_SEQ} "
+          f"multi_step(steps={TRAIN_STEPS}): {step_ms:.2f} ms/step, "
+          f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} (flops_per_token "
+          f"{model.flops_per_token(TRAIN_SEQ):.0f} over 989 TFLOP/s), peak "
+          f"memory {peak_gb:.2f} GB, losses {[round(x, 4) for x in loss_list]} "
+          f"(first: the warm-up step), counts {json.dumps(train_counts)} "
+          f"[{card}]")
+    if tuple(losses.shape) != (TRAIN_STEPS,) or not all(
+            np.isfinite(x) for x in loss_list):
+        fail(f"training losses: shape {tuple(losses.shape)} or non-finite")
+    if not loss_list[-1] < loss_list[0]:
+        fail(f"training loss did not fall: {loss_list}")
+    if train_counts != want_counts:
+        fail(f"training launch counts {train_counts} != {want_counts} "
+             f"(per step: {L7} flash forward, {L7} dq, {L7} dk/dv, "
+             f"{n_tensors} fused AdamW)")
+
+    # where a train step's time goes: kernel classes in one profiled step,
+    # against the host wall of that step; the loss alone by CUDA events
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        compiled(ids, labels)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    split, top = {}, []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            c = kernel_class(e.key)
+            split[c] = split.get(c, 0.0) + e.self_device_time_total / 1e3
+            top.append((e.self_device_time_total / 1e3, e.count, e.key, c))
+    busy = sum(split.values())
+    top.sort(reverse=True)
+    with torch.no_grad():
+        logits7 = model(ids)
+    lg = logits7.detach().requires_grad_()
+    flat_labels = labels.reshape(-1)
+    loss_ms = time_ms(lambda: F.cross_entropy(
+        lg.reshape(-1, cfg7.vocab_size), flat_labels).backward(), 5)
+    del logits7, lg
+    if busy > 0:
+        parts = ", ".join(f"{k} {v:.2f} ms" for k, v in
+                          sorted(split.items(), key=lambda kv: -kv[1]))
+        print(f"phase 7 one profiled train step: {prof_wall_ms:.2f} ms wall, "
+              f"{busy:.2f} ms of kernel time ({100 * busy / prof_wall_ms:.1f}% "
+              f"device busy; host gaps {prof_wall_ms - busy:.2f} ms): {parts}; "
+              f"cross_entropy forward+backward alone {loss_ms:.3f} ms [{card}]")
+        print("phase 7 top kernels of that step: " + "; ".join(
+            f"{k[:60]} x{n} {t:.2f} ms ({c})" for t, n, k, c in top[:12]))
+    else:
+        print(f"phase 7 one profiled train step: {prof_wall_ms:.2f} ms wall; "
+              f"device time not measured (the profiler saw no device time); "
+              f"cross_entropy forward+backward alone {loss_ms:.3f} ms")
+    del model, opt, compiled, prof
+    torch.cuda.empty_cache()
+
+    # -- phase 8: kernels against plain paths inside the model --------------
+    _, mk, ok = flagship(GRAD_DEPTH)
+    _, mp, op = flagship(GRAD_DEPTH)
+    step_k, step_p = bench_step(mk, ok), bench_step(mp, op)
+
+    def grads_of(m):
+        m.loss(ids, labels).backward()
+        return {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+
+    kernels.reset_launch_counts()
+    gk = grads_of(mk)
+    with plain_paths([op]):
+        gp = grads_of(mp)
+    c8 = kernels.launch_counts()
+    worst = max(((rel_err(gk[n], gp[n]), n) for n in gk), key=lambda x: x[0])
+    finite = all(torch.isfinite(g).all() for g in gk.values())
+    for m in (mk, mp):
+        m.zero_grad(set_to_none=True)
+    del gk, gp
+    # one bench step each (same salts: the seed restarts the salt stream),
+    # then the next step's losses
+    pt_seed(args.seed)
+    step_k(ids, labels)
+    pt_seed(args.seed)
+    with plain_paths([op]):
+        step_p(ids, labels)
+    with torch.no_grad():
+        next_k = float(mk.loss(ids, labels))
+        with plain_paths([op]):
+            next_p = float(mp.loss(ids, labels))
+    print(f"phase 8 gradients at full width, {GRAD_DEPTH} layers, kernels vs "
+          f"plain paths: worst rel err {worst[0]:.3g} ({worst[1]}; tol "
+          f"{GRAD_REL_TOL}); after one bench step (fused AdamW vs unfused) the "
+          f"next loss {next_k:.5f} vs {next_p:.5f}; counts {json.dumps(c8)}")
+    if not (finite and worst[0] <= GRAD_REL_TOL
+            and abs(next_k - next_p) <= LOGITS_REL_TOL * abs(next_p)
+            and c8["flash_attention_bwd_dq"] == GRAD_DEPTH):
+        fail("gradients or the stepped model disagree with the plain paths")
+    del mk, mp, ok, op, step_k, step_p
+    torch.cuda.empty_cache()
+
+    small8 = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                              num_attention_heads=4, num_key_value_heads=2,
+                              vocab_size=512, max_position_embeddings=512)
+    ids8 = torch.randint(0, small8.vocab_size, (2, 128), generator=gen_cpu)
+    m8_cpu = LlamaForCausalLM(small8, device="cpu",
+                              generator=torch.Generator().manual_seed(args.seed))
+    m8_gpu = LlamaForCausalLM(small8, device=dev)
+    load_jax_params(m8_gpu, {n: p.detach().numpy()
+                             for n, p in m8_cpu.named_parameters()})
+    losses8 = {}
+    kernels.reset_launch_counts()
+    for name, m in (("cuda", m8_gpu), ("cpu", m8_cpu)):
+        st = bench_step(m, AdamW(learning_rate=1e-3, parameters=m.parameters(),
+                                 fused=True))
+        x = ids8.to(m.device)
+        losses8[name] = [float(st(x, x)) for _ in range(3)]
+    c8b = kernels.launch_counts()
+    e8 = max(abs(a - b) for a, b in zip(losses8["cuda"], losses8["cpu"]))
+    print(f"phase 8 small f32 model trained 3 steps (fused AdamW lr 1e-3), card "
+          f"vs CPU: losses {losses8['cuda']} vs {losses8['cpu']}, max diff "
+          f"{e8:.3g} (tol 1e-4), counts {json.dumps(c8b)}")
+    if not (e8 <= 1e-4 and c8b["flash_attention_bwd_dkv"] >= 1
+            and c8b["fused_adamw"] >= 1):
+        fail("the small f32 training run on the card disagrees with the CPU")
+
     # -- result ---------------------------------------------------------------
     paged16, flash_main = paged_rows[0], flash_rows[0]
     entries = [
@@ -460,6 +820,30 @@ def main() -> int:
              bound_by=flash_main["bound_by"],
              library_ms=flash_main["library_ms"]),
     ]
+    bwd_main, adamw_main = bwd_rows[0], adamw_rows[1]
+    for name, ms_key, b_key in (("flash_attention_bwd_dq", "dq_ms", "dq_bound"),
+                                ("flash_attention_bwd_dkv", "dkv_ms",
+                                 "dkv_bound")):
+        err = bwd_main["errs"]["dq" if name.endswith("dq") else "dk"][0]
+        if name.endswith("dkv"):
+            err = max(err, bwd_main["errs"]["dv"][0])
+        entries.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/ops/kernels/flash_attention_bwd.cu",
+            replaces=("paddle_tpu/ops/flash_attention.py:172"
+                      if name.endswith("dq") else
+                      "paddle_tpu/ops/flash_attention.py:215"),
+            launches=train_counts[name], max_abs_err=err, ms=bwd_main[ms_key],
+            plain_ms=bwd_main["plain_ms"], bound_ms=bwd_main[b_key][0],
+            bound_by=bwd_main[b_key][1], library_ms=bwd_main["library_ms"]))
+    entries.append(dict(
+        name="fused_adamw", route="cuda",
+        source="paddle_tpu_torch/ops/kernels/fused_adamw.cu",
+        replaces="paddle_tpu/ops/fused_adamw.py:111",
+        launches=train_counts["fused_adamw"],
+        max_abs_err=adamw_main["max_abs_err"], ms=adamw_main["ms"],
+        plain_ms=adamw_main["plain_ms"], bound_ms=adamw_main["bound_ms"],
+        bound_by=adamw_main["bound_by"], library_ms=None))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

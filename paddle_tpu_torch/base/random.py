@@ -1,9 +1,10 @@
-"""Seeded ``torch.Generator``s for parameter init (counterpart of
-``paddle_tpu/base/random.py``).
+"""Seeded ``torch.Generator``s (counterpart of ``paddle_tpu/base/random.py``):
+one per device for parameter init, and one per device for the optimizer's
+stochastic-rounding salts, so drawing salts never shifts the init stream.
 
 JAX's threefry and torch's Philox streams never agree, so no parity test
 goes through these generators: the tests carry the JAX package's weights
-into the port instead (``utils/convert.py``).
+into the port instead (``utils/convert.py``) and pin the salts.
 """
 from __future__ import annotations
 
@@ -11,10 +12,13 @@ from typing import Dict, Optional, Union
 
 import torch
 
-__all__ = ["seed", "get_generator"]
+__all__ = ["seed", "get_generator", "sr_salts"]
 
 _seed = 0
 _generators: Dict[str, torch.Generator] = {}
+_sr_generators: Dict[str, torch.Generator] = {}
+# the salt stream's seed differs from the init stream's by this constant
+_SR_STREAM = 0x5A17
 
 
 def seed(value: int) -> int:
@@ -22,6 +26,7 @@ def seed(value: int) -> int:
     global _seed
     _seed = int(value)
     _generators.clear()
+    _sr_generators.clear()
     return _seed
 
 
@@ -39,3 +44,18 @@ def get_generator(device: Optional[Union[str, torch.device]] = None
         gen.manual_seed(_seed)
         _generators[key] = gen
     return gen
+
+
+def sr_salts(device: Union[str, torch.device]) -> torch.Tensor:
+    """Two uint32 salts for one stochastic-rounding writeback, as an int64
+    ``[2]`` tensor drawn on ``device`` from its salt generator (seeded from
+    the last :func:`seed`); no value comes back to the host."""
+    dev = torch.device(device)
+    key = str(dev)
+    gen = _sr_generators.get(key)
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(_seed + _SR_STREAM)
+        _sr_generators[key] = gen
+    return torch.randint(0, 2 ** 32, (2,), dtype=torch.int64, device=dev,
+                         generator=gen)

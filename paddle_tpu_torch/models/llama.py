@@ -3,9 +3,11 @@
 Module and parameter names mirror the reference (``llama.layers.0.
 self_attn.q_proj.weight``, ...), so ``utils/convert.py`` carries its
 weights over name for name. Attention goes through
-``nn.functional.scaled_dot_product_attention`` (the flash-forward kernel on
-the card for qualifying shapes) or, with a cache, through the paged cache
-(the paged-decode kernel on decode steps) or a dense cache.
+``nn.functional.scaled_dot_product_attention`` (the flash kernels on the
+card for qualifying shapes: forward, and backward when a gradient is
+taken) or, with a cache, through the paged cache (the paged-decode kernel
+on decode steps) or a dense cache. ``loss`` is the training objective of
+``bench.py``'s step.
 """
 from __future__ import annotations
 
@@ -263,5 +265,17 @@ class LlamaForCausalLM(nn.Module):
         h, caches = self.llama(input_ids, caches=caches, cur_len=cur_len)
         return self._head(h), caches
 
+    def loss(self, input_ids, labels):
+        """Mean token cross entropy of ``self(input_ids)`` against
+        ``labels`` (``F.cross_entropy`` on ``[B*S, V]``)."""
+        logits = self(input_ids)
+        b, s, v = logits.shape
+        return F.cross_entropy(logits.reshape(b * s, v), labels.reshape(b * s))
+
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """~6*N + attention flops per token (train forward + backward)."""
+        c = self.config
+        return 6 * self.num_params() + 12 * c.num_hidden_layers * c.hidden_size * seq_len

@@ -46,7 +46,9 @@ def _naive_attention(q, k, v, mask: Optional[torch.Tensor], causal: bool,
 
 def _use_flash(q: torch.Tensor, mask, dropout_p: float) -> bool:
     """The reference's ``_use_pallas`` gate with the CUDA card in place of
-    the TPU: no mask, no dropout, head_dim in {64, 128, 256}, seq % 128."""
+    the TPU: no mask, no dropout, head_dim in {64, 128, 256}, seq % 128.
+    The flash path is differentiable (forward and backward kernels), so
+    training and inference take it alike."""
     if mask is not None or dropout_p > 0 or q.device.type != "cuda":
         return False
     return q.shape[-1] in HEAD_DIMS and q.shape[1] % 128 == 0
@@ -61,7 +63,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         dropout_p = 0.0
     if dropout_p > 0:
         raise NotImplementedError(
-            "attention dropout arrives with the training slice of the port")
+            "attention dropout arrives with slice 3 of paddle_tpu_torch")
     if _use_flash(query, attn_mask, dropout_p):
         from ...ops.flash_attention import flash_attention
 

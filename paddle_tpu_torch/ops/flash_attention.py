@@ -1,20 +1,25 @@
-"""Flash-attention forward (counterpart of ``paddle_tpu/ops/flash_attention.py``).
+"""Flash attention (counterpart of ``paddle_tpu/ops/flash_attention.py``).
 
-The kernel is ``ops/kernels/flash_attention_fwd.cu``, a hand-written CUDA
-port of the TPU forward kernel ``_fwd_kernel`` (tensor cores for bf16/f16,
-CUDA cores for f32): online softmax with f32
-running max / denominator / accumulator, causal key tiles above the
-diagonal (offset ``sk - sq``) skipped, GQA by ``h // group`` without
-repeating K/V, ``NEG_INF = -1e30`` masking (fully masked rows come out as
-zeros), and an f32 logsumexp residual ``[B, H, Sq]``.
+Three hand-written CUDA kernels: the forward ``ops/kernels/
+flash_attention_fwd.cu`` (port of the TPU kernel ``_fwd_kernel``) and the
+backward pair in ``ops/kernels/flash_attention_bwd.cu`` (ports of
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``); bf16/f16 run on the tensor
+cores, f32 on the CUDA cores. The forward keeps an online softmax with f32
+running max / denominator / accumulator, skips causal key tiles above the
+diagonal (offset ``sk - sq``), reads GQA kv heads by ``h // group`` without
+repeating K/V, masks with ``NEG_INF = -1e30`` (fully masked rows come out
+as zeros) and leaves an f32 logsumexp residual ``[B, H, Sq]``. The backward
+recomputes the probabilities from that residual; ``delta = sum(out * dO)``
+is formed in f32 outside the kernels, and GQA's dK/dV come out per query
+head and are summed per group in f32, then cast once.
 
-Public layout is paddle's ``[B, S, H, D]``; the kernel reads and writes it
-through strides. The backward kernels (``_bwd_dq_kernel``,
-``_bwd_dkv_kernel``) arrive with the training slice, so
-:class:`FlashAttention` refuses to differentiate until then.
+Public layout is paddle's ``[B, S, H, D]``; the kernels read and write it
+through strides. :class:`FlashAttention` is the autograd seam in place of
+the reference's ``custom_vjp``.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -23,6 +28,8 @@ import torch
 from . import kernels
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_fwd_plain",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "FlashAttention", "NEG_INF"]
 
 NEG_INF = -1e30
@@ -121,22 +128,181 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     return out, lse
 
 
+def _bwd_plain_heads(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """The backward in f32, one block, with dK/dV per query head: q/do
+    ``[B, Sq, H, D]``, k/v ``[B, Sk, Hkv, D]``, lse/delta f32 ``[B, H, Sq]``
+    -> f32 (dq ``[B, Sq, H, D]``, dk, dv ``[B, Sk, H, D]``)."""
+    qh = q.transpose(1, 2).float()
+    kh = k.transpose(1, 2).float()
+    vh = v.transpose(1, 2).float()
+    doh = do.transpose(1, 2).float()
+    group = qh.shape[1] // kh.shape[1]
+    if group > 1:
+        kh = kh.repeat_interleave(group, dim=1)
+        vh = vh.repeat_interleave(group, dim=1)
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale  # [B, H, Sq, Sk]
+    mask = None
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(sk - sq)
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    if mask is not None:
+        # fully masked rows have lse == NEG_INF -> exp(0) == 1: zero them
+        p = p.masked_fill(~mask, 0.0)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    dv = torch.matmul(p.transpose(-1, -2), doh)
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def _delta(out, do) -> torch.Tensor:
+    """``sum(out * dO)`` over head_dim in f32, ``[B, H, Sq]`` (the
+    reference's :270, outside the kernels)."""
+    return (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _sum_groups(d: torch.Tensor, hkv: int, dtype) -> torch.Tensor:
+    """Per-query-head ``[B, Sk, H, D]`` -> ``[B, Sk, Hkv, D]`` in ``dtype``:
+    each group summed in f32 and cast once (the reference sums its bf16
+    per-head values, :372-373)."""
+    b, sk, h, dd = d.shape
+    if h == hkv:
+        return d.to(dtype)
+    return d.view(b, sk, hkv, h // hkv, dd).float().sum(3).to(dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, causal: bool = False,
+                              scale: Optional[float] = None):
+    """Plain PyTorch version of the backward kernels: the same function in
+    f32, in one block. q/out/do ``[B, Sq, H, D]``, k/v ``[B, Sk, Hkv, D]``,
+    lse f32 ``[B, H, Sq]`` -> (dq, dk, dv) in q's, k's and v's dtypes. P and
+    dS stay f32 here where the kernels round them to the input dtype."""
+    s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    dq, dk, dv = _bwd_plain_heads(q, k, v, do, lse, _delta(out, do), causal, s)
+    hkv = k.shape[2]
+    return dq.to(q.dtype), _sum_groups(dk, hkv, k.dtype), _sum_groups(dv, hkv, v.dtype)
+
+
+def _strides(*ts) -> ctypes.Array:
+    """(batch, seq, head) strides of each tensor, as the host array the
+    backward launch functions read."""
+    flat = [st for t in ts for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _bwd_inputs(name, q, k, v, do, lse, delta):
+    """Checks shared by the two backward kernel wrappers; returns q, k, v,
+    do made 16-byte aligned where the tensor-core kernels need it."""
+    _check(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"{name}: dO {tuple(do.shape)} {do.dtype} does not "
+                         f"match q {tuple(q.shape)} {q.dtype}")
+    b, sq, h, d = q.shape
+    for t, what in ((lse, "lse"), (delta, "delta")):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be contiguous f32 "
+                             f"[B, H, Sq] = {(b, h, sq)}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if d not in kernels.HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim in {kernels.HEAD_DIMS}, "
+                         f"got {d}")
+    for t in (q, k, v, do):
+        if t.stride(3) != 1:
+            raise ValueError("flash kernel needs a unit stride on head_dim")
+    if q.element_size() == 2:
+        q, k, v, do = (t if _vector_aligned(t)
+                       else t.clone(memory_format=torch.contiguous_format)
+                       for t in (q, k, v, do))
+    return q, k, v, do
+
+
+@kernels.kernel_wrapper("flash_attention_bwd_dq")
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
+                           scale: float) -> torch.Tensor:
+    """Kernel wrapper: dQ ``[B, Sq, H, D]`` in q's dtype from q/do
+    ``[B, Sq, H, D]``, k/v ``[B, Sk, Hkv, D]`` and f32 lse/delta
+    ``[B, H, Sq]``. CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return _bwd_plain_heads(q, k, v, do, lse, delta, causal, scale)[0].to(q.dtype)
+    q, k, v, do = _bwd_inputs("flash_attention_bwd_dq", q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    err = kernels.load("flash_attention_bwd").flash_attention_bwd_dq_launch(
+        kernels.dtype_code("flash_attention_bwd", q.dtype), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), None, b, h, hkv, sq, sk, d,
+        _strides(q, k, v, do, dq, dq), float(scale), int(bool(causal)),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check_launch("flash_attention_bwd_dq", err)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+@kernels.kernel_wrapper("flash_attention_bwd_dkv")
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
+                            scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper: (dK, dV) per query head, ``[B, Sk, H, D]`` in the
+    input dtype (GQA groups not yet summed). CPU tensors take the plain
+    version."""
+    if q.device.type == "cpu":
+        _, dk, dv = _bwd_plain_heads(q, k, v, do, lse, delta, causal, scale)
+        return dk.to(k.dtype), dv.to(v.dtype)
+    q, k, v, do = _bwd_inputs("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dk = torch.empty(b, sk, h, d, dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    err = kernels.load("flash_attention_bwd").flash_attention_bwd_dkv_launch(
+        kernels.dtype_code("flash_attention_bwd", q.dtype), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, sk, d,
+        _strides(q, k, v, do, dk, dv), float(scale), int(bool(causal)),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check_launch("flash_attention_bwd_dkv", err)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
+                        scale: Optional[float] = None):
+    """The reference's ``_fa_bwd``: (dq, dk, dv) in q's, k's and v's dtypes.
+    CPU tensors take :func:`flash_attention_bwd_plain`; CUDA tensors launch
+    the dQ and dK/dV kernels or raise."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale)
+    s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    delta = _delta(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, s)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, s)
+    hkv = k.shape[2]
+    return dq, _sum_groups(dk, hkv, k.dtype), _sum_groups(dv, hkv, v.dtype)
+
+
 class FlashAttention(torch.autograd.Function):
-    """Autograd seam mirroring the reference's ``custom_vjp``. The forward
-    is the kernel; the backward kernels (dq, dk/dv) are ported with the
-    training slice, and until then no gradient is computed at all."""
+    """Autograd seam mirroring the reference's ``custom_vjp``: the forward
+    kernel saves (q, k, v, out, lse); the backward runs the dQ and dK/dV
+    kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out, _ = flash_attention_fwd(q, k, v, causal, scale)
+        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "flash-attention backward (the TPU kernels _bwd_dq_kernel and "
-            "_bwd_dkv_kernel) is ported with the training slice of "
-            "paddle_tpu_torch")
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, grad_out,
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, causal: bool = False,

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) and their build.
 
-Each ``*.cu`` source here exports one plain-C launch function; it is
+Each ``*.cu`` source here exports plain-C launch functions; it is
 compiled by ``nvcc`` into its own shared library under
 ``<checkout>/build/torch_kernels/`` at first use and bound with ``ctypes``
 (pointers from ``Tensor.data_ptr()``, the stream from
@@ -31,20 +31,34 @@ __all__ = [
 
 _HERE = Path(__file__).resolve().parent
 
-# kernel name -> (source file, C launch symbol, ctypes argtypes)
+# library name -> (source file, {C launch symbol: ctypes argtypes})
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# flash backward: dtype, q, k, v, do, lse, delta, out1, out2, B, H, HKV, Sq,
+# Sk, D, host array of 18 strides (batch, seq, head of q, k, v, do, out1,
+# out2), scale, causal, stream
+_FLASH_BWD_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                   _P, _F, _I, _P]
 SOURCES = {
     "paged_decode_attention": (
-        "paged_decode_attention.cu", "paged_decode_attention_launch",
+        "paged_decode_attention.cu", {"paged_decode_attention_launch":
         # dtype, q, k_pool, v_pool, tables, lengths, out,
         # B, H, KVH, NB, BS, P, D, scale, stream
-        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]}),
     "flash_attention_fwd": (
-        "flash_attention_fwd.cu", "flash_attention_fwd_launch",
+        "flash_attention_fwd.cu", {"flash_attention_fwd_launch":
         # dtype, q, k, v, out, lse, B, H, HKV, Sq, Sk, D,
         # q/k/v/out strides (batch, seq, head), scale, causal, stream
         [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-         _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P]),
+         _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P]}),
+    "flash_attention_bwd": (
+        "flash_attention_bwd.cu", {
+            "flash_attention_bwd_dq_launch": _FLASH_BWD_ARGS,
+            "flash_attention_bwd_dkv_launch": _FLASH_BWD_ARGS}),
+    "fused_adamw": (
+        "fused_adamw.cu", {"fused_adamw_launch":
+        # p/g/m dtype codes, sr, p, g, m, v, scalars (4 f32), salts (2
+        # int64), n, beta1, 1 - beta1, beta2, 1 - beta2, stream
+        [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _P]}),
 }
 
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -147,10 +161,10 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
-        _, symbol, argtypes = SOURCES[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for symbol, argtypes in SOURCES[name][1].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 

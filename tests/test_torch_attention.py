@@ -86,9 +86,15 @@ def test_flash_fully_masked_rows_are_zero():
 
 
 def test_flash_backward_raises_until_training_slice():
+    """The training slice carries the backward: differentiating the flash
+    path no longer raises, and its gradients are those of the plain
+    attention differentiated by autograd."""
     rng = np.random.RandomState(3)
-    q, k, v = (torch.from_numpy(a).requires_grad_() for a in
-               _qkv(rng, 1, 16, 2, 2, 64))
-    out = flash_attention(q, k, v, True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    arrays = _qkv(rng, 1, 16, 2, 2, 64)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrays)
+    flash_attention(q, k, v, True).sum().backward()
+    q2, k2, v2 = (torch.from_numpy(a).requires_grad_() for a in arrays)
+    scaled_dot_product_attention(q2, k2, v2, is_causal=True).sum().backward()
+    for a, b in ((q, q2), (k, k2), (v, v2)):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(),
+                                   atol=SDPA_ATOL, rtol=0)

@@ -25,6 +25,9 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import paddle_tpu_torch.inference, paddle_tpu_torch.models\n"
         "import paddle_tpu_torch.ops.flash_attention\n"
         "import paddle_tpu_torch.ops.paged_attention\n"
+        "import paddle_tpu_torch.ops.fused_adamw\n"
+        "import paddle_tpu_torch.optimizer, paddle_tpu_torch.optimizer.lr\n"
+        "import paddle_tpu_torch.jit, paddle_tpu_torch.nn.functional.loss\n"
         "import paddle_tpu_torch.utils\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu')]\n"

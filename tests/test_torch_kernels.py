@@ -11,15 +11,29 @@ differs from its plain version by the plain path's bf16 logits (the kernel
 pre-scales q in bf16 and keeps scores in f32), 3e-2 absolute on outputs of
 unit scale; 2-byte flash rounds P to the input dtype before ``P @ V`` (as
 the TPU kernel does) where the plain version keeps f32: about two ulps of
-the output, 2e-2 absolute plus 2e-2 relative.
+the output, 2e-2 absolute plus 2e-2 relative. The flash backward kernels
+round P and dS to the input dtype before their products (as the TPU
+kernels do) where the plain version keeps f32: for 2-byte inputs dq/dk/dv
+agree within 3e-2 absolute plus 3e-2 relative and 1e-2 in norm-relative
+error; f32 to 1e-4. The fused AdamW kernel is bitwise equal to its plain
+version.
 """
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_fwd_plain,
+)
+from paddle_tpu_torch.ops.fused_adamw import (
+    fused_adamw_update,
+    fused_adamw_update_plain,
 )
 from paddle_tpu_torch.ops.paged_attention import paged_decode, paged_decode_plain
 
@@ -104,3 +118,116 @@ def test_flash_kernel_takes_strided_and_misaligned_views(dev, dtype):
                                atol=1e-4 if dtype == torch.float32 else 2e-2,
                                rtol=0 if dtype == torch.float32 else 2e-2)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-5)
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 256, 4, 4, 256), (1, 100, 4, 2, 300),
+                                   (1, 200, 4, 1, 72)],
+                         ids=["mha", "gqa_ragged_cross", "mqa_masked_rows"])
+def test_flash_backward_kernels_match_plain(dev, dtype, d, causal, shape):
+    b, sq, h, hkv, sk = shape
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q, do = (torch.randn(b, sq, h, d, generator=g).to(dev, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, hkv, d, generator=g).to(dev, dtype)
+            for _ in range(2))
+    out, lse = flash_attention_fwd_plain(q, k, v, causal)
+    before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    for a, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.isfinite(a).all(), name
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, atol=1e-4, rtol=0, msg=name)
+        else:
+            torch.testing.assert_close(a.float(), w.float(), atol=3e-2,
+                                       rtol=3e-2, msg=name)
+            assert _rel(a, w) <= 1e-2, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_on_card_matches_plain_backward(dev, dtype):
+    """``flash_attention`` differentiated on the card: strided q (a
+    transposed [B, H, S, D] buffer) and a GQA ratio of 2."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    q = torch.randn(2, 4, 128, 64, generator=g).to(dev, dtype).transpose(1, 2)
+    k = torch.randn(2, 128, 2, 64, generator=g).to(dev, dtype)
+    v = torch.randn(2, 128, 2, 64, generator=g).to(dev, dtype)
+    do = torch.randn(2, 128, 4, 64, generator=g).to(dev, dtype)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves, True).backward(do)
+    out, lse = flash_attention_fwd_plain(q, k, v, True)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+    for t, w in zip(leaves, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(t.grad, w, atol=1e-4, rtol=0)
+        else:
+            assert _rel(t.grad, w) <= 1e-2
+
+
+ADAMW_COMBOS = [(torch.float32, torch.float32, torch.float32),
+                (torch.float32, torch.float32, torch.bfloat16),
+                (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+                (torch.bfloat16, torch.bfloat16, torch.float32),
+                (torch.bfloat16, torch.float32, torch.bfloat16),
+                (torch.float32, torch.bfloat16, torch.float32)]
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
+
+
+@pytest.mark.parametrize("combo", ADAMW_COMBOS,
+                         ids=lambda c: "-".join(str(x)[6:] for x in c))
+@pytest.mark.parametrize("sr", [False, True], ids=["rne", "sr"])
+@pytest.mark.parametrize("shape", [(37, 19), (1000, 1301)])
+def test_fused_adamw_kernel_bitwise_vs_plain(dev, combo, sr, shape):
+    p_dt, g_dt, m_dt = combo
+    if sr and p_dt != torch.bfloat16:
+        pytest.skip("the SR writeback takes bf16 params only")
+    g = torch.Generator(device="cpu").manual_seed(5)
+    p = torch.randn(*shape, generator=g).to(dev, p_dt)
+    gr = (0.1 * torch.randn(*shape, generator=g)).to(dev, g_dt)
+    m = (0.01 * torch.randn(*shape, generator=g)).to(dev, m_dt)
+    v = (0.01 * torch.rand(*shape, generator=g)).to(dev, m_dt)
+    kw = dict(lr=1e-2, beta1=0.9, beta2=0.999, epsilon=1e-8,
+              beta1_pow=torch.tensor(0.9 ** 3, device=dev),
+              beta2_pow=torch.tensor(0.999 ** 3, device=dev), weight_decay=0.01,
+              sr_salts=(torch.tensor([0xDEADBEEF, 0x12345678], device=dev)
+                        if sr else None))
+    ref = [t.clone() for t in (p, m, v)]
+    before = fused_adamw_update.launches
+    fused_adamw_update(p, gr, m, v, **kw)
+    torch.cuda.synchronize()
+    assert fused_adamw_update.launches == before + 1
+    fused_adamw_update_plain(ref[0], gr, ref[1], ref[2], **kw)
+    for a, b, name in zip((p, m, v), ref, "pmv"):
+        assert torch.equal(_bits(a), _bits(b)), name
+
+
+def test_fused_adamw_kernel_skip_writes_nothing(dev):
+    g = torch.Generator(device="cpu").manual_seed(6)
+    p = torch.randn(513, 7, generator=g).to(dev, torch.bfloat16)
+    gr = torch.full_like(p, float("inf"))
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    ref = [t.clone() for t in (p, m, v)]
+    fused_adamw_update(p, gr, m, v, lr=1e-2, beta1=0.9, beta2=0.999,
+                       epsilon=1e-8, beta1_pow=torch.tensor(0.9, device=dev),
+                       beta2_pow=torch.tensor(0.999, device=dev),
+                       sr_salts=torch.tensor([1, 2], device=dev),
+                       skip=torch.tensor(True, device=dev))
+    torch.cuda.synchronize()
+    for a, b in zip((p, m, v), ref):
+        assert torch.equal(_bits(a), _bits(b))
