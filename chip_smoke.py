@@ -10,8 +10,10 @@ ffn 5632, 8 layers, 16 heads, 16 kv heads, bf16) with random weights made
 from ``--seed``: the serving slice's cache-less scoring
 ``LlamaForCausalLM.forward`` (flash-forward kernel) and
 ``ContinuousBatchingEngine`` (paged-decode kernel), as
-``benchmarks/serving_throughput.py`` configures them, and the training
-slice's flagship step of ``bench.py:main()`` (B=4, S=2048, masterless bf16
+``benchmarks/serving_throughput.py`` configures them; the engine with the
+prefix cache on the shared-prefix workload of that script's router mode,
+over int8 KV pools (int8 paged-decode kernel) and over bf16 pools; and the
+training slice's flagship step of ``bench.py:main()`` (B=4, S=2048, masterless bf16
 ``AdamW(lr=1e-4, moment_dtype="bfloat16", use_stochastic_rounding=True,
 fused=True)`` through ``jit.to_static(...).multi_step``: flash forward and
 backward kernels, fused-AdamW kernel). Each main path runs with every
@@ -51,6 +53,17 @@ SERVE = dict(max_batch=16, max_len=2048, block_size=64,
              decode_chunk=16)
 PROMPT_LENS = (256, 384, 512)
 N_REQUESTS, NEW_TOKENS = 32, 32
+# benchmarks/serving_throughput.py:346-370 (router mode, on-TPU numbers):
+# one engine where the source runs two replicas behind a ClusterRouter (the
+# router is a later slice), no priorities (admission control is a later
+# slice); plus 4 exact repeats of earlier prompts, so that fully cached
+# prompts fork their last block on the card
+PREFIX_SERVE = dict(max_batch=8, max_len=1024, block_size=64,
+                    prefill_chunk=256, num_blocks=8 * 16 + 8,
+                    prefix_cache=True)
+PREFIX_FAMILIES, PREFIX_LEN, PREFIX_TAILS = 4, 512, (64, 128)
+PREFIX_REQUESTS, PREFIX_REPEATS, PREFIX_NEW = 64, 4, 32
+KV_REL_TOL = 0.05  # int8 against bf16 pools, the reference's quality gate
 # bench.py:434-441 (flagship model and batch) and :448-477 (optimizer)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
 TRAIN_LR = 1e-4
@@ -63,6 +76,17 @@ GRAD_DEPTH = 2  # phase 8's layers: the plain attention path holds
 # plain version keeps f32. Either way about two bf16 ulps of the output
 # (2^-7 relative), so RTOL 2e-2 covers outputs of any size.
 PAGED_ATOL, FLASH_ATOL, RTOL = 3e-2, 2e-2, 2e-2
+# int8 paged decode, bf16 q, two gates. (1) Against the plain version,
+# which rounds logits, probabilities and each dequantized K/V element to
+# bf16 where the kernel keeps f32: a long row averages ~1000 V rows, so its
+# outputs are ~0.04, as large as PAGED_ATOL; the gate is a few bf16 ulps of
+# that scale, and the norm-relative error of each (sequence, head) row,
+# whose rounding noise does not average out where a few keys dominate
+# (up to 0.017, an f32 emulation of the kernel on the CPU). (2) Against the
+# plain version run in f32 on the kernel's own pre-scaled q, which leaves
+# only the kernel's final rounding to bf16: one bf16 ulp, 5e-3 per row.
+INT8_ATOL, INT8_RTOL, INT8_ROW_REL = 8e-3, 1e-2, 3e-2
+INT8_F32_ATOL, INT8_F32_RTOL, INT8_F32_ROW_REL = 1e-4, 8e-3, 5e-3
 LOGITS_REL_TOL = 5e-2  # 8 bf16 layers, kernel vs plain attention
 # flash backward, bf16: the kernels round P and dS to bf16 before their
 # products (the TPU kernels' rounding points) where the plain version keeps
@@ -118,17 +142,20 @@ def plain_paths(optimizers=()):
     from paddle_tpu_torch.ops import flash_attention as FA
     from paddle_tpu_torch.ops import paged_attention as PA
 
-    saved = A._use_flash, PA.paged_decode, FA.flash_attention_bwd
+    saved = (A._use_flash, PA.paged_decode, PA.paged_decode_int8,
+             FA.flash_attention_bwd)
     fused = [o._fused for o in optimizers]
     A._use_flash = lambda *a, **k: False
     PA.paged_decode = PA.paged_decode_plain
+    PA.paged_decode_int8 = PA.paged_decode_int8_plain
     FA.flash_attention_bwd = FA.flash_attention_bwd_plain
     for o in optimizers:
         o._fused = False
     try:
         yield
     finally:
-        A._use_flash, PA.paged_decode, FA.flash_attention_bwd = saved
+        (A._use_flash, PA.paged_decode, PA.paged_decode_int8,
+         FA.flash_attention_bwd) = saved
         for o, f in zip(optimizers, fused):
             o._fused = f
 
@@ -138,10 +165,53 @@ def rel_err(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-# -- phase 2: kernels against their plain versions ----------------------
-def paged_case(torch, dev, gen, gen_cpu, B):
-    from paddle_tpu_torch.ops.paged_attention import paged_decode, paged_decode_plain
+def row_rel_err(a, b) -> float:
+    """The worst norm-relative error over the rows of the last axis."""
+    a, b = a.float(), b.float()
+    return float(((a - b).norm(dim=-1)
+                  / b.norm(dim=-1).clamp_min(1e-30)).max())
 
+
+def int8_plain_f32(q, *rest):
+    """The int8 kernel's plain version in f32 on the kernel's q: rounded
+    as the kernel rounds it, ``q * (1/sqrt(D))`` in q's dtype, then taken
+    back to unit scale in f32 for the plain version's own scaling."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.ops.paged_attention import paged_decode_int8_plain
+
+    d = q.shape[-1]
+    scale = q.new_tensor(1.0 / math.sqrt(d), dtype=torch.float32).to(q.dtype)
+    return paged_decode_int8_plain((q * scale).float() * math.sqrt(d), *rest)
+
+
+def int8_gate(got, want, want_f32):
+    """The int8 kernel's two gates (see INT8_*): against its plain version
+    ``want`` and against ``want_f32`` from :func:`int8_plain_f32`. Returns
+    a dict of the errors and ``ok``."""
+    import torch
+
+    g, w, w32 = got.float(), want.float(), want_f32.float()
+    r = dict(max_abs_err=float((g - w).abs().max()), row_rel=row_rel_err(g, w),
+             f32_max_abs_err=float((g - w32).abs().max()),
+             f32_row_rel=row_rel_err(g, w32))
+    r["ok"] = (bool(torch.isfinite(g).all())
+               and r["row_rel"] <= INT8_ROW_REL
+               and torch.allclose(g, w, atol=INT8_ATOL, rtol=INT8_RTOL)
+               and r["f32_row_rel"] <= INT8_F32_ROW_REL
+               and torch.allclose(g, w32, atol=INT8_F32_ATOL,
+                                  rtol=INT8_F32_RTOL))
+    return r
+
+
+# -- phase 2: kernels against their plain versions ----------------------
+def paged_inputs(torch, dev, gen, gen_cpu, B):
+    """Phase 2's paged-decode inputs: bf16 pools [16, B*32 + 1, 64, 128]
+    behind shuffled tables (pages past the live ones hold the trash block),
+    lengths drawn from 1..2048 with the spread's two ends, bf16 q. Returns
+    ``(q, k_pool, v_pool, tables, cache_len, lengths)``."""
     H = KVH = 16
     D, BS, P = 128, 64, 2048 // 64
     nb = B * P + 1
@@ -157,6 +227,19 @@ def paged_case(torch, dev, gen, gen_cpu, B):
     vp = torch.randn(KVH, nb, BS, D, generator=gen, device=dev).to(torch.bfloat16)
     q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(torch.bfloat16)
     cl = (lengths - 1).to(torch.int32).to(dev)
+    return q, kp, vp, tables, cl, lengths
+
+
+def paged_case(torch, dev, gen, gen_cpu, B, int8=False):
+    """The float kernel on bf16 pools; with ``int8`` also the int8 kernel
+    on those pools quantized, at the same tables and lengths."""
+    from paddle_tpu_torch.ops.paged_attention import (
+        _kv_quantize, paged_decode, paged_decode_int8, paged_decode_int8_plain,
+        paged_decode_plain)
+
+    q, kp, vp, tables, cl, lengths = paged_inputs(torch, dev, gen, gen_cpu, B)
+    KVH, _, BS, D = kp.shape
+    H = q.shape[2]
     got = paged_decode(q, kp, vp, tables, cl)
     want = paged_decode_plain(q, kp, vp, tables, cl)
     torch.cuda.synchronize()
@@ -172,9 +255,30 @@ def paged_case(torch, dev, gen, gen_cpu, B):
     pages = int(sum(-(-int(n) // BS) for n in lengths))
     nbytes = live * KVH * D * 2 * 2 + 2 * B * H * D * 2 + pages * 4 + B * 4
     b_ms, b_by = bound(nbytes, 4.0 * live * H * D)
-    return dict(B=B, max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None, live_tokens=live,
-                rate=f"{nbytes / ms / 1e6:.1f} GB/s")
+    row = dict(B=B, max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, live_tokens=live,
+               rate=f"{nbytes / ms / 1e6:.1f} GB/s")
+    if not int8:
+        return row, None
+    (kq, ks), (vq, vs) = _kv_quantize(kp), _kv_quantize(vp)
+    del kp, vp
+    args = (q, kq, vq, ks, vs, tables, cl)
+    got = paged_decode_int8(*args)
+    want = paged_decode_int8_plain(*args)
+    gate = int8_gate(got, want, int8_plain_f32(*args))
+    rel = rel_err(got, want)
+    if not gate["ok"]:
+        fail(f"int8 paged decode B={B}: {gate} beyond the INT8_* gates")
+    ms = time_ms(lambda: paged_decode_int8(*args), 50)
+    plain_ms = time_ms(lambda: paged_decode_int8_plain(*args), 10)
+    # int8 K and V plus one f32 scale each per live row and kv head
+    nbytes = live * KVH * (2 * D + 2 * 4) + 2 * B * H * D * 2 + pages * 4 + B * 4
+    # scores and P @ V, and a multiply and a divide to dequantize each
+    # element, all in f32
+    b_ms, b_by = bound(nbytes, 4.0 * live * (H + KVH) * D, F32_FLOPS_PER_S)
+    return row, dict(gate, B=B, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     live_tokens=live, rate=f"{nbytes / ms / 1e6:.1f} GB/s")
 
 
 def flash_case(torch, dev, gen, causal, hkv):
@@ -328,6 +432,112 @@ def bench_step(model, opt):
     return jit.to_static(step, layers=[model], optimizers=[opt])
 
 
+def prefix_serving_phase(torch, np, model, cfg, card):
+    """Phase 5b: the engine with the prefix cache on the shared-prefix
+    workload, over int8 and over bf16 pools, each run with the launch
+    counts set to 0 just before it; then int8 against bf16 pools. Returns
+    the int8 run's launch counts."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import kernels
+
+    rng = np.random.RandomState(3)  # the source's seed and draw order
+    families = [rng.randint(0, cfg.vocab_size, (PREFIX_LEN,))
+                for _ in range(PREFIX_FAMILIES)]
+    work = [(i, np.concatenate([
+        families[i % PREFIX_FAMILIES],
+        rng.randint(0, cfg.vocab_size, (PREFIX_TAILS[i % 2],))]))
+        for i in range(PREFIX_REQUESTS)]
+    # the repeats queue behind the first wave of max_batch requests, so
+    # their originals' blocks are in the cache when they are admitted
+    wave = PREFIX_SERVE["max_batch"]
+    work = (work[:wave] + [(f"again{i}", work[i][1].copy())
+                           for i in range(PREFIX_REPEATS)] + work[wave:])
+    L = cfg.num_hidden_layers
+
+    def serve_prefix(kv_dtype, requests):
+        eng = ContinuousBatchingEngine(model, **PREFIX_SERVE, kv_dtype=kv_dtype)
+        for rid, p in requests:
+            eng.add_request(rid, p, max_new_tokens=PREFIX_NEW)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        return eng, done, time.perf_counter() - t0, kernels.launch_counts()
+
+    runs = {}
+    for kv in ("int8", None):
+        serve_prefix(kv, work[:2])  # warm-up outside the counted run
+        eng, done, wall, counts = serve_prefix(kv, work)
+        name = kv or "bf16"
+        runs[name] = (eng, done, counts)
+        st = eng.prefix_stats()
+        acc = eng.manager.accounting()
+        ttft = statistics.median(r.ttft() for r in done.values())
+        print(f"phase 5b shared-prefix serving, {name} KV pools: "
+              f"{len(done)} requests ({PREFIX_FAMILIES} families of "
+              f"{PREFIX_LEN}-token prefixes, tails {PREFIX_TAILS}, "
+              f"{PREFIX_REPEATS} exact repeats, {PREFIX_NEW} new tokens each) "
+              f"B={PREFIX_SERVE['max_batch']} chunk "
+              f"{PREFIX_SERVE['prefill_chunk']}: wall {wall:.3f} s, "
+              f"{eng.decode_tokens / wall:.1f} decode tokens/s of wall time, "
+              f"TTFT p50 {ttft * 1e3:.1f} ms (all submitted at t=0), "
+              f"{eng.decode_steps} decode steps, prefix hit tokens "
+              f"{st['hit_tokens']}, hit rate {st['hit_rate']:.4f}, forks "
+              f"{st['forks']}, evicted blocks {st['evicted_blocks']}, "
+              f"counts {json.dumps(counts)} [{card}]")
+        want_int8 = L * eng.decode_steps if kv else 0
+        if (eng.decode_steps == 0
+                or counts["paged_decode_attention_int8"] != want_int8
+                or counts["paged_decode_attention"] != L * eng.decode_steps
+                - want_int8):
+            fail(f"{name} prefix serving: launch counts {counts} for "
+                 f"{eng.decode_steps} decode steps x {L} layers")
+        if not (st["forks"] >= PREFIX_REPEATS and st["hit_tokens"] > 0):
+            fail(f"{name} prefix serving: forks {st['forks']}, hit tokens "
+                 f"{st['hit_tokens']}")
+        if not (acc["free"] + len(acc["refs"]) == acc["total"]
+                and not acc["owned"] and set(acc["refs"].values()) <= {1}):
+            fail(f"{name} prefix serving: blocks neither free nor pinned by "
+                 f"the cache alone at the end: {acc}")
+        if len(done) != len(work) or any(
+                len(r.out) != PREFIX_NEW
+                or not all(0 <= t < cfg.vocab_size for t in r.out)
+                for r in done.values()):
+            fail(f"{name} prefix serving: a request did not complete with "
+                 f"in-range tokens")
+    toks8, toks16 = ({rid: r.out for rid, r in runs[n][1].items()}
+                     for n in ("int8", "bf16"))
+    agree = float(np.mean([a == b for rid in toks16
+                           for a, b in zip(toks8[rid], toks16[rid])]))
+    # int8_decode_bench.py:179-202: last prefill logits, int8 against bf16
+    # pools, on the 576-token prompts of the first wave
+    ids5 = torch.from_numpy(np.stack([p for rid, p in work[:wave]
+                                      if p.size == work[0][1].size]))
+    ids5 = ids5.to(model.device)
+    lasts = {}
+    with torch.no_grad():
+        for kv in ("int8", None):
+            c = model.init_cache(ids5.shape[0], ids5.shape[1] + 4,
+                                 block_size=PREFIX_SERVE["block_size"],
+                                 kv_dtype=kv)
+            lg, _ = model.forward_with_cache(ids5, c, 0)
+            lasts[kv] = lg[:, -1].float()
+            del c, lg
+    ref5, q5 = lasts[None], lasts["int8"]
+    kv_rel = float((q5 - ref5).abs().mean() / (ref5.abs().mean() + 1e-9))
+    top5 = ref5.topk(5, dim=-1).indices
+    in_top5 = float((top5 == q5.argmax(-1, keepdim=True)).any(-1).float().mean())
+    print(f"phase 5b int8 against bf16 pools: greedy tokens agree on "
+          f"{agree:.4f} of {sum(len(t) for t in toks16.values())} positions; "
+          f"last prefill logit rel err {kv_rel:.4f} (tol {KV_REL_TOL}), int8 "
+          f"argmax in bf16 top-5 {in_top5:.2f} ({ids5.shape[0]} prompts of "
+          f"{ids5.shape[1]} tokens)")
+    if not (np.isfinite(kv_rel) and kv_rel <= KV_REL_TOL):
+        fail(f"int8 KV pools: last-logit rel err {kv_rel} beyond {KV_REL_TOL}")
+    return runs["int8"][2]
+
+
 def kernel_class(name: str) -> str:
     """Bucket a profiled kernel name for the training step's time split."""
     n = name.lower()
@@ -349,6 +559,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -358,7 +569,8 @@ def main() -> int:
     try:
         from paddle_tpu_torch import seed as pt_seed
         from paddle_tpu_torch.inference import ContinuousBatchingEngine
-        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+        from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                             generate)
         from paddle_tpu_torch.ops import kernels
         from paddle_tpu_torch.ops.paged_attention import paged_decode
         from paddle_tpu_torch.utils import load_jax_params
@@ -388,7 +600,7 @@ def main() -> int:
     # -- phase 2 ---------------------------------------------------------
     paged_rows = []
     for B in (16, 64):
-        r = paged_case(torch, dev, gen, gen_cpu, B)
+        r, r8 = paged_case(torch, dev, gen, gen_cpu, B, int8=B == 16)
         paged_rows.append(r)
         print(f"phase 2 paged_decode B={B} H=KVH=16 D=128 bs=64 "
               f"live_tokens={r['live_tokens']}: max_abs_err={r['max_abs_err']:.3g} "
@@ -397,6 +609,22 @@ def main() -> int:
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"{r['rate']}, {100 * r['bound_ms'] / r['ms']:.1f}% of bound "
               f"[{card}]")
+        if r8 is not None:
+            int8_row = r8
+            print(f"phase 2 paged_decode_int8 B={B} H=KVH=16 D=128 bs=64 "
+                  f"int8 pools, f32 scales, bf16 q, same tables: "
+                  f"max_abs_err={r8['max_abs_err']:.3g} "
+                  f"rel_err={r8['rel_err']:.3g} worst row rel_err="
+                  f"{r8['row_rel']:.3g} (atol {INT8_ATOL} + rtol "
+                  f"{INT8_RTOL}, row rel {INT8_ROW_REL}); against the plain "
+                  f"version in f32: max_abs_err={r8['f32_max_abs_err']:.3g} "
+                  f"worst row rel_err={r8['f32_row_rel']:.3g} (atol "
+                  f"{INT8_F32_ATOL} + rtol {INT8_F32_RTOL}, row rel "
+                  f"{INT8_F32_ROW_REL}) "
+                  f"ms={r8['ms']:.4f} plain_ms={r8['plain_ms']:.4f} "
+                  f"bound_ms={r8['bound_ms']:.4f} ({r8['bound_by']}) "
+                  f"{r8['rate']}, {100 * r8['bound_ms'] / r8['ms']:.1f}% of "
+                  f"bound [{card}]")
     flash_rows = []
     for causal, hkv in ((True, 16), (False, 16), (True, 4)):
         r = flash_case(torch, dev, gen, causal, hkv)
@@ -594,7 +822,12 @@ def main() -> int:
     else:
         print(f"phase 5 decode step B=16: {step_ms:.3f} ms wall per step; "
               f"device time not measured (the profiler saw no device time)")
-    del caches, saved, model
+    del caches, saved
+    torch.cuda.empty_cache()
+
+    # -- phase 5b: shared-prefix serving, int8 against bf16 KV pools --------
+    prefix_int8_counts = prefix_serving_phase(torch, np, model, cfg, card)
+    del model
     torch.cuda.empty_cache()
 
     # -- phase 6: small f32 reference, card against CPU ----------------------
@@ -622,20 +855,56 @@ def main() -> int:
                                            generator=rng).numpy(),
                           max_new_tokens=12)
         toks[name] = {r: q.out for r, q in e.run().items()}
+    # the int8 engine with the prefix cache: shared prefixes and a fully
+    # cached repeat, so that adopt, fork and the block copy run too
+    toks8, forks8 = {}, {}
+    for name, m in (("cuda", gpu_model), ("cpu", cpu_model)):
+        e = ContinuousBatchingEngine(m, max_batch=2, max_len=256, block_size=16,
+                                     num_blocks=48, prompt_pad=96,
+                                     kv_dtype="int8", prefix_cache=True)
+        rng = torch.Generator().manual_seed(args.seed + 7)
+        pre = torch.randint(0, small.vocab_size, (48,), generator=rng)
+        prompts = [torch.cat([pre, torch.randint(0, small.vocab_size, (n,),
+                                                 generator=rng)]).numpy()
+                   for n in (16, 5, 0, 9)]
+        for i, p in enumerate(prompts + prompts[:1]):  # 0 again: fully cached
+            e.add_request(i, p, max_new_tokens=12)
+        toks8[name] = {r: q.out for r, q in e.run().items()}
+        forks8[name] = e.prefix_stats()["forks"]
     c6 = kernels.launch_counts()
+    # generate over contiguous int8 tables: on the card every decode step
+    # of every layer launches the int8 kernel
+    gen_ids = torch.randint(0, small.vocab_size, (2, 9), generator=gen_cpu)
+    gen_new = 7
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        gen_gpu = generate(gpu_model, gen_ids.to(dev), max_new_tokens=gen_new,
+                           block_size=16, kv_dtype="int8").cpu()
+    c6g = kernels.launch_counts()["paged_decode_attention_int8"]
+    with torch.no_grad():
+        gen_cpu_out = generate(cpu_model, gen_ids, max_new_tokens=gen_new,
+                               block_size=16, kv_dtype="int8")
+    want_g = small.num_hidden_layers * (gen_new - 1)
     print(f"phase 6 small f32 reference (hidden 256, head_dim 64): logits max "
           f"abs err card vs CPU {e6:.3g} (tol 1e-3), engine tokens equal: "
-          f"{toks['cuda'] == toks['cpu']}, counts {json.dumps(c6)}")
+          f"{toks['cuda'] == toks['cpu']}, int8 KV + prefix cache engine "
+          f"tokens equal: {toks8['cuda'] == toks8['cpu']} (forks card "
+          f"{forks8['cuda']}, CPU {forks8['cpu']}), counts {json.dumps(c6)}; "
+          f"generate(block_size=16, kv_dtype='int8') tokens equal: "
+          f"{torch.equal(gen_gpu, gen_cpu_out)}, int8 kernel launches {c6g} "
+          f"(want {want_g})")
     if not (e6 <= 1e-3 and toks["cuda"] == toks["cpu"]
-            and c6["flash_attention_fwd"] >= 1 and c6["paged_decode_attention"] >= 1):
+            and toks8["cuda"] == toks8["cpu"] and forks8["cuda"] >= 1
+            and forks8["cuda"] == forks8["cpu"]
+            and c6["flash_attention_fwd"] >= 1 and c6["paged_decode_attention"] >= 1
+            and c6["paged_decode_attention_int8"] >= 1
+            and torch.equal(gen_gpu, gen_cpu_out) and c6g == want_g):
         fail("the card disagrees with the CPU at the small f32 size")
 
     del cpu_model, gpu_model
     torch.cuda.empty_cache()
 
     # -- phase 7: the flagship train step at full width ----------------------
-    import numpy as np
-
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.optimizer import AdamW
 
@@ -671,7 +940,8 @@ def main() -> int:
                    "flash_attention_bwd_dq": L7 * TRAIN_STEPS,
                    "flash_attention_bwd_dkv": L7 * TRAIN_STEPS,
                    "fused_adamw": n_tensors * TRAIN_STEPS,
-                   "paged_decode_attention": 0}
+                   "paged_decode_attention": 0,
+                   "paged_decode_attention_int8": 0}
     loss_list = [float(warm.detach())] + [float(x) for x in losses.cpu()]
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step_ms = train_s / TRAIN_STEPS * 1e3
@@ -811,6 +1081,13 @@ def main() -> int:
              max_abs_err=paged16["max_abs_err"], ms=paged16["ms"],
              plain_ms=paged16["plain_ms"], bound_ms=paged16["bound_ms"],
              bound_by=paged16["bound_by"], library_ms=None),
+        dict(name="paged_decode_attention_int8", route="cuda",
+             source="paddle_tpu_torch/ops/kernels/paged_decode_attention.cu",
+             replaces="paddle_tpu/ops/paged_attention.py:984",
+             launches=prefix_int8_counts["paged_decode_attention_int8"],
+             max_abs_err=int8_row["max_abs_err"], ms=int8_row["ms"],
+             plain_ms=int8_row["plain_ms"], bound_ms=int8_row["bound_ms"],
+             bound_by=int8_row["bound_by"], library_ms=None),
         dict(name="flash_attention_fwd", route="cuda",
              source="paddle_tpu_torch/ops/kernels/flash_attention_fwd.cu",
              replaces="paddle_tpu/ops/flash_attention.py:64",

@@ -23,13 +23,18 @@ blocks recycled.
   loop with tokens, lengths and eos state kept on the device, in place of
   the reference's ``lax.scan``.
 - The pools are updated in place (the JAX engine donates them).
+- ``kv_dtype="int8"`` stores the KV pools in int8 with f32 per-token
+  scale pools; each decode step then runs the int8 paged-decode kernel.
+- ``prefix_cache=True`` keeps finished prompts' full KV blocks pinned in a
+  :class:`PrefixCache`; a later prompt sharing a block-aligned prefix
+  adopts them (ref-counted, copy-on-write) and prefills only the rest.
 
 Greedy decoding only, so engine outputs are token-identical to isolated
 ``generate`` runs and to the JAX engine on the same weights. The
-reference's admission control, prefix cache, speculative decoding, int8
-KV, fp8, disaggregated roles, overlap, cache tier, tenants, deadlines,
-tracing spans, chaos sites and resource ledger arrive with later slices
-and raise ``NotImplementedError`` here when asked for.
+reference's admission control, speculative decoding, fp8, disaggregated
+roles, overlap, cache tier, tenant namespaces, deadlines, tracing spans,
+chaos sites and resource ledger arrive with later slices and raise
+``NotImplementedError`` here when asked for.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..ops.paged_attention import BlockManager, PagedLayerCache
+from ..ops.paged_attention import BlockManager, PagedLayerCache, PrefixCache
 
 __all__ = ["GenRequest", "ContinuousBatchingEngine"]
 
@@ -90,9 +95,8 @@ class _Slot:
 # the reference's keywords whose features arrive with later slices, each
 # with the value that means "off"
 _LATER_ENGINE_ARGS = {
-    "admission": None, "prefix_cache": False, "spec_decode_k": None,
-    "draft_proposer": None, "kv_dtype": None, "fp8": False,
-    "role": "unified", "overlap": False, "cache_tier": None,
+    "admission": None, "spec_decode_k": None, "draft_proposer": None,
+    "fp8": False, "role": "unified", "overlap": False, "cache_tier": None,
     "tenant_namespaces": False, "shared_prefixes": None,
 }
 _LATER_REQUEST_ARGS = {
@@ -118,6 +122,8 @@ class ContinuousBatchingEngine:
                  decode_chunk: int = 1,
                  prefill_chunk: Optional[int] = None,
                  max_num_batched_tokens: Optional[int] = None,
+                 prefix_cache: bool = False,
+                 kv_dtype: Optional[str] = None,
                  **later):
         """``num_blocks`` fixes the KV budget (the pool allocates one extra
         trash block); ``max_len`` bounds any sequence's positions;
@@ -127,7 +133,8 @@ class ContinuousBatchingEngine:
         token budget, no slot is mid-prefill and active*K fits).
         ``prefill_chunk=C`` turns on chunked prefill with at most
         ``max_num_batched_tokens`` (default ``max_batch + C``) real tokens
-        per step."""
+        per step. ``prefix_cache=True`` turns on prefix KV reuse;
+        ``kv_dtype="int8"`` quantizes the KV pools."""
         _refuse_later(later, _LATER_ENGINE_ARGS)
         self.model = model
         self.device = next(model.parameters()).device
@@ -145,6 +152,10 @@ class ContinuousBatchingEngine:
                 f"max_position_embeddings ({limit})")
         self.eos_token_id = eos_token_id
         self.manager = BlockManager(num_blocks, block_size)
+        self.prefix_cache = (PrefixCache(block_size, manager=self.manager)
+                             if prefix_cache else None)
+        self.prefix_hit_tokens = 0
+        self.prefix_forks = 0
         self._trash = num_blocks  # reserved sacrificial pool row
         self.max_blocks_per_seq = -(-self.max_len // block_size)
 
@@ -166,6 +177,10 @@ class ContinuousBatchingEngine:
                     "prefill must be able to schedule one chunk")
         else:
             self.max_num_batched_tokens = None
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+        self.kv_dtype = kv_dtype
 
         self._restore_training = model.training
         model.eval()
@@ -173,8 +188,12 @@ class ContinuousBatchingEngine:
             self.B, self.max_len, block_size=block_size,
             num_blocks=num_blocks + 1,
             tables=np.full((self.B, self.max_blocks_per_seq), self._trash,
-                           np.int32))
-        self._pools = [(c.k_pool, c.v_pool) for c in caches]
+                           np.int32),
+            kv_dtype=kv_dtype)
+        # per layer (k, v), or (k, v, k_scale, v_scale) for int8 pools
+        self._pools = [(c.k_pool, c.v_pool)
+                       + (() if c.k_scale is None else (c.k_scale, c.v_scale))
+                       for c in caches]
         self._tables = np.full((self.B, self.max_blocks_per_seq), self._trash,
                                np.int32)
         self._slots = [_Slot() for _ in range(self.B)]
@@ -194,7 +213,16 @@ class ContinuousBatchingEngine:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     def _caches(self, tables: torch.Tensor) -> List[PagedLayerCache]:
-        return [PagedLayerCache(k, v, tables, False) for k, v in self._pools]
+        return [PagedLayerCache(e[0], e[1], tables, False, *e[2:])
+                for e in self._pools]
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """Copy one physical block's KV, in place, in every layer's pools
+        (scale rows included: a forked block's scales travel with its
+        bytes) — the device half of a copy-on-write fork."""
+        for entry in self._pools:
+            for pool in entry:
+                pool[:, dst] = pool[:, src]
 
     @torch.no_grad()
     def _prefill(self, ids, tables, cache_len, last_idx) -> torch.Tensor:
@@ -269,22 +297,83 @@ class ContinuousBatchingEngine:
         req.out.append(tok)
         req.times.append(time.perf_counter())
 
+    def prefix_stats(self) -> dict:
+        """Prefix-cache counters (zeros when the cache is off).
+        ``hit_rate`` is cached tokens over prompt tokens that entered a
+        slot: the share of prefill work the cache saved. The tree's own
+        lookup tallies count head-of-line re-probes, so only its shape
+        keys are reported beside the engine's adopted-token count."""
+        total = self.prefill_tokens + self.prefix_hit_tokens
+        base = {
+            "enabled": self.prefix_cache is not None,
+            "hit_tokens": self.prefix_hit_tokens,
+            "prefill_tokens": self.prefill_tokens,
+            "forks": self.prefix_forks,
+            "hit_rate": (self.prefix_hit_tokens / total) if total else 0.0,
+        }
+        if self.prefix_cache is not None:
+            tree = self.prefix_cache.stats()
+            base.update({k: tree[k] for k in
+                         ("nodes", "lookups", "evicted_blocks")})
+        return base
+
+    def _reserve_blocks(self, req):
+        """Block-availability half of slot binding, prefix-cache aware:
+        look up the prompt's cached prefix, ADOPT those blocks, and check
+        the shortfall against the free list, evicting LRU cache entries
+        when it runs short. Returns ``(ok, cached_len, will_fork)``; on
+        ``ok=False`` the adoption is undone (head-of-line wait).
+
+        ``cached_len`` is capped at ``prompt.size - 1``: the first token
+        comes from the last prompt position's logits, which only a real
+        prefill produces, so a fully cached prompt recomputes one token —
+        whose write lands inside the last shared block, which the caller
+        must then fork (``will_fork``)."""
+        psize = int(req.prompt.size)
+        cached_len, cached_blocks = 0, []
+        if self.prefix_cache is not None:
+            cached_len, cached_blocks = self.prefix_cache.lookup(req.prompt)
+            cached_len = min(cached_len, psize - 1)
+        will_fork = bool(cached_len % self.block_size)
+        need = (self._blocks_needed(req) - len(cached_blocks)
+                + (1 if will_fork else 0))
+        if cached_blocks:
+            self.manager.adopt(req.req_id, cached_blocks)
+        if need > self.manager.free_blocks and self.prefix_cache is not None:
+            self.prefix_cache.evict(need - self.manager.free_blocks)
+        if need > self.manager.free_blocks:
+            if cached_blocks:
+                self.manager.free_sequence(req.req_id)
+            return False, 0, False
+        return True, cached_len, will_fork
+
     def _admit(self) -> int:
         """Fill free slots from the queue while blocks last (FIFO,
         head-of-line). Whole-prompt mode runs one padded prefill per
-        admission; chunked mode only binds the slot and reserves its full
-        block budget. Returns real tokens processed."""
+        admission, of the prompt's un-cached remainder at offset
+        ``cached_len``; chunked mode only binds the slot, reserves its
+        full block budget and starts its chunks at ``cached_len``.
+        Returns real tokens processed."""
         used = 0
         for slot_idx, slot in enumerate(self._slots):
             if not self._queue or slot.active:
                 continue
             req = self._queue[0]
-            if not self.manager.can_allocate(req.req_id,
-                                             self._blocks_needed(req)
-                                             * self.block_size):
+            ok, cached_len, will_fork = self._reserve_blocks(req)
+            if not ok:
                 break  # head-of-line; keep FIFO fairness
             self.manager.allocate(req.req_id,
                                   self._blocks_needed(req) * self.block_size)
+            if will_fork:
+                # the first write (position cached_len) lands inside the
+                # last adopted block: copy it so its readers keep it
+                old, new = self.manager.fork(
+                    req.req_id, cached_len // self.block_size)
+                if new != old:
+                    self._copy_block(old, new)
+                    self.prefix_forks += 1
+            self.prefix_hit_tokens += cached_len
+            blocks = self.manager.owned_blocks(req.req_id)
             row = self.manager.table_row(req.req_id, self.max_blocks_per_seq,
                                          fill=self._trash)
             self._tables[slot_idx] = row
@@ -292,11 +381,12 @@ class ContinuousBatchingEngine:
             slot.remaining = req.max_new_tokens
             self._queue.pop(0)
             if self.chunked:
-                slot.prefill_pos = 0
-                slot.cache_len = 0
+                slot.prefill_pos = cached_len
+                slot.cache_len = cached_len
                 continue
 
             psize = int(req.prompt.size)
+            rem = psize - cached_len  # >= 1 by the cached_len cap
             slot.prefill_pos = psize
             slot.cache_len = psize
             # isolated prefill: only this row's table points at real
@@ -304,14 +394,19 @@ class ContinuousBatchingEngine:
             iso = np.full_like(self._tables, self._trash)
             iso[slot_idx] = row
             ids = np.zeros((self.B, self.prompt_pad), np.int32)
-            ids[slot_idx, :psize] = req.prompt
+            ids[slot_idx, :rem] = req.prompt[cached_len:]
+            cl = np.zeros((self.B,), np.int32)
+            cl[slot_idx] = cached_len
             last_idx = np.zeros((self.B,), np.int32)
-            last_idx[slot_idx] = psize - 1
+            last_idx[slot_idx] = rem - 1
             firsts = self._prefill(self._h2d(ids), self._h2d(iso),
-                                   self._h2d(np.zeros((self.B,), np.int32)),
-                                   self._h2d(last_idx))
-            used += psize
-            self.prefill_tokens += psize
+                                   self._h2d(cl), self._h2d(last_idx))
+            used += rem
+            self.prefill_tokens += rem
+            if self.prefix_cache is not None:
+                # pin the prompt's full blocks before a same-step finish
+                # frees the sequence's own references
+                self.prefix_cache.insert(req.prompt, blocks)
             self._apply_first_token(slot_idx, req, int(firsts[slot_idx]))
         return used
 
@@ -407,6 +502,12 @@ class ContinuousBatchingEngine:
                 self.prefill_tokens += real
                 used += real
                 if slot.prefill_pos == slot.req.prompt.size:
+                    if self.prefix_cache is not None:
+                        # pin the finished prompt's full blocks before a
+                        # same-chunk finish frees the sequence
+                        self.prefix_cache.insert(
+                            slot.req.prompt,
+                            self.manager.owned_blocks(slot.req.req_id))
                     done_rows.append((i, slot.req))
             if done_rows:
                 vals = firsts.cpu().numpy()  # [B] ints, not [B, chunk]

@@ -48,10 +48,12 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 def generate(model, input_ids, max_new_tokens: int = 32,
              temperature: float = 0.0, eos_token_id: Optional[int] = None,
              block_size: Optional[int] = None,
-             decode_chunk: Optional[int] = None) -> torch.Tensor:
+             decode_chunk: Optional[int] = None,
+             kv_dtype: Optional[str] = None) -> torch.Tensor:
     """Greedy continuation of ``input_ids`` ([B, S] int tensor on the
     model's device); returns ``[B, S + max_new_tokens]`` ids. Rows that
-    emit ``eos_token_id`` repeat it thereafter."""
+    emit ``eos_token_id`` repeat it thereafter. ``kv_dtype="int8"``
+    (requires ``block_size``) quantizes the KV pools."""
     if temperature != 0:
         raise NotImplementedError(
             "sampling arrives with a later slice; the port decodes greedily")
@@ -68,7 +70,8 @@ def generate(model, input_ids, max_new_tokens: int = 32,
     model.eval()
     try:
         with torch.no_grad():
-            caches = model.init_cache(b, max_len, block_size=block_size)
+            caches = model.init_cache(b, max_len, block_size=block_size,
+                                      kv_dtype=kv_dtype)
             logits, caches = model.forward_with_cache(input_ids, caches, 0)
             tok = _greedy(logits[:, -1])
             out: List[torch.Tensor] = [tok]

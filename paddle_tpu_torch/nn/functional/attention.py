@@ -63,7 +63,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         dropout_p = 0.0
     if dropout_p > 0:
         raise NotImplementedError(
-            "attention dropout arrives with slice 3 of paddle_tpu_torch")
+            "attention dropout arrives with a later slice of paddle_tpu_torch")
     if _use_flash(query, attn_mask, dropout_p):
         from ...ops.flash_attention import flash_attention
 

@@ -40,10 +40,16 @@ _FLASH_BWD_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    _P, _F, _I, _P]
 SOURCES = {
     "paged_decode_attention": (
-        "paged_decode_attention.cu", {"paged_decode_attention_launch":
-        # dtype, q, k_pool, v_pool, tables, lengths, out,
-        # B, H, KVH, NB, BS, P, D, scale, stream
-        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]}),
+        "paged_decode_attention.cu", {
+            "paged_decode_attention_launch":
+            # dtype, q, k_pool, v_pool, tables, lengths, out,
+            # B, H, KVH, NB, BS, P, D, scale, stream
+            [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+            "paged_decode_attention_int8_launch":
+            # dtype, q, k_pool, v_pool, k_scale, v_scale, tables, lengths,
+            # out, B, H, KVH, NB, BS, P, D, scale, stream
+            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _F, _P]}),
     "flash_attention_fwd": (
         "flash_attention_fwd.cu", {"flash_attention_fwd_launch":
         # dtype, q, k, v, out, lse, B, H, HKV, Sq, Sk, D,

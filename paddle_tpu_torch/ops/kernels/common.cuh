@@ -19,6 +19,9 @@ template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x
 template <> __device__ __forceinline__ float to_f<__half>(__half x) {
   return __half2float(x);
 }
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) {
+  return (float)x;  // exact
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }

@@ -32,7 +32,7 @@ __all__ = [
     "LBFGS",
 ]
 
-_LATER = "slice 3 of paddle_tpu_torch"
+_LATER = "a later slice of paddle_tpu_torch"
 
 
 # unbiased f32 -> bf16 rounding with the reference's lowbias32 hash over

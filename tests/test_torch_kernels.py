@@ -9,9 +9,13 @@ the fixture, never at import.
 Tolerances: f32 inputs agree to reduction order (1e-4); bf16 paged decode
 differs from its plain version by the plain path's bf16 logits (the kernel
 pre-scales q in bf16 and keeps scores in f32), 3e-2 absolute on outputs of
-unit scale; 2-byte flash rounds P to the input dtype before ``P @ V`` (as
-the TPU kernel does) where the plain version keeps f32: about two ulps of
-the output, 2e-2 absolute plus 2e-2 relative. The flash backward kernels
+unit scale, and over int8 pools also by the plain path's dequantized K/V
+rounded to q's dtype (2e-2 relative for outputs beyond unit scale; against
+the plain version run in f32 on the kernel's pre-scaled q, 5e-3
+norm-relative for each (sequence, head) row); 2-byte
+flash rounds P to the input dtype before ``P @ V`` (as the TPU kernel
+does) where the plain version keeps f32: about two ulps of the output,
+2e-2 absolute plus 2e-2 relative. The flash backward kernels
 round P and dS to the input dtype before their products (as the TPU
 kernels do) where the plain version keeps f32: for 2-byte inputs dq/dk/dv
 agree within 3e-2 absolute plus 3e-2 relative and 1e-2 in norm-relative
@@ -35,7 +39,12 @@ from paddle_tpu_torch.ops.fused_adamw import (
     fused_adamw_update,
     fused_adamw_update_plain,
 )
-from paddle_tpu_torch.ops.paged_attention import paged_decode, paged_decode_plain
+from paddle_tpu_torch.ops.paged_attention import (
+    paged_decode,
+    paged_decode_int8,
+    paged_decode_int8_plain,
+    paged_decode_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -71,6 +80,79 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, d):
     want = paged_decode_plain(q, kp, vp, tables, cl)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("heads", [(8, 2), (4, 4)], ids=["gqa", "mha"])
+def test_paged_decode_int8_kernel_matches_plain(dev, dtype, d, heads):
+    """Int8 pools with f32 scales: the kernel dequantizes in f32 as
+    ``(x * s) / 127.5`` where the plain version rounds ``x * (s / 127.5)``
+    to q's dtype, so f32 agrees to reduction order and 2-byte types to the
+    plain path's rounding (the float kernel's tolerances)."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    h, kvh = heads
+    b, bs, per = 5, 16, 9
+    nb = b * per + 3
+    tables = torch.randperm(nb, generator=g)[: b * per].reshape(b, per)
+    tables = tables.to(torch.int32).to(dev)
+    kp, vp = (torch.randint(-127, 128, (kvh, nb, bs, d), generator=g)
+              .to(torch.int8).to(dev) for _ in range(2))
+    ks, vs = ((0.1 + 3 * torch.rand(kvh, nb, bs, generator=g)).to(dev)
+              for _ in range(2))
+    q = torch.randn(b, 1, h, d, generator=g).to(dev, dtype)
+    # lengths 1, a page edge, one past it, mid-table and the full table
+    cl = torch.tensor([0, 15, 16, 77, per * bs - 1], dtype=torch.int32,
+                      device=dev)
+    before = (paged_decode_int8.launches, paged_decode.launches)
+    got = paged_decode_int8(q, kp, vp, ks, vs, tables, cl)
+    torch.cuda.synchronize()
+    assert (paged_decode_int8.launches, paged_decode.launches) == (
+        before[0] + 1, before[1])
+    want = paged_decode_int8_plain(q, kp, vp, ks, vs, tables, cl)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0 if dtype == torch.float32 else 2e-2)
+    # against the plain version run in f32 on the kernel's pre-scaled q,
+    # only the kernel's final rounding to q's dtype is left: each
+    # (sequence, head) row within 5e-3 of its norm
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32).to(dtype)
+    want32 = paged_decode_int8_plain((q * scale).float() * d ** 0.5, kp, vp,
+                                     ks, vs, tables, cl)
+    row_rel = ((got.float() - want32).norm(dim=-1)
+               / want32.norm(dim=-1).clamp_min(1e-30))
+    assert float(row_rel.max()) <= 5e-3
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_paged_decode_attention_takes_kernel_on_contiguous_tables(dev, int8):
+    """On the card, contiguous tables (``generate``'s layout) at a GQA
+    ratio below 4 launch the kernel too; the CPU takes the reshape view."""
+    from paddle_tpu_torch.ops.paged_attention import (
+        _kv_quantize, contiguous_tables, paged_decode_attention)
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    b, h, kvh, d, bs, max_len = 3, 4, 2, 64, 16, 64
+    tables = torch.from_numpy(contiguous_tables(b, max_len, bs)).to(dev)
+    nb = tables.numel()
+    kp, vp = (torch.randn(kvh, nb, bs, d, generator=g).to(dev)
+              for _ in range(2))
+    q = torch.randn(b, 1, h, d, generator=g).to(dev)
+    cl = torch.tensor([0, 20, max_len - 1], dtype=torch.int32, device=dev)
+    if int8:
+        (kp, ks), (vp, vs) = _kv_quantize(kp), _kv_quantize(vp)
+        wrapper, scales = paged_decode_int8, dict(k_scale=ks, v_scale=vs)
+        want = paged_decode_int8_plain(q, kp, vp, ks, vs, tables, cl)
+    else:
+        wrapper, scales = paged_decode, {}
+        want = paged_decode_plain(q, kp, vp, tables, cl)
+    before = wrapper.launches
+    got = paged_decode_attention(q, kp, vp, tables, cl, contiguous=True,
+                                 **scales)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -54,9 +54,15 @@ def test_contiguous_tables_match():
                                   JPA.contiguous_tables(3, 10, 4))
 
 
-@pytest.mark.parametrize("cl", [np.int32(5), np.array([0, 7, 9], np.int32)],
-                         ids=["scalar", "per_seq"])
-def test_write_with_oob_lanes_and_ragged_gather_exact(cl):
+@pytest.mark.parametrize("cl,int8", [
+    (np.int32(5), False), (np.array([0, 7, 9], np.int32), False),
+    (np.int32(5), True), (np.array([0, 7, 9], np.int32), True)],
+    ids=["scalar", "per_seq", "scalar-int8", "per_seq-int8"])
+def test_write_with_oob_lanes_and_ragged_gather_exact(cl, int8):
+    """Int8 pools: the value and scale pools bitwise equal to the
+    reference's after the write (out-of-bounds lanes leave the row's first
+    cell's stored bytes and scale as they were), and the gathered views
+    dequantized identically."""
     rng = np.random.RandomState(0)
     b, kvh, nb, bs, d, per_seq, s = 3, 2, 12, 4, 8, 3, 5
     tables = _ragged_tables(rng, b, per_seq, nb)
@@ -64,18 +70,29 @@ def test_write_with_oob_lanes_and_ragged_gather_exact(cl):
     vp = rng.randn(kvh, nb, bs, d).astype(np.float32)
     kk = rng.randn(b, s, kvh, d).astype(np.float32)
     vv = rng.randn(b, s, kvh, d).astype(np.float32)
+    pools = [kp, vp]
+    if int8:  # pools already holding quantized tokens, scales included
+        pools = [rng.randint(-127, 128, (kvh, nb, bs, d)).astype(np.int8)
+                 for _ in range(2)]
+        pools += [rng.uniform(0.1, 3, (kvh, nb, bs)).astype(np.float32)
+                  for _ in range(2)]
+    scales = lambda ps: dict(zip(("k_scale", "v_scale"), ps[2:]))  # noqa: E731
     # positions run to cl + 4 = 13 >= per_seq * bs = 12: lanes past the row
-    jk, jv = JPA.paged_write_kv(jnp.asarray(kk), jnp.asarray(vv),
-                                jnp.asarray(kp), jnp.asarray(vp),
-                                jnp.asarray(tables), jnp.asarray(cl), s)
-    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
-    TPA.paged_write_kv(torch.from_numpy(kk), torch.from_numpy(vv), tk, tv,
-                       torch.from_numpy(tables), torch.from_numpy(np.asarray(cl)),
-                       s)
-    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
-    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
-    jkc, jvc = JPA.paged_gather_kv(jk, jv, jnp.asarray(tables))
-    tkc, tvc = TPA.paged_gather_kv(tk, tv, torch.from_numpy(tables))
+    jp = [jnp.asarray(p) for p in pools]
+    jout = JPA.paged_write_kv(jnp.asarray(kk), jnp.asarray(vv), jp[0], jp[1],
+                              jnp.asarray(tables), jnp.asarray(cl), s,
+                              **scales(jp))
+    tp = [torch.from_numpy(p.copy()) for p in pools]
+    TPA.paged_write_kv(torch.from_numpy(kk), torch.from_numpy(vv), tp[0],
+                       tp[1], torch.from_numpy(tables),
+                       torch.from_numpy(np.asarray(cl)), s, **scales(tp))
+    for got, want in zip(tp, jout):
+        assert got.numpy().dtype == np.asarray(want).dtype
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    jkc, jvc = JPA.paged_gather_kv(jout[0], jout[1], jnp.asarray(tables),
+                                   **scales(jout))
+    tkc, tvc = TPA.paged_gather_kv(tp[0], tp[1], torch.from_numpy(tables),
+                                   **scales(tp))
     np.testing.assert_array_equal(tkc.numpy(), np.asarray(jkc))
     np.testing.assert_array_equal(tvc.numpy(), np.asarray(jvc))
 

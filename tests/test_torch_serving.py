@@ -105,8 +105,8 @@ def test_generate_matches_engine(models, kw):
 def test_later_slices_refuse():
     tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     base = dict(max_batch=1, max_len=32, block_size=8, num_blocks=4)
-    for kw in ({"prefix_cache": True}, {"spec_decode_k": 2},
-               {"kv_dtype": "int8"}, {"overlap": True},
+    for kw in ({"cache_tier": object()}, {"spec_decode_k": 2},
+               {"tenant_namespaces": True}, {"overlap": True},
                {"role": "prefill_only"}):
         with pytest.raises(NotImplementedError, match="later slice"):
             ContinuousBatchingEngine(tm, **base, **kw)
