@@ -36,11 +36,13 @@ NEG_INF = -1e30
 
 
 def flash_attention_fwd_plain(q, k, v, causal: bool = False,
-                              scale: Optional[float] = None
+                              scale: Optional[float] = None, p_dtype=None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: the same function in f32, in one
     block. q ``[B, Sq, H, D]``, k/v ``[B, Sk, Hkv, D]`` -> (out in q's
-    dtype ``[B, Sq, H, D]``, lse f32 ``[B, H, Sq]``)."""
+    dtype ``[B, Sq, H, D]``, lse f32 ``[B, H, Sq]``). ``p_dtype`` rounds
+    the probabilities to that dtype before ``P @ V``, the 2-byte kernels'
+    rounding point (the chip gates' reference, run on f32 q/k/v)."""
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     qh = q.transpose(1, 2).float()
     kh = k.transpose(1, 2).float()
@@ -61,6 +63,8 @@ def flash_attention_fwd_plain(q, k, v, causal: bool = False,
         p = p.masked_fill(~mask, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    if p_dtype is not None:
+        p = p.to(p_dtype).float()
     out = torch.matmul(p, vh) / safe
     lse = (m + torch.log(safe))[..., 0]
     return out.transpose(1, 2).to(q.dtype), lse
@@ -84,7 +88,24 @@ def _vector_aligned(t: torch.Tensor) -> bool:
             and all(st % 8 == 0 for st in t.stride()[:3]))
 
 
-@kernels.kernel_wrapper("flash_attention_fwd")
+FWD_VARIANTS = ("wgmma", "mma", "cuda_core")
+
+
+def _fwd_variant(dtype, d: int) -> str:
+    """Which forward kernel takes ``dtype`` at head_dim ``d``, decided up
+    front: 2-byte types on the tensor cores (``mma``: ``mma.sync``), f32 on
+    the CUDA cores (``cuda_core``). Raises for what no kernel takes."""
+    if d not in kernels.HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim in {kernels.HEAD_DIMS}, "
+                         f"got {d}")
+    if dtype in (torch.bfloat16, torch.float16):
+        return "mma"
+    if dtype == torch.float32:
+        return "cuda_core"
+    raise ValueError(f"flash kernel takes f32/bf16/f16, got {dtype}")
+
+
+@kernels.kernel_wrapper("flash_attention_fwd", FWD_VARIANTS)
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -98,9 +119,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
         raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    if d not in kernels.HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {kernels.HEAD_DIMS}, "
-                         f"got {d}")
+    variant = _fwd_variant(q.dtype, d)
     code = kernels.dtype_code("flash_attention_fwd", q.dtype)
     for t in (q, k, v):
         if t.stride(3) != 1:
@@ -125,6 +144,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch("flash_attention_fwd", err)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.variant_launches[variant] += 1
     return out, lse
 
 

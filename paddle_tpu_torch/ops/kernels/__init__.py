@@ -12,6 +12,8 @@ every module of the package on machines with no card and no ``nvcc``.
 Every kernel wrapper registers itself with :func:`kernel_wrapper` and
 carries a plain-int ``launches`` count that it bumps where it launches its
 kernel and nowhere else, so a run can show the main path went through it.
+A wrapper that picks one of several kernels up front also counts each
+launch under its variant (``launch_counts()`` key ``"<name>:<variant>"``).
 """
 from __future__ import annotations
 
@@ -79,22 +81,30 @@ KERNELS: Dict[str, Callable] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def kernel_wrapper(name: str):
-    """Register a kernel wrapper under ``name`` and give it ``launches = 0``."""
+def kernel_wrapper(name: str, variants: Iterable[str] = ()):
+    """Register a kernel wrapper under ``name`` and give it ``launches = 0``
+    and, per variant, ``variant_launches[variant] = 0``."""
     def deco(fn):
         fn.launches = 0
+        fn.variant_launches = dict.fromkeys(variants, 0)
         KERNELS[name] = fn
         return fn
     return deco
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    counts = {}
+    for name, fn in KERNELS.items():
+        counts[name] = fn.launches
+        for variant, n in fn.variant_launches.items():
+            counts[f"{name}:{variant}"] = n
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
 
 
 def build_dir() -> Path:

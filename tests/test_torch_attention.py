@@ -85,7 +85,7 @@ def test_flash_fully_masked_rows_are_zero():
     assert torch.isfinite(out).all()
 
 
-def test_flash_backward_raises_until_training_slice():
+def test_flash_autograd_matches_plain_attention_gradients():
     """The training slice carries the backward: differentiating the flash
     path no longer raises, and its gradients are those of the plain
     attention differentiated by autograd."""

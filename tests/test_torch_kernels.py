@@ -176,6 +176,27 @@ def test_flash_kernel_matches_plain(dev, dtype, d, causal, shape):
                                atol=1e-4 if dtype == torch.float32 else 2e-2,
                                rtol=0 if dtype == torch.float32 else 2e-2)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-5)
+    if dtype != torch.float32:
+        _check_flash_rows(out, q, k, v, causal)
+
+
+def _row_rel(a, want):
+    """The worst norm-relative error over the rows of the last axis."""
+    a, want = a.float(), want.float()
+    return float(((a - want).norm(dim=-1)
+                  / want.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def _check_flash_rows(out, q, k, v, causal):
+    """The 2-byte flash kernels' per-row gate: against the plain version
+    run in f32 with P rounded to q's dtype before ``P @ V`` (the kernels'
+    rounding points), each (b, s, h) row within 1e-2 of its norm and every
+    element within 2e-3 + 1e-2 relative (chip_smoke's FLASH_* gate)."""
+    want32, _ = flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                          causal, p_dtype=q.dtype)
+    assert torch.isfinite(out).all()
+    assert _row_rel(out, want32) <= 1e-2
+    torch.testing.assert_close(out.float(), want32, atol=2e-3, rtol=1e-2)
 
 
 def test_kernels_build_from_sources(dev):
@@ -200,6 +221,8 @@ def test_flash_kernel_takes_strided_and_misaligned_views(dev, dtype):
                                atol=1e-4 if dtype == torch.float32 else 2e-2,
                                rtol=0 if dtype == torch.float32 else 2e-2)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-5)
+    if dtype != torch.float32:
+        _check_flash_rows(out, q, k, v, True)
 
 
 def _rel(a, b):
