@@ -113,7 +113,7 @@ GRAD_REL_TOL = 5e-2
 ARGMAX_MIN = 0.9
 # the flash-forward kernel that bf16 at head_dim 128 must take on the main
 # paths (phases 3 and 7 count its launches per variant)
-FLASH_MAIN_VARIANT = "mma"
+FLASH_MAIN_VARIANT = "wgmma"
 
 
 def fail(msg: str) -> None:

@@ -11,7 +11,8 @@ is not touched), every ``nvcc`` started together:
 ``chip_smoke.flash_gate`` at phase 2's three configurations (B=4, S=2048,
 H=16, D=128; causal MHA, non-causal MHA, causal GQA with 4 kv heads):
 
-- ``stale V tile``: the last key tile's P @ V reads the previous tile's V;
+- ``stale V tile``: the last key tile's P @ V reads the other ring stage,
+  which holds the previous tile's V;
 - ``last key tile dropped``: each query tile stops one key tile short;
 - ``causal diagonal + 1``: each row also sees the key past its diagonal;
 - ``GQA head h % HKV``: query head h reads kv head ``h % HKV``.
@@ -50,20 +51,19 @@ MUTANTS = {
     "flash_attention_fwd": {
         "as is": None,
         "stale V tile": (
-            "      *reinterpret_cast<uint4*>(Vs + r * LD + c) =",
-            "      if (tile == 0 || tile != n_tiles - 1)\n"
-            "      *reinterpret_cast<uint4*>(Vs + r * LD + c) ="),
+            "const uint32_t v_tile = kt + Tile::KV_BYTES;",
+            "const uint32_t v_tile = (tile > 0 && tile == n_tiles - 1 ?\n"
+            "      kv_tiles + (st ^ 1) * 2 * Tile::KV_BYTES : kt) + Tile::KV_BYTES;"),
         "last key tile dropped": (
-            "for (int tile = 0; tile < n_tiles; ++tile) {",
-            "for (int tile = 0; tile < n_tiles - 1; ++tile) {"),
+            "const int n_tiles = key_tiles(q0, Sq, Sk, BK, causal);",
+            "const int n_tiles = max(key_tiles(q0, Sq, Sk, BK, causal) - 1, 0);"),
         "causal diagonal + 1": (
-            "const bool ok = kj < Sk && (!causal || qi + off >= kj);",
-            "const bool ok = kj < Sk && (!causal || qi + off + 1 >= kj);"),
+            "if (kj >= Sk || (causal && kj > qi + off)) s[4 * n + e] = -INFINITY;",
+            "if (kj >= Sk || (causal && kj > qi + off + 1)) s[4 * n + e] = "
+            "-INFINITY;"),
         "GQA head h % HKV": (
-            "const int hk = h / (H / HKV);\n  const int tid = threadIdx.x;\n"
-            "  const int warp",
-            "const int hk = h % HKV;\n  const int tid = threadIdx.x;\n"
-            "  const int warp"),
+            "const int kv_head = h / (H / HKV);",
+            "const int kv_head = h % HKV;"),
     },
     "paged_decode_attention": {
         "as is": None,

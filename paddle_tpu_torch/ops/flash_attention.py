@@ -4,7 +4,9 @@ Three hand-written CUDA kernels: the forward ``ops/kernels/
 flash_attention_fwd.cu`` (port of the TPU kernel ``_fwd_kernel``) and the
 backward pair in ``ops/kernels/flash_attention_bwd.cu`` (ports of
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``); bf16/f16 run on the tensor
-cores, f32 on the CUDA cores. The forward keeps an online softmax with f32
+cores (the forward through TMA and ``wgmma``, warp-specialised), f32 on
+the CUDA cores; :func:`_fwd_variant` picks the forward kernel up front
+from dtype and head_dim. The forward keeps an online softmax with f32
 running max / denominator / accumulator, skips causal key tiles above the
 diagonal (offset ``sk - sq``), reads GQA kv heads by ``h // group`` without
 repeating K/V, masks with ``NEG_INF = -1e30`` (fully masked rows come out
@@ -88,18 +90,19 @@ def _vector_aligned(t: torch.Tensor) -> bool:
             and all(st % 8 == 0 for st in t.stride()[:3]))
 
 
-FWD_VARIANTS = ("wgmma", "mma", "cuda_core")
+FWD_VARIANTS = ("wgmma", "cuda_core")
 
 
 def _fwd_variant(dtype, d: int) -> str:
     """Which forward kernel takes ``dtype`` at head_dim ``d``, decided up
-    front: 2-byte types on the tensor cores (``mma``: ``mma.sync``), f32 on
-    the CUDA cores (``cuda_core``). Raises for what no kernel takes."""
+    front: 2-byte types on the tensor cores through TMA and ``wgmma``
+    (``wgmma``), f32 on the CUDA cores (``cuda_core``). Raises for what no
+    kernel takes."""
     if d not in kernels.HEAD_DIMS:
         raise ValueError(f"flash kernel takes head_dim in {kernels.HEAD_DIMS}, "
                          f"got {d}")
     if dtype in (torch.bfloat16, torch.float16):
-        return "mma"
+        return "wgmma"
     if dtype == torch.float32:
         return "cuda_core"
     raise ValueError(f"flash kernel takes f32/bf16/f16, got {dtype}")
@@ -111,7 +114,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper: (out ``[B, Sq, H, D]``, lse f32 ``[B, H, Sq]``).
     CPU tensors take :func:`flash_attention_fwd_plain`; CUDA tensors launch
-    the kernel or raise."""
+    the variant's kernel or raise."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, scale)
@@ -125,7 +128,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
         if t.stride(3) != 1:
             raise ValueError("flash kernel needs a unit stride on head_dim")
     if q.element_size() == 2:
-        # the tensor-core kernel moves rows in 16-byte vectors
+        # TMA needs a 16-byte aligned base and 16-byte multiple strides
         q, k, v = (t if _vector_aligned(t)
                    else t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))
@@ -133,7 +136,9 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     lib = kernels.load("flash_attention_fwd")
-    err = lib.flash_attention_fwd_launch(
+    launch = (lib.flash_attention_fwd_wgmma_launch if variant == "wgmma"
+              else lib.flash_attention_fwd_launch)
+    err = launch(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, h, hkv, sq, sk, d,
         q.stride(0), q.stride(1), q.stride(2),

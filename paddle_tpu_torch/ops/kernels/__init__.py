@@ -40,6 +40,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # out2), scale, causal, stream
 _FLASH_BWD_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    _P, _F, _I, _P]
+# flash forward: dtype, q, k, v, out, lse, B, H, HKV, Sq, Sk, D,
+# q/k/v/out strides (batch, seq, head), scale, causal, stream
+_FLASH_FWD_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                   _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P]
 SOURCES = {
     "paged_decode_attention": (
         "paged_decode_attention.cu", {
@@ -53,11 +57,9 @@ SOURCES = {
             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
              _F, _P]}),
     "flash_attention_fwd": (
-        "flash_attention_fwd.cu", {"flash_attention_fwd_launch":
-        # dtype, q, k, v, out, lse, B, H, HKV, Sq, Sk, D,
-        # q/k/v/out strides (batch, seq, head), scale, causal, stream
-        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-         _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P]}),
+        "flash_attention_fwd.cu", {
+            "flash_attention_fwd_launch": _FLASH_FWD_ARGS,  # f32
+            "flash_attention_fwd_wgmma_launch": _FLASH_FWD_ARGS}),  # bf16/f16
     "flash_attention_bwd": (
         "flash_attention_bwd.cu", {
             "flash_attention_bwd_dq_launch": _FLASH_BWD_ARGS,

@@ -15,6 +15,8 @@ from paddle_tpu.ops.flash_attention import _fa_fwd
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.flash_attention import (
+    FWD_VARIANTS,
+    _fwd_variant,
     flash_attention,
     flash_attention_fwd,
 )
@@ -98,3 +100,34 @@ def test_flash_autograd_matches_plain_attention_gradients():
     for a, b in ((q, q2), (k, k2), (v, v2)):
         np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(),
                                    atol=SDPA_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"),
+                                           (torch.float16, "wgmma"),
+                                           (torch.float32, "cuda_core")])
+def test_fwd_variant_is_decided_from_dtype_and_head_dim(dtype, variant, d):
+    """The card's forward kernel is chosen up front from dtype and head_dim
+    alone: 2-byte types on the TMA/wgmma kernel, f32 on the CUDA cores."""
+    assert _fwd_variant(dtype, d) == variant
+    assert variant in FWD_VARIANTS
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 96),
+                                     (torch.float32, 32),
+                                     (torch.int8, 128),
+                                     (torch.float64, 64)])
+def test_fwd_variant_refuses_what_no_kernel_takes(dtype, d):
+    with pytest.raises(ValueError):
+        _fwd_variant(dtype, d)
+
+
+def test_cpu_forward_counts_no_variant_launch():
+    """CPU tensors take the plain version: no launch of any variant."""
+    rng = np.random.RandomState(4)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(rng, 1, 16, 2, 2, 64))
+    before = kernels.launch_counts()
+    flash_attention_fwd(q, k, v, True)
+    assert kernels.launch_counts() == before
+    assert {f"flash_attention_fwd:{v}" for v in FWD_VARIANTS} <= set(before)

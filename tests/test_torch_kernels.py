@@ -199,6 +199,61 @@ def _check_flash_rows(out, q, k, v, causal):
     torch.testing.assert_close(out.float(), want32, atol=2e-3, rtol=1e-2)
 
 
+# (B, Sq, H, Hkv, Sk, causal): ragged ends that TMA zero-fills and the
+# epilogue clips, the causal chunk offset (Sq < Sk), fully masked rows
+# (Sq > Sk), and GQA groups of 2, 4 and 8
+WGMMA_EDGES = {
+    "ragged": (2, 200, 4, 4, 333, False),
+    "causal_chunk_offset": (1, 130, 8, 2, 390, True),
+    "masked_rows": (1, 300, 4, 1, 100, True),
+    "gqa2": (1, 256, 8, 4, 256, True),
+    "gqa4": (2, 384, 8, 2, 384, False),
+    "gqa8": (1, 256, 8, 1, 256, True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("case", list(WGMMA_EDGES))
+def test_flash_wgmma_kernel_edges(dev, dtype, d, case):
+    b, sq, h, hkv, sk, causal = WGMMA_EDGES[case]
+    g = torch.Generator(device="cpu").manual_seed(9)
+    q = torch.randn(b, sq, h, d, generator=g).to(dev, dtype)
+    k = torch.randn(b, sk, hkv, d, generator=g).to(dev, dtype)
+    v = torch.randn(b, sk, hkv, d, generator=g).to(dev, dtype)
+    before = dict(flash_attention_fwd.variant_launches)
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.variant_launches == dict(
+        before, wgmma=before["wgmma"] + 1)
+    want, want_lse = flash_attention_fwd_plain(q, k, v, causal)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-5)
+    _check_flash_rows(out, q, k, v, causal)
+    if case == "masked_rows":  # rows i + (Sk - Sq) < 0 see no key
+        assert torch.all(out[:, : sq - sk] == 0)
+        assert torch.all(lse[:, :, : sq - sk] == -1e30)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_wgmma_kernel_reads_fused_qkv_slices(dev, dtype, d, causal):
+    """q/k/v as strided slices of one fused [B, S, 3, H, D] buffer, read
+    through the tensor maps' strides without a copy."""
+    g = torch.Generator(device="cpu").manual_seed(10)
+    qkv = torch.randn(2, 192, 3, 4, d, generator=g).to(dev, dtype)
+    q, k, v = qkv.unbind(2)
+    before = flash_attention_fwd.variant_launches["wgmma"]
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.variant_launches["wgmma"] == before + 1
+    want, want_lse = flash_attention_fwd_plain(q, k, v, causal)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-5)
+    _check_flash_rows(out, q, k, v, causal)
+
+
 def test_kernels_build_from_sources(dev):
     times = kernels.build()
     assert set(times) == set(kernels.SOURCES)
