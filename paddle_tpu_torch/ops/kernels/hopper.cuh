@@ -24,7 +24,7 @@
 #include "common.cuh"
 
 // ---------------------------------------------------------------------------
-// Host: tensor maps through the driver's entry point (no -lcuda)
+// Host: tensor maps, encoded through cudaGetDriverEntryPoint (no -lcuda)
 // ---------------------------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(

@@ -15,7 +15,10 @@ the plain version run in f32 on the kernel's pre-scaled q, 5e-3
 norm-relative for each (sequence, head) row); 2-byte
 flash rounds P to the input dtype before ``P @ V`` (as the TPU kernel
 does) where the plain version keeps f32: about two ulps of the output,
-2e-2 absolute plus 2e-2 relative. The flash backward kernels
+2e-2 absolute plus 2e-2 relative; against the plain version run in f32
+with P rounded likewise, each (b, s, h) row within 1e-2 of its norm and
+every element within 2e-3 plus 1e-2 relative (``chip_smoke.py``'s
+FLASH_* gate). The flash backward kernels
 round P and dS to the input dtype before their products (as the TPU
 kernels do) where the plain version keeps f32: for 2-byte inputs dq/dk/dv
 agree within 3e-2 absolute plus 3e-2 relative and 1e-2 in norm-relative
