@@ -76,6 +76,19 @@ GRAD_DEPTH = 2  # phase 8's layers: the plain attention path holds
 # plain version keeps f32. Either way about two bf16 ulps of the output
 # (2^-7 relative), so RTOL 2e-2 covers outputs of any size.
 PAGED_ATOL, FLASH_ATOL, RTOL = 3e-2, 2e-2, 2e-2
+# float paged decode, bf16 q and pools: besides PAGED_ATOL + RTOL against
+# the plain version, each (sequence, head) row within PAGED_ROW_REL of its
+# norm there, and a gate against the plain version run in f32 on the
+# kernel's own pre-scaled q, which leaves only the kernel's final rounding
+# to bf16: every element within PAGED_F32_ATOL + PAGED_F32_RTOL, each row
+# within PAGED_F32_ROW_REL. A long row averages ~1000 V rows, so its
+# outputs are ~0.04, as large as PAGED_ATOL. Set from the kernel's first
+# measurement on the H100 (phase 2, B=16 and 64, and gate_mutants.py):
+# worst row 0.0140 against the plain version (2.5x margin), 0.0021 against
+# the f32 version (2.4x), whose elementwise error lies inside rtol 8e-3
+# (one bf16 ulp) with an atol of 1e-8: the INT8_F32_* bounds.
+PAGED_ROW_REL, PAGED_F32_ATOL, PAGED_F32_RTOL, PAGED_F32_ROW_REL = (
+    3.5e-2, 1e-4, 8e-3, 5e-3)
 # int8 paged decode, bf16 q, two gates. (1) Against the plain version,
 # which rounds logits, probabilities and each dequantized K/V element to
 # bf16 where the kernel keeps f32: a long row averages ~1000 V rows, so its
@@ -102,18 +115,35 @@ INT8_F32_ATOL, INT8_F32_RTOL, INT8_F32_ROW_REL = 1e-4, 8e-3, 5e-3
 FLASH_LSE_ATOL = 1e-3
 FLASH_ROW_REL, FLASH_F32_ATOL, FLASH_F32_RTOL = 1e-2, 2e-3, 1e-2
 LOGITS_REL_TOL = 5e-2  # 8 bf16 layers, kernel vs plain attention
-# flash backward, bf16: the kernels round P and dS to bf16 before their
-# products (the TPU kernels' rounding points) where the plain version keeps
-# f32; dq/dk/dv of unit scale then differ by a few bf16 ulps
+# flash backward, bf16, two gates. (1) Against the plain version, which
+# keeps P and dS in f32 where the kernels round them to bf16 before their
+# products (the TPU kernels' rounding points): dq/dk/dv of unit scale
+# differ by a few bf16 ulps, BWD_ATOL + BWD_RTOL, and BWD_REL in the norm of
+# the whole tensor. A stale or dropped tile moves only some rows, and the
+# whole tensor's norm dilutes it. (2) Against the plain version run in f32
+# with P and dS rounded to bf16 where the kernels round them (p_dtype):
+# each row of D values (dq: (b, s, h); dk, dv: (b, s_k, h_kv)) within
+# BWD_ROW_REL of its norm, and every element within BWD_F32_ATOL +
+# BWD_F32_RTOL. A row's norm counts at least BWD_ROW_FLOOR of the
+# tensor's RMS row norm: under causal masking dq's first row sees one key,
+# so dP = delta there in exact arithmetic and that row is rounding noise.
+# Set from the mma.sync kernels' first measurement on the H100
+# (chip_smoke.py and gate_mutants.py, phase 2's three configurations):
+# worst row 0.0056 (2.5x margin); atol needed beside rtol 1e-2 0.0011 for
+# MHA and 0.069 for GQA, whose dK/dV those kernels wrote per query head in
+# bf16 before the group sum (2.5x margin).
 BWD_ATOL, BWD_RTOL, BWD_REL = 5e-2, 5e-2, 1e-2
+BWD_ROW_REL, BWD_F32_ATOL, BWD_F32_RTOL, BWD_ROW_FLOOR = 1.4e-2, 0.17, 1e-2, 1e-2
 # phase 8: gradients of every parameter through 2 bf16 layers, kernels
 # against the plain paths (naive attention rounds its logits and
 # probabilities to bf16; the kernels keep scores in f32)
 GRAD_REL_TOL = 5e-2
 ARGMAX_MIN = 0.9
-# the flash-forward kernel that bf16 at head_dim 128 must take on the main
-# paths (phases 3 and 7 count its launches per variant)
+# the flash kernels that bf16 at head_dim 128 must take on the main paths
+# (phases 3 and 7 count the forward's launches per variant, phase 7 the
+# backward's)
 FLASH_MAIN_VARIANT = "wgmma"
+BWD_MAIN_VARIANT = "mma_sync"
 
 
 def fail(msg: str) -> None:
@@ -128,6 +158,20 @@ def flash_fwd_counts(n: int):
     counts = {"flash_attention_fwd": n}
     for v in FWD_VARIANTS:
         counts[f"flash_attention_fwd:{v}"] = n if v == FLASH_MAIN_VARIANT else 0
+    return counts
+
+
+def flash_bwd_counts(n: int):
+    """The flash backward's expected launch counts when a path runs it
+    ``n`` times: ``n`` dq and ``n`` dk/dv launches, all on
+    BWD_MAIN_VARIANT."""
+    from paddle_tpu_torch.ops.flash_attention import BWD_VARIANTS
+
+    counts = {}
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        counts[name] = n
+        for v in BWD_VARIANTS:
+            counts[f"{name}:{v}"] = n if v == BWD_MAIN_VARIANT else 0
     return counts
 
 
@@ -200,19 +244,33 @@ def row_rel_err(a, b) -> float:
                   / b.norm(dim=-1).clamp_min(1e-30)).max())
 
 
-def int8_plain_f32(q, *rest):
-    """The int8 kernel's plain version in f32 on the kernel's q: rounded
-    as the kernel rounds it, ``q * (1/sqrt(D))`` in q's dtype, then taken
-    back to unit scale in f32 for the plain version's own scaling."""
+def _prescaled_q32(q):
+    """The decode kernels' q in f32: rounded as the kernels round it,
+    ``q * (1/sqrt(D))`` in q's dtype, then taken back to unit scale in f32
+    for the plain versions' own scaling."""
     import math
 
     import torch
 
-    from paddle_tpu_torch.ops.paged_attention import paged_decode_int8_plain
-
     d = q.shape[-1]
     scale = q.new_tensor(1.0 / math.sqrt(d), dtype=torch.float32).to(q.dtype)
-    return paged_decode_int8_plain((q * scale).float() * math.sqrt(d), *rest)
+    return (q * scale).float() * math.sqrt(d)
+
+
+def int8_plain_f32(q, *rest):
+    """The int8 kernel's plain version in f32 on the kernel's q."""
+    from paddle_tpu_torch.ops.paged_attention import paged_decode_int8_plain
+
+    return paged_decode_int8_plain(_prescaled_q32(q), *rest)
+
+
+def paged_plain_f32(q, k_pool, v_pool, *rest):
+    """The float kernel's plain version in f32 on the kernel's q and on the
+    pools taken to f32 (exactly, as the kernel reads them)."""
+    from paddle_tpu_torch.ops.paged_attention import paged_decode_plain
+
+    return paged_decode_plain(_prescaled_q32(q), k_pool.float(),
+                              v_pool.float(), *rest)
 
 
 def flash_references(q, k, v, causal):
@@ -247,22 +305,75 @@ def flash_gate(out, lse, want, want_lse, want32):
     return r
 
 
-def int8_gate(got, want, want_f32):
-    """The int8 kernel's two gates (see INT8_*): against its plain version
-    ``want`` and against ``want_f32`` from :func:`int8_plain_f32`. Returns
-    a dict of the errors and ``ok``."""
+def bwd_references(q, k, v, out, lse, do, causal):
+    """The flash backward's two references: the plain version ((dq, dk,
+    dv) in the input dtypes) and the plain version run in f32 with P and dS
+    rounded to q's dtype where the kernels round them (f32)."""
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_bwd_plain
+
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    want32 = flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), out.float(), lse, do.float(), causal,
+        p_dtype=q.dtype)
+    return want, want32
+
+
+def atol_needed(got, want, rtol: float) -> float:
+    """The least atol with which ``allclose(got, want, atol, rtol)`` holds."""
+    return max(0.0, float(((got - want).abs() - rtol * want.abs()).max()))
+
+
+def bwd_gate(got, want, want32):
+    """The flash backward's gates (see BWD_*) on ``got = (dq, dk, dv)``
+    against :func:`bwd_references`. Returns ``{name: errors}`` for dq, dk,
+    dv, plus ``old_ok`` (the whole-tensor gate alone) and ``ok`` (all
+    gates)."""
     import torch
 
+    r, old_ok, ok = {}, True, True
+    for name, g, w, w32 in zip(("dq", "dk", "dv"), got, want, want32):
+        g, w, w32 = g.float(), w.float(), w32.float()
+        norms = w32.norm(dim=-1)
+        floor = BWD_ROW_FLOOR * float(norms.pow(2).mean().sqrt())
+        e = dict(max_abs_err=float((g - w).abs().max()), rel_err=rel_err(g, w),
+                 row_rel=float(((g - w32).norm(dim=-1)
+                                / norms.clamp_min(max(floor, 1e-30))).max()),
+                 f32_max_abs_err=float((g - w32).abs().max()),
+                 f32_atol_needed=atol_needed(g, w32, BWD_F32_RTOL))
+        o = (bool(torch.isfinite(g).all()) and e["rel_err"] <= BWD_REL
+             and torch.allclose(g, w, atol=BWD_ATOL, rtol=BWD_RTOL))
+        r[name] = e
+        old_ok &= o
+        ok &= (o and e["row_rel"] <= BWD_ROW_REL
+               and torch.allclose(g, w32, atol=BWD_F32_ATOL,
+                                  rtol=BWD_F32_RTOL))
+    r["old_ok"], r["ok"] = old_ok, ok
+    return r
+
+
+def decode_gate(got, want, want_f32, int8: bool = False):
+    """The paged-decode kernels' two gates (see PAGED_* and INT8_*):
+    against the plain version ``want`` and against ``want_f32`` from
+    :func:`paged_plain_f32` or :func:`int8_plain_f32`. Returns a dict of
+    the errors, ``old_ok`` (PAGED_ATOL + RTOL alone) and ``ok``."""
+    import torch
+
+    atol, rtol, row, f_atol, f_rtol, f_row = (
+        (INT8_ATOL, INT8_RTOL, INT8_ROW_REL, INT8_F32_ATOL, INT8_F32_RTOL,
+         INT8_F32_ROW_REL) if int8 else
+        (PAGED_ATOL, RTOL, PAGED_ROW_REL, PAGED_F32_ATOL, PAGED_F32_RTOL,
+         PAGED_F32_ROW_REL))
     g, w, w32 = got.float(), want.float(), want_f32.float()
     r = dict(max_abs_err=float((g - w).abs().max()), row_rel=row_rel_err(g, w),
              f32_max_abs_err=float((g - w32).abs().max()),
-             f32_row_rel=row_rel_err(g, w32))
-    r["ok"] = (bool(torch.isfinite(g).all())
-               and r["row_rel"] <= INT8_ROW_REL
-               and torch.allclose(g, w, atol=INT8_ATOL, rtol=INT8_RTOL)
-               and r["f32_row_rel"] <= INT8_F32_ROW_REL
-               and torch.allclose(g, w32, atol=INT8_F32_ATOL,
-                                  rtol=INT8_F32_RTOL))
+             f32_row_rel=row_rel_err(g, w32),
+             f32_atol_needed=atol_needed(g, w32, f_rtol))
+    finite = bool(torch.isfinite(g).all())
+    r["old_ok"] = finite and torch.allclose(g, w, atol=PAGED_ATOL, rtol=RTOL)
+    r["ok"] = (finite and r["row_rel"] <= row
+               and torch.allclose(g, w, atol=atol, rtol=rtol)
+               and r["f32_row_rel"] <= f_row
+               and torch.allclose(g, w32, atol=f_atol, rtol=f_rtol))
     return r
 
 
@@ -302,20 +413,17 @@ def paged_case(torch, dev, gen, gen_cpu, B, int8=False):
     H = q.shape[2]
     got = paged_decode(q, kp, vp, tables, cl)
     want = paged_decode_plain(q, kp, vp, tables, cl)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
+    gate = decode_gate(got, want, paged_plain_f32(q, kp, vp, tables, cl))
     rel = rel_err(got, want)
-    if not (torch.isfinite(got).all() and torch.allclose(
-            got.float(), want.float(), atol=PAGED_ATOL, rtol=RTOL)):
-        fail(f"paged decode B={B}: max abs err {err} beyond atol "
-             f"{PAGED_ATOL} + rtol {RTOL}")
+    if not gate["ok"]:
+        fail(f"paged decode B={B}: {gate} beyond the PAGED_* gates")
     ms = time_ms(lambda: paged_decode(q, kp, vp, tables, cl), 50)
     plain_ms = time_ms(lambda: paged_decode_plain(q, kp, vp, tables, cl), 10)
     live = int(lengths.sum())
     pages = int(sum(-(-int(n) // BS) for n in lengths))
     nbytes = live * KVH * D * 2 * 2 + 2 * B * H * D * 2 + pages * 4 + B * 4
     b_ms, b_by = bound(nbytes, 4.0 * live * H * D)
-    row = dict(B=B, max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+    row = dict(gate, B=B, rel_err=rel, ms=ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=None, live_tokens=live,
                rate=f"{nbytes / ms / 1e6:.1f} GB/s")
     if not int8:
@@ -325,7 +433,7 @@ def paged_case(torch, dev, gen, gen_cpu, B, int8=False):
     args = (q, kq, vq, ks, vs, tables, cl)
     got = paged_decode_int8(*args)
     want = paged_decode_int8_plain(*args)
-    gate = int8_gate(got, want, int8_plain_f32(*args))
+    gate = decode_gate(got, want, int8_plain_f32(*args), int8=True)
     rel = rel_err(got, want)
     if not gate["ok"]:
         fail(f"int8 paged decode B={B}: {gate} beyond the INT8_* gates")
@@ -383,12 +491,11 @@ def flash_case(torch, dev, gen, causal, hkv):
                 library_ms=library_ms)
 
 
-def flash_bwd_case(torch, dev, gen, causal, hkv):
-    import torch.nn.functional as TF
-
-    from paddle_tpu_torch.ops.flash_attention import (
-        _delta, flash_attention_bwd, flash_attention_bwd_dkv,
-        flash_attention_bwd_dq, flash_attention_bwd_plain, flash_attention_fwd)
+def flash_bwd_inputs(torch, dev, gen, causal, hkv):
+    """Phase 2's flash backward inputs: bf16 randn q, dO ``[4, 2048, 16,
+    128]`` and k, v ``[4, 2048, hkv, 128]``, with the flash forward's out
+    and lse. Returns ``(q, k, v, out, lse, do)``."""
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
 
     B, S, H, D = 4, 2048, 16, 128
     q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).to(torch.bfloat16)
@@ -396,19 +503,31 @@ def flash_bwd_case(torch, dev, gen, causal, hkv):
     k, v = (torch.randn(B, S, hkv, D, generator=gen, device=dev).to(torch.bfloat16)
             for _ in range(2))
     out, lse = flash_attention_fwd(q, k, v, causal)
+    return q, k, v, out, lse, do
+
+
+def flash_bwd_case(torch, dev, gen, causal, hkv):
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.flash_attention import (
+        _bwd_variant, _delta, flash_attention_bwd, flash_attention_bwd_dkv,
+        flash_attention_bwd_dq, flash_attention_bwd_plain)
+
+    q, k, v, out, lse, do = flash_bwd_inputs(torch, dev, gen, causal, hkv)
+    B, S, H, D = q.shape
+    before = {w: dict(w.variant_launches)
+              for w in (flash_attention_bwd_dq, flash_attention_bwd_dkv)}
     got = flash_attention_bwd(q, k, v, out, lse, do, causal)
-    want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
-    torch.cuda.synchronize()
-    errs = {}
-    for name, a, w in zip(("dq", "dk", "dv"), got, want):
-        errs[name] = (float((a.float() - w.float()).abs().max()), rel_err(a, w))
-        if not (torch.isfinite(a).all() and errs[name][1] <= BWD_REL
-                and torch.allclose(a.float(), w.float(), atol=BWD_ATOL,
-                                   rtol=BWD_RTOL)):
-            fail(f"flash backward causal={causal} hkv={hkv} {name}: max abs "
-                 f"err {errs[name][0]}, rel err {errs[name][1]} beyond atol "
-                 f"{BWD_ATOL} + rtol {BWD_RTOL} / rel {BWD_REL}")
-    del got, want
+    for w, counts in before.items():
+        counts[BWD_MAIN_VARIANT] += 1
+        if w.variant_launches != counts:
+            fail(f"flash backward causal={causal} hkv={hkv}: {w.__name__} "
+                 f"launched {w.variant_launches}, expected {counts}")
+    gate = bwd_gate(got, *bwd_references(q, k, v, out, lse, do, causal))
+    if not gate["ok"]:
+        fail(f"flash backward causal={causal} hkv={hkv}: {gate} beyond the "
+             f"BWD_* gates")
+    del got
     scale = 1.0 / D ** 0.5
     delta = _delta(out, do)
     dq_ms = time_ms(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta,
@@ -428,7 +547,8 @@ def flash_bwd_case(torch, dev, gen, causal, hkv):
     mm = 2.0 * B * H * pairs * D  # one Sq x Sk x D product
     dq_bound = bound(reads + B * S * H * D * 2, 3 * mm)
     dkv_bound = bound(reads + 2 * B * S * hkv * D * 2, 4 * mm)
-    return dict(causal=causal, hkv=hkv, errs=errs, dq_ms=dq_ms, dkv_ms=dkv_ms,
+    return dict(causal=causal, hkv=hkv, gate=gate, variant=_bwd_variant(q.dtype, D),
+                dq_ms=dq_ms, dkv_ms=dkv_ms,
                 plain_ms=plain_ms, library_ms=library_ms,
                 dq_bound=dq_bound, dkv_bound=dkv_bound,
                 dq_rate=f"{3 * mm / dq_ms / 1e9:.1f} TFLOP/s",
@@ -609,7 +729,8 @@ def kernel_class(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
         return "attention forward"
-    if "dq_mma" in n or "dkv_mma" in n or "dq_scalar" in n or "dkv_scalar" in n:
+    if any(k in n for k in ("flash_bwd", "dq_mma", "dkv_mma", "dq_scalar",
+                            "dkv_scalar")):
         return "attention backward"
     if "adamw_kernel" in n:
         return "AdamW kernel"
@@ -670,8 +791,13 @@ def main() -> int:
         paged_rows.append(r)
         print(f"phase 2 paged_decode B={B} H=KVH=16 D=128 bs=64 "
               f"live_tokens={r['live_tokens']}: max_abs_err={r['max_abs_err']:.3g} "
-              f"rel_err={r['rel_err']:.3g} "
-              f"(atol {PAGED_ATOL} + rtol {RTOL}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"rel_err={r['rel_err']:.3g} worst row rel_err="
+              f"{r['row_rel']:.3g} (atol {PAGED_ATOL} + rtol {RTOL}, row rel "
+              f"{PAGED_ROW_REL}); against the plain version in f32: "
+              f"max_abs_err={r['f32_max_abs_err']:.3g} worst row rel_err="
+              f"{r['f32_row_rel']:.3g} (atol {PAGED_F32_ATOL} + rtol "
+              f"{PAGED_F32_RTOL}, row rel {PAGED_F32_ROW_REL}; atol needed "
+              f"{r['f32_atol_needed']:.3g}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"{r['rate']}, {100 * r['bound_ms'] / r['ms']:.1f}% of bound "
               f"[{card}]")
@@ -713,10 +839,19 @@ def main() -> int:
     for causal, hkv in ((True, 16), (False, 16), (True, 4)):
         r = flash_bwd_case(torch, dev, gen, causal, hkv)
         bwd_rows.append(r)
-        errs = " ".join(f"{n}={e[0]:.3g}/{e[1]:.3g}" for n, e in r["errs"].items())
+        g = r["gate"]
+        errs = " ".join(f"{n}={g[n]['max_abs_err']:.3g}/{g[n]['rel_err']:.3g}"
+                        for n in ("dq", "dk", "dv"))
+        rows = " ".join(f"{n}={g[n]['row_rel']:.4g}/{g[n]['f32_max_abs_err']:.3g}"
+                        f"/{g[n]['f32_atol_needed']:.3g}"
+                        for n in ("dq", "dk", "dv"))
         print(f"phase 2 flash_bwd B=4 S=2048 H=16 KVH={hkv} D=128 "
-              f"causal={causal}: max abs/rel err {errs} (atol {BWD_ATOL} + "
-              f"rtol {BWD_RTOL}, rel {BWD_REL}); dq ms={r['dq_ms']:.3f} "
+              f"causal={causal} variant={r['variant']}: max abs/rel err "
+              f"{errs} (atol {BWD_ATOL} + rtol {BWD_RTOL}, rel {BWD_REL}); "
+              f"against the plain version in f32 with P and dS rounded to "
+              f"bf16: worst row rel_err/max_abs_err/atol needed {rows} (row "
+              f"rel {BWD_ROW_REL}, floor {BWD_ROW_FLOOR} of the RMS row; atol "
+              f"{BWD_F32_ATOL} + rtol {BWD_F32_RTOL}); dq ms={r['dq_ms']:.3f} "
               f"bound_ms={r['dq_bound'][0]:.4f} ({r['dq_bound'][1]}) "
               f"{r['dq_rate']}, {100 * r['dq_bound'][0] / r['dq_ms']:.1f}% of "
               f"bound; dkv ms={r['dkv_ms']:.3f} bound_ms="
@@ -1008,8 +1143,7 @@ def main() -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     L7 = cfg7.num_hidden_layers
     want_counts = {**flash_fwd_counts(L7 * TRAIN_STEPS),
-                   "flash_attention_bwd_dq": L7 * TRAIN_STEPS,
-                   "flash_attention_bwd_dkv": L7 * TRAIN_STEPS,
+                   **flash_bwd_counts(L7 * TRAIN_STEPS),
                    "fused_adamw": n_tensors * TRAIN_STEPS,
                    "paged_decode_attention": 0,
                    "paged_decode_attention_int8": 0}
@@ -1035,7 +1169,8 @@ def main() -> int:
         fail(f"training launch counts {train_counts} != {want_counts} "
              f"(per step: {L7} flash forward, {L7} dq, {L7} dk/dv, "
              f"{n_tensors} fused AdamW; every flash forward on "
-             f"{FLASH_MAIN_VARIANT})")
+             f"{FLASH_MAIN_VARIANT}, every dq and dk/dv on "
+             f"{BWD_MAIN_VARIANT})")
 
     # where a train step's time goes: kernel classes in one profiled step,
     # against the host wall of that step; the loss alone by CUDA events
@@ -1173,9 +1308,9 @@ def main() -> int:
     for name, ms_key, b_key in (("flash_attention_bwd_dq", "dq_ms", "dq_bound"),
                                 ("flash_attention_bwd_dkv", "dkv_ms",
                                  "dkv_bound")):
-        err = bwd_main["errs"]["dq" if name.endswith("dq") else "dk"][0]
+        err = bwd_main["gate"]["dq" if name.endswith("dq") else "dk"]["max_abs_err"]
         if name.endswith("dkv"):
-            err = max(err, bwd_main["errs"]["dv"][0])
+            err = max(err, bwd_main["gate"]["dv"]["max_abs_err"])
         entries.append(dict(
             name=name, route="cuda",
             source="paddle_tpu_torch/ops/kernels/flash_attention_bwd.cu",

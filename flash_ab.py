@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Times the flash forward of the checkout it is run from.
+"""Times the flash kernels of the checkout it is run from.
 
-    cd <checkout> && python3 <path>/flash_ab.py LABEL
+    cd <checkout> && python3 <path>/flash_ab.py LABEL [fwd|bwd]
 
-Builds that checkout's ``flash_attention_fwd.cu``, then times
-``flash_attention_fwd`` at ``chip_smoke.py`` phase 2's three
-configurations (B=4, S=2048, H=16, D=128, bf16: causal MHA, non-causal
-MHA, causal GQA with 4 kv heads): three CUDA-event means of 20 launches
-each, after warm-up. Prints one JSON line: the label, the build's
-seconds, the times in ms, ptxas' non-zero spill reports and its count of
-serialised-``wgmma`` warnings. To compare two versions of the kernel,
-unpack both into directories that ``.gitignore`` lists and run this in
-each in turns (A, B, B, A) within one call on the card. Needs an NVIDIA
-card and ``nvcc``.
+Builds that checkout's flash kernels, then times them at
+``chip_smoke.py`` phase 2's three configurations (B=4, S=2048, H=16,
+D=128, bf16: causal MHA, non-causal MHA, causal GQA with 4 kv heads):
+three CUDA-event means of 20 launches each, after warm-up. ``fwd`` (the
+default) times ``flash_attention_fwd``; ``bwd`` times the backward's two
+wrappers, ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``, and
+beside them the backward of ``F.scaled_dot_product_attention`` (dq, dk
+and dv) on the same inputs. Prints one JSON line: the label, the mode, the
+build's seconds, the times in ms, ptxas' non-zero spill reports and its
+count of serialised-``wgmma`` warnings for the source timed. To compare two
+versions of a kernel, unpack both into directories that ``.gitignore``
+lists and run this in each in turns (A, B, B, A) within one call on the
+card. Needs an NVIDIA card and ``nvcc``.
 """
 import json
 import os
@@ -20,21 +23,43 @@ import sys
 import time
 
 
+def mean_ms(torch, fn, iters=20, reps=3):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        ts.append(round(s.elapsed_time(e) / iters, 4))
+    return ts
+
+
 def main() -> int:
     sys.path.insert(0, os.getcwd())
     import torch
+    import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops import kernels
-    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from paddle_tpu_torch.ops.flash_attention import (
+        _delta, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_fwd)
 
     if not torch.cuda.is_available():
         print("flash_ab: CUDA is not available; this script runs on the card",
               file=sys.stderr)
         return 2
+    mode = sys.argv[2] if len(sys.argv) > 2 else "fwd"
+    lib = {"fwd": "flash_attention_fwd", "bwd": "flash_attention_bwd"}[mode]
     t0 = time.time()
-    kernels.build(["flash_attention_fwd"])
+    kernels.build(["flash_attention_fwd", "flash_attention_bwd"])
     build_s = time.time() - t0
-    log = (kernels.build_dir() / "flash_attention_fwd.log").read_text()
+    log = (kernels.build_dir() / f"{lib}.log").read_text()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     res = {}
@@ -42,26 +67,34 @@ def main() -> int:
         q = torch.randn(4, 2048, 16, 128, generator=g, device=dev).bfloat16()
         k = torch.randn(4, 2048, hkv, 128, generator=g, device=dev).bfloat16()
         v = torch.randn(4, 2048, hkv, 128, generator=g, device=dev).bfloat16()
-        for _ in range(3):
-            flash_attention_fwd(q, k, v, causal)
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(3):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            for _ in range(20):
-                flash_attention_fwd(q, k, v, causal)
-            e.record()
-            torch.cuda.synchronize()
-            ts.append(s.elapsed_time(e) / 20)
-        res[f"causal={causal},hkv={hkv}"] = [round(x, 4) for x in ts]
+        key = f"causal={causal},hkv={hkv}"
+        if mode == "fwd":
+            res[key] = mean_ms(torch, lambda: flash_attention_fwd(q, k, v,
+                                                                  causal))
+            continue
+        do = torch.randn(4, 2048, 16, 128, generator=g, device=dev).bfloat16()
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        delta, scale = _delta(out, do), 128 ** -0.5
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        lib_out = TF.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=hkv != 16)
+        res[key] = dict(
+            dq=mean_ms(torch, lambda: flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, causal, scale)),
+            dkv=mean_ms(torch, lambda: flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, causal, scale)),
+            sdpa_backward=mean_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), do.transpose(1, 2),
+                retain_graph=True)))
     lines = log.splitlines()
     spill = [ln.strip() for ln in lines
              if "spill" in ln and "0 bytes spill" not in ln]
+    regs = sorted({ln.split("Used ")[1].split(",")[0] for ln in lines
+                   if "Used " in ln})
     print(json.dumps({"label": sys.argv[1] if len(sys.argv) > 1 else "",
-                      "build_s": round(build_s, 1), "ms": res,
-                      "nonzero_spills": spill[:4],
+                      "mode": mode, "build_s": round(build_s, 1), "ms": res,
+                      "registers": regs, "nonzero_spills": spill[:4],
                       "serialized": sum("serialized" in ln for ln in lines)}))
     return 0
 

@@ -3,9 +3,9 @@
 
     python3 gate_mutants.py [--seed N]
 
-Builds two kernel sources as they are and in broken forms, each form from
-its own copy of the kernel sources in a temporary directory (the checkout
-is not touched), every ``nvcc`` started together:
+Builds three kernel sources as they are and in broken forms, each form
+from its own copy of the kernel sources in a temporary directory (the
+checkout is not touched), every ``nvcc`` started together:
 
 ``flash_attention_fwd.cu`` (the flash forward, bf16), held by
 ``chip_smoke.flash_gate`` at phase 2's three configurations (B=4, S=2048,
@@ -17,21 +17,44 @@ H=16, D=128; causal MHA, non-causal MHA, causal GQA with 4 kv heads):
 - ``causal diagonal + 1``: each row also sees the key past its diagonal;
 - ``GQA head h % HKV``: query head h reads kv head ``h % HKV``.
 
-``paged_decode_attention.cu`` (the int8 paged decode), held by
-``chip_smoke.int8_gate`` at phase 2's int8 case (B=16, lengths 1..2048
-with both ends, H=KVH=16, D=128, bf16 q), over all rows and over the rows
-of the sequences longer than one token:
+``flash_attention_bwd.cu`` (the flash backward, bf16), held by
+``chip_smoke.bwd_gate`` at the same three configurations:
 
-- ``scale row + 1``: every K/V row is dequantized with the next row's scale;
+- ``dQ: stale K/V tile``: the dQ kernel's last key tile reuses the
+  previous tile's K and V;
+- ``dK/dV: stale Q/dO tile``: the dK/dV kernel's last query tile reuses
+  the previous tile's Q and dO;
+- ``dQ: last key tile dropped``: the dQ kernel stops one key tile short;
+- ``dK/dV: last query tile dropped``: the dK/dV kernel stops one query
+  tile short;
+- ``causal diagonal + 1``: both kernels let each row see the key past its
+  diagonal;
+- ``GQA group``: the dQ kernel reads kv head ``h % HKV``, and the dK/dV
+  kernel gathers the wrong query heads into a kv head.
+
+``paged_decode_attention.cu`` (the paged decode, float and int8 pools),
+held by ``chip_smoke.decode_gate`` at phase 2's B=16 case (lengths
+1..2048 with both ends, H=KVH=16, D=128, bf16 q; the int8 kernel on the
+same pools quantized), over all rows and over the rows of the sequences
+longer than one token:
+
+- ``scale row + 1``: every K/V row is dequantized with the next row's
+  scale (int8 only);
 - ``last partial page dropped``: each sequence stops at its last full page;
-- ``last token dropped``: each sequence attends over one token too few.
+- ``last token dropped``: each sequence attends over one token too few;
+- ``last page's table slot + 1``: each sequence reads its last page
+  through the next slot of its table row (sequences whose last page is the
+  row's last slot are unchanged).
 
-Each variant runs through the kernel's own wrapper. It also prints the
-verdict of the looser gates used before (flash: atol 2e-2 + rtol 2e-2 and
-lse; int8: atol 3e-2 + rtol 2e-2). Exits 0 only if each source as it is
-passes and every broken form fails: a flash mutant in every configuration
-where it changes the result, an int8 mutant on the long rows alone. The
-last line names the mutants refused. Needs an NVIDIA card and ``nvcc``.
+Each variant runs through the kernel's own wrapper (``paged_decode`` and
+``paged_decode_int8`` for the decode). It also prints the verdict of the
+looser gates used before (flash forward: atol 2e-2 + rtol 2e-2 and lse;
+flash backward: atol 5e-2 + rtol 5e-2 and 1e-2 over each whole gradient;
+decode: atol 3e-2 + rtol 2e-2). Exits 0 only if each source as it is
+passes and every broken form fails wherever it changes the result: a flash
+mutant in every configuration where it does, a decode mutant on the long
+rows alone. The last line names the mutants refused. Needs an NVIDIA card
+and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -46,34 +69,84 @@ from pathlib import Path
 
 import chip_smoke as cs
 
-# library -> {variant: (text found exactly once in its source, replacement)}
+# library -> {variant: None (as is) or [(text found exactly once in its
+# source, replacement), ...]}
 MUTANTS = {
     "flash_attention_fwd": {
         "as is": None,
-        "stale V tile": (
+        "stale V tile": [(
             "const uint32_t v_tile = kt + Tile::KV_BYTES;",
             "const uint32_t v_tile = (tile > 0 && tile == n_tiles - 1 ?\n"
-            "      kv_tiles + (st ^ 1) * 2 * Tile::KV_BYTES : kt) + Tile::KV_BYTES;"),
-        "last key tile dropped": (
+            "      kv_tiles + (st ^ 1) * 2 * Tile::KV_BYTES : kt) + Tile::KV_BYTES;")],
+        "last key tile dropped": [(
             "const int n_tiles = key_tiles(q0, Sq, Sk, BK, causal);",
-            "const int n_tiles = max(key_tiles(q0, Sq, Sk, BK, causal) - 1, 0);"),
-        "causal diagonal + 1": (
+            "const int n_tiles = max(key_tiles(q0, Sq, Sk, BK, causal) - 1, 0);")],
+        "causal diagonal + 1": [(
             "if (kj >= Sk || (causal && kj > qi + off)) s[4 * n + e] = -INFINITY;",
             "if (kj >= Sk || (causal && kj > qi + off + 1)) s[4 * n + e] = "
-            "-INFINITY;"),
-        "GQA head h % HKV": (
+            "-INFINITY;")],
+        "GQA head h % HKV": [(
             "const int kv_head = h / (H / HKV);",
-            "const int kv_head = h % HKV;"),
+            "const int kv_head = h % HKV;")],
+    },
+    "flash_attention_bwd": {
+        "as is": None,
+        "dQ: stale K/V tile": [(
+            "// the previous tile's K/V are no longer read\n"
+            "    load_tile<T, D>(Ks, kb, st[4], k0, a.Sk);\n"
+            "    load_tile<T, D>(Vs, vb, st[7], k0, a.Sk);",
+            "// the previous tile's K/V are no longer read\n"
+            "    if (tile == 0 || tile < n_tiles - 1) {\n"
+            "    load_tile<T, D>(Ks, kb, st[4], k0, a.Sk);\n"
+            "    load_tile<T, D>(Vs, vb, st[7], k0, a.Sk);\n    }")],
+        "dK/dV: stale Q/dO tile": [(
+            "// the previous query tile is no longer read\n"
+            "    load_tile<T, D>(Qs, qb, st[1], qs0, a.Sq);\n"
+            "    load_tile<T, D>(Os, ob, st[10], qs0, a.Sq);",
+            "// the previous query tile is no longer read\n"
+            "    if (iq == first || iq < nq - 1) {\n"
+            "    load_tile<T, D>(Qs, qb, st[1], qs0, a.Sq);\n"
+            "    load_tile<T, D>(Os, ob, st[10], qs0, a.Sq);\n    }")],
+        "dQ: last key tile dropped": [(
+            "for (int tile = 0; tile < n_tiles; ++tile) {",
+            "for (int tile = 0; tile < n_tiles - 1; ++tile) {")],
+        "dK/dV: last query tile dropped": [(
+            "for (int iq = first; iq < nq; ++iq) {\n"
+            "    const int qs0 = iq * BQ;\n"
+            "    __syncthreads();  // the previous query tile",
+            "for (int iq = first; iq < nq - 1; ++iq) {\n"
+            "    const int qs0 = iq * BQ;\n"
+            "    __syncthreads();  // the previous query tile")],
+        "causal diagonal + 1": [
+            ("(!a.causal || qi + off >= kj);\n        const float p =\n",
+             "(!a.causal || qi + off + 1 >= kj);\n        const float p =\n"),
+            ("const bool ok =\n"
+             "              qi < a.Sq && kj < a.Sk && (!a.causal || qi + off >= kj);",
+             "const bool ok =\n"
+             "              qi < a.Sq && kj < a.Sk && (!a.causal || qi + off + 1 >= kj);")],
+        "GQA group": [
+            ("const int q0 = blockIdx.x * MMA_TILE, h = blockIdx.y, b = blockIdx.z;\n"
+             "  const int hk = h / (a.H / a.HKV);",
+             "const int q0 = blockIdx.x * MMA_TILE, h = blockIdx.y, b = blockIdx.z;\n"
+             "  const int hk = h % a.HKV;"),
+            ("const int k0 = blockIdx.x * MMA_TILE, h = blockIdx.y, b = blockIdx.z;\n"
+             "  const int hk = h / (a.H / a.HKV);",
+             "const int k0 = blockIdx.x * MMA_TILE, h = blockIdx.y, b = blockIdx.z;\n"
+             "  const int hk = h % a.HKV;")],
     },
     "paged_decode_attention": {
         "as is": None,
-        "scale row + 1": ("s = scales[row];", "s = scales[row + 1];"),
-        "last partial page dropped": (
+        "scale row + 1": [("s = scales[row];", "s = scales[row + 1];")],
+        "last partial page dropped": [(
             "const int len = min(lengths[b], P * BS);",
-            "const int len = min(lengths[b] / BS * BS, P * BS);"),
-        "last token dropped": (
+            "const int len = min(lengths[b] / BS * BS, P * BS);")],
+        "last token dropped": [(
             "const int len = min(lengths[b], P * BS);",
-            "const int len = min(lengths[b] - 1, P * BS);"),
+            "const int len = min(lengths[b] - 1, P * BS);")],
+        "last page's table slot + 1": [(
+            "row[i] = head_rows + (int64_t)trow[t / BS] * BS + (t % BS);",
+            "row[i] = head_rows + (int64_t)trow[min(t / BS + (t / BS == "
+            "(len - 1) / BS), P - 1)] * BS + (t % BS);")],
     },
 }
 FLASH_CONFIGS = ((True, 16), (False, 16), (True, 4))  # (causal, kv heads)
@@ -86,17 +159,18 @@ def build_variants(kernels, tmp: Path):
     procs = {}
     for lib_name, variants in MUTANTS.items():
         source, _ = kernels.SOURCES[lib_name]
-        for i, (name, sub) in enumerate(variants.items()):
+        for i, (name, subs) in enumerate(variants.items()):
             d = tmp / f"{lib_name}-{i}"
             d.mkdir()
             for f in [*src_dir.glob("*.cu"), *src_dir.glob("*.cuh")]:
                 shutil.copy(f, d)
             text = (d / source).read_text()
-            if sub is not None:
-                if text.count(sub[0]) != 1:
-                    raise SystemExit(f"gate_mutants: {sub[0]!r} is not once "
-                                     f"in {source}; update MUTANTS")
-                (d / source).write_text(text.replace(*sub))
+            for old, new in subs or ():
+                if text.count(old) != 1:
+                    raise SystemExit(f"gate_mutants: {old!r} is not once in "
+                                     f"{source}; update MUTANTS")
+                text = text.replace(old, new)
+            (d / source).write_text(text)
             lib = d / f"{lib_name}.so"
             cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib),
                    str(d / source)]
@@ -117,85 +191,128 @@ def build_variants(kernels, tmp: Path):
     return libs
 
 
-def flash_mutants(torch, kernels, libs, dev, gen, card):
-    """Every flash variant at every configuration. Returns (ok, refused)."""
-    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
+def _shown(gate):
+    return {k: ({kk: round(x, 6) if isinstance(x, float) else x
+                 for kk, x in v.items()} if isinstance(v, dict)
+                else round(v, 6) if isinstance(v, float) else v)
+            for k, v in gate.items()}
 
-    lib_name = "flash_attention_fwd"
-    cases = []
-    for causal, hkv in FLASH_CONFIGS:
-        q, k, v = cs.flash_inputs(torch, dev, gen, hkv)
-        cases.append((causal, hkv, (q, k, v), cs.flash_references(q, k, v,
-                                                                  causal)))
+
+def flash_mutants(torch, kernels, libs, lib_name, cases, run, gate_of, old,
+                  card):
+    """Every variant of a flash library at every configuration: ``run``
+    launches the kernels on a case's inputs, ``gate_of`` grades the result
+    against the case's references. A mutant that changes the result
+    nowhere fails the run (it tests nothing). Returns (ok, refused,
+    mutants counted)."""
     ok, refused, as_is = True, [], {}
+    tag = "flash_fwd" if lib_name.endswith("fwd") else "flash_bwd"
     for name in MUTANTS[lib_name]:
         kernels._libs[lib_name] = libs[lib_name, name]
-        failed_where_changed = True
-        for causal, hkv, qkv, refs in cases:
-            out, lse = flash_attention_fwd(*qkv, causal)
+        failed_where_changed, changed_any = True, False
+        for key, inputs, refs in cases:
+            got = run(*inputs)
             torch.cuda.synchronize()
-            gate = cs.flash_gate(out, lse, *refs)
+            gate = gate_of(got, refs)
             if name == "as is":
-                as_is[causal, hkv] = (out, lse)
+                as_is[key] = got
                 changed = False
                 ok &= gate["ok"]
             else:
-                out0, lse0 = as_is[causal, hkv]
-                changed = not (torch.equal(out, out0) and torch.equal(lse, lse0))
+                changed = not all(torch.equal(a, b)
+                                  for a, b in zip(got, as_is[key]))
+                changed_any |= changed
                 if changed and gate["ok"]:
                     failed_where_changed = False
-            shown = {k: (round(x, 6) if isinstance(x, float) else x)
-                     for k, x in gate.items()}
-            print(f"flash_fwd {name}, causal={causal} KVH={hkv}: {shown} -> "
-                  f"{'pass' if gate['ok'] else 'FAIL'} (the old atol "
-                  f"{cs.FLASH_ATOL} + rtol {cs.RTOL} and lse gates alone: "
+            print(f"{tag} {name}, causal={key[0]} KVH={key[1]}: "
+                  f"{_shown(gate)} -> {'pass' if gate['ok'] else 'FAIL'} "
+                  f"(the old gate alone, {old}: "
                   f"{'pass' if gate['old_ok'] else 'FAIL'}); "
                   f"{'changes' if changed else 'leaves'} the result [{card}]")
         if name != "as is":
-            ok &= failed_where_changed
-            if failed_where_changed:
-                refused.append(f"flash_fwd: {name}")
-    del cases, as_is
-    return ok, refused
+            ok &= failed_where_changed and changed_any
+            if failed_where_changed and changed_any:
+                refused.append(f"{tag}: {name}")
+    return ok, refused, len(MUTANTS[lib_name]) - 1
 
 
-def int8_mutants(torch, kernels, libs, dev, gen, gen_cpu, card):
-    """Every int8 paged-decode variant at phase 2's int8 case. Returns
-    (ok, refused)."""
+def fwd_mutants(torch, kernels, libs, dev, gen, card):
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    cases = []
+    for causal, hkv in FLASH_CONFIGS:
+        q, k, v = cs.flash_inputs(torch, dev, gen, hkv)
+        cases.append(((causal, hkv), (q, k, v, causal),
+                      cs.flash_references(q, k, v, causal)))
+    return flash_mutants(
+        torch, kernels, libs, "flash_attention_fwd", cases,
+        flash_attention_fwd, lambda got, refs: cs.flash_gate(*got, *refs),
+        f"atol {cs.FLASH_ATOL} + rtol {cs.RTOL} and lse", card)
+
+
+def bwd_mutants(torch, kernels, libs, dev, gen, card):
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    cases = []
+    for causal, hkv in FLASH_CONFIGS:
+        q, k, v, out, lse, do = cs.flash_bwd_inputs(torch, dev, gen, causal,
+                                                    hkv)
+        cases.append(((causal, hkv), (q, k, v, out, lse, do, causal),
+                      cs.bwd_references(q, k, v, out, lse, do, causal)))
+    return flash_mutants(
+        torch, kernels, libs, "flash_attention_bwd", cases,
+        flash_attention_bwd, lambda got, refs: cs.bwd_gate(got, *refs),
+        f"atol {cs.BWD_ATOL} + rtol {cs.BWD_RTOL}, rel {cs.BWD_REL}", card)
+
+
+def decode_mutants(torch, kernels, libs, dev, gen, gen_cpu, card):
+    """Every paged-decode variant through the float and the int8 kernels
+    at phase 2's B=16 case; a mutant counts once per kernel whose result
+    it changes. Returns (ok, refused, mutants counted)."""
     from paddle_tpu_torch.ops.paged_attention import (
-        _kv_quantize, paged_decode_int8, paged_decode_int8_plain)
+        _kv_quantize, paged_decode, paged_decode_int8, paged_decode_int8_plain,
+        paged_decode_plain)
 
     lib_name = "paged_decode_attention"
     q, kp, vp, tables, cl, lengths = cs.paged_inputs(torch, dev, gen, gen_cpu,
                                                      16)
     (kq, ks), (vq, vs) = _kv_quantize(kp), _kv_quantize(vp)
-    inputs = (q, kq, vq, ks, vs, tables, cl)
-    want = paged_decode_int8_plain(*inputs)
-    want_f32 = cs.int8_plain_f32(*inputs)
+    runs = {  # kernel -> (wrapper, inputs, plain version, f32 version, int8)
+        "paged_decode": (paged_decode, (q, kp, vp, tables, cl),
+                         paged_decode_plain(q, kp, vp, tables, cl),
+                         cs.paged_plain_f32(q, kp, vp, tables, cl), False),
+        "paged_decode_int8": (
+            paged_decode_int8, (q, kq, vq, ks, vs, tables, cl),
+            paged_decode_int8_plain(q, kq, vq, ks, vs, tables, cl),
+            cs.int8_plain_f32(q, kq, vq, ks, vs, tables, cl), True)}
     long_rows = (lengths > 1).to(dev)
-    ok, refused = True, []
+    ok, refused, as_is, counted = True, [], {}, 0
     for name in MUTANTS[lib_name]:
         kernels._libs[lib_name] = libs[lib_name, name]
-        got = paged_decode_int8(*inputs)
-        torch.cuda.synchronize()
-        every = cs.int8_gate(got, want, want_f32)
-        long = cs.int8_gate(got[long_rows], want[long_rows],
-                            want_f32[long_rows])
-        long["old_gate_ok"] = bool(torch.allclose(
-            got[long_rows].float(), want[long_rows].float(),
-            atol=cs.PAGED_ATOL, rtol=cs.RTOL))
-        print(f"paged_decode_int8 {name}: {every} -> "
-              f"{'pass' if every['ok'] else 'FAIL'}; rows of length > 1: "
-              f"{long} -> {'pass' if long['ok'] else 'FAIL'} (the old atol "
-              f"{cs.PAGED_ATOL} + rtol {cs.RTOL} gate alone: "
-              f"{'pass' if long['old_gate_ok'] else 'FAIL'}) [{card}]")
-        if name == "as is":
-            ok &= every["ok"]
-        else:
-            ok &= not long["ok"]
-            if not long["ok"]:
-                refused.append(f"paged_decode_int8: {name}")
-    return ok, refused
+        for kernel, (wrapper, inputs, want, want_f32, int8) in runs.items():
+            got = wrapper(*inputs)
+            torch.cuda.synchronize()
+            every = cs.decode_gate(got, want, want_f32, int8)
+            long = cs.decode_gate(got[long_rows], want[long_rows],
+                                  want_f32[long_rows], int8)
+            if name == "as is":
+                as_is[kernel] = got
+                changed = False
+                ok &= every["ok"]
+            else:
+                changed = not torch.equal(got, as_is[kernel])
+                if changed:
+                    counted += 1
+                    ok &= not long["ok"]
+                    if not long["ok"]:
+                        refused.append(f"{kernel}: {name}")
+            print(f"{kernel} {name}: {_shown(every)} -> "
+                  f"{'pass' if every['ok'] else 'FAIL'}; rows of length > 1: "
+                  f"{_shown(long)} -> {'pass' if long['ok'] else 'FAIL'} (the "
+                  f"old atol {cs.PAGED_ATOL} + rtol {cs.RTOL} gate alone: "
+                  f"{'pass' if long['old_ok'] else 'FAIL'}); "
+                  f"{'changes' if changed else 'leaves'} the result [{card}]")
+    return ok, refused, counted
 
 
 def main() -> int:
@@ -213,31 +330,46 @@ def main() -> int:
 
     card = cs.card_line()
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     gen_cpu = torch.Generator(device="cpu").manual_seed(args.seed)
     tmp = Path(tempfile.mkdtemp(prefix="gate_mutants_"))
+    results = []
     try:
         libs = build_variants(kernels, tmp)
-        ok_f, refused_f = flash_mutants(torch, kernels, libs, dev, gen, card)
-        ok_i, refused_i = int8_mutants(torch, kernels, libs, dev, gen, gen_cpu,
-                                       card)
+        results.append(fwd_mutants(torch, kernels, libs, dev, gen, card))
+        torch.cuda.empty_cache()
+        results.append(bwd_mutants(torch, kernels, libs, dev, gen, card))
+        torch.cuda.empty_cache()
+        results.append(decode_mutants(torch, kernels, libs, dev, gen, gen_cpu,
+                                      card))
     finally:
         for lib_name in MUTANTS:
             kernels._libs.pop(lib_name, None)
         shutil.rmtree(tmp, ignore_errors=True)
-    ok = ok_f and ok_i
-    print(json.dumps({"flash_gate": dict(
-        atol=cs.FLASH_ATOL, rtol=cs.RTOL, lse_atol=cs.FLASH_LSE_ATOL,
-        row_rel=cs.FLASH_ROW_REL, f32_atol=cs.FLASH_F32_ATOL,
-        f32_rtol=cs.FLASH_F32_RTOL), "int8_gate": dict(
-        atol=cs.INT8_ATOL, rtol=cs.INT8_RTOL, row_rel=cs.INT8_ROW_REL,
-        f32_atol=cs.INT8_F32_ATOL, f32_rtol=cs.INT8_F32_RTOL,
-        f32_row_rel=cs.INT8_F32_ROW_REL)}))
+    ok = all(r[0] for r in results)
+    refused = [m for r in results for m in r[1]]
+    print(json.dumps({
+        "flash_gate": dict(
+            atol=cs.FLASH_ATOL, rtol=cs.RTOL, lse_atol=cs.FLASH_LSE_ATOL,
+            row_rel=cs.FLASH_ROW_REL, f32_atol=cs.FLASH_F32_ATOL,
+            f32_rtol=cs.FLASH_F32_RTOL),
+        "bwd_gate": dict(
+            atol=cs.BWD_ATOL, rtol=cs.BWD_RTOL, rel=cs.BWD_REL,
+            row_rel=cs.BWD_ROW_REL, row_floor=cs.BWD_ROW_FLOOR,
+            f32_atol=cs.BWD_F32_ATOL, f32_rtol=cs.BWD_F32_RTOL),
+        "paged_gate": dict(
+            atol=cs.PAGED_ATOL, rtol=cs.RTOL, row_rel=cs.PAGED_ROW_REL,
+            f32_atol=cs.PAGED_F32_ATOL, f32_rtol=cs.PAGED_F32_RTOL,
+            f32_row_rel=cs.PAGED_F32_ROW_REL),
+        "int8_gate": dict(
+            atol=cs.INT8_ATOL, rtol=cs.INT8_RTOL, row_rel=cs.INT8_ROW_REL,
+            f32_atol=cs.INT8_F32_ATOL, f32_rtol=cs.INT8_F32_RTOL,
+            f32_row_rel=cs.INT8_F32_ROW_REL)}))
     print(card)
-    n = sum(len(v) - 1 for v in MUTANTS.values())
-    print(f"gate_mutants: {'ok' if ok else 'FAIL'}; refused "
-          f"{len(refused_f) + len(refused_i)} of {n} mutants: "
-          f"{'; '.join(refused_f + refused_i)}")
+    n = sum(r[2] for r in results)
+    print(f"gate_mutants: {'ok' if ok else 'FAIL'}; refused {len(refused)} "
+          f"of {n} mutants: {'; '.join(refused)}")
     return 0 if ok else 1
 
 

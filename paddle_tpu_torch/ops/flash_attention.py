@@ -153,10 +153,13 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     return out, lse
 
 
-def _bwd_plain_heads(q, k, v, do, lse, delta, causal: bool, scale: float):
+def _bwd_plain_heads(q, k, v, do, lse, delta, causal: bool, scale: float,
+                     p_dtype=None):
     """The backward in f32, one block, with dK/dV per query head: q/do
     ``[B, Sq, H, D]``, k/v ``[B, Sk, Hkv, D]``, lse/delta f32 ``[B, H, Sq]``
-    -> f32 (dq ``[B, Sq, H, D]``, dk, dv ``[B, Sk, H, D]``)."""
+    -> f32 (dq ``[B, Sq, H, D]``, dk, dv ``[B, Sk, H, D]``). ``p_dtype``
+    rounds P to that dtype before ``P^T @ dO`` and dS before ``dS @ K`` and
+    ``dS^T @ Q``, the TPU kernels' rounding points."""
     qh = q.transpose(1, 2).float()
     kh = k.transpose(1, 2).float()
     vh = v.transpose(1, 2).float()
@@ -177,6 +180,8 @@ def _bwd_plain_heads(q, k, v, do, lse, delta, causal: bool, scale: float):
         p = p.masked_fill(~mask, 0.0)
     dp = torch.matmul(doh, vh.transpose(-1, -2))
     ds = p * (dp - delta[..., None]) * scale
+    if p_dtype is not None:
+        p, ds = p.to(p_dtype).float(), ds.to(p_dtype).float()
     dq = torch.matmul(ds, kh)
     dk = torch.matmul(ds.transpose(-1, -2), qh)
     dv = torch.matmul(p.transpose(-1, -2), doh)
@@ -200,15 +205,36 @@ def _sum_groups(d: torch.Tensor, hkv: int, dtype) -> torch.Tensor:
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, causal: bool = False,
-                              scale: Optional[float] = None):
+                              scale: Optional[float] = None, p_dtype=None):
     """Plain PyTorch version of the backward kernels: the same function in
     f32, in one block. q/out/do ``[B, Sq, H, D]``, k/v ``[B, Sk, Hkv, D]``,
     lse f32 ``[B, H, Sq]`` -> (dq, dk, dv) in q's, k's and v's dtypes. P and
-    dS stay f32 here where the kernels round them to the input dtype."""
+    dS stay f32 here where the kernels round them to the input dtype, unless
+    ``p_dtype`` names that dtype (run on f32 inputs, the chip gates'
+    reference)."""
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    dq, dk, dv = _bwd_plain_heads(q, k, v, do, lse, _delta(out, do), causal, s)
+    dq, dk, dv = _bwd_plain_heads(q, k, v, do, lse, _delta(out, do), causal, s,
+                                  p_dtype)
     hkv = k.shape[2]
     return dq.to(q.dtype), _sum_groups(dk, hkv, k.dtype), _sum_groups(dv, hkv, v.dtype)
+
+
+BWD_VARIANTS = ("mma_sync", "cuda_core")
+
+
+def _bwd_variant(dtype, d: int) -> str:
+    """Which backward kernels take ``dtype`` at head_dim ``d``, decided up
+    front: 2-byte types at head_dim 64 and 128 on the tensor cores
+    (``mma_sync``), f32 and head_dim 256 on the CUDA cores
+    (``cuda_core``). Raises for what no kernel takes."""
+    if d not in kernels.HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim in {kernels.HEAD_DIMS}, "
+                         f"got {d}")
+    if dtype in (torch.bfloat16, torch.float16):
+        return "mma_sync" if d <= 128 else "cuda_core"
+    if dtype == torch.float32:
+        return "cuda_core"
+    raise ValueError(f"flash kernel takes f32/bf16/f16, got {dtype}")
 
 
 def _strides(*ts) -> ctypes.Array:
@@ -233,9 +259,7 @@ def _bwd_inputs(name, q, k, v, do, lse, delta):
                              f"[B, H, Sq] = {(b, h, sq)}")
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
-    if d not in kernels.HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {kernels.HEAD_DIMS}, "
-                         f"got {d}")
+    _bwd_variant(q.dtype, d)
     for t in (q, k, v, do):
         if t.stride(3) != 1:
             raise ValueError("flash kernel needs a unit stride on head_dim")
@@ -246,7 +270,7 @@ def _bwd_inputs(name, q, k, v, do, lse, delta):
     return q, k, v, do
 
 
-@kernels.kernel_wrapper("flash_attention_bwd_dq")
+@kernels.kernel_wrapper("flash_attention_bwd_dq", BWD_VARIANTS)
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
                            scale: float) -> torch.Tensor:
     """Kernel wrapper: dQ ``[B, Sq, H, D]`` in q's dtype from q/do
@@ -266,10 +290,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch("flash_attention_bwd_dq", err)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.variant_launches[_bwd_variant(q.dtype, d)] += 1
     return dq
 
 
-@kernels.kernel_wrapper("flash_attention_bwd_dkv")
+@kernels.kernel_wrapper("flash_attention_bwd_dkv", BWD_VARIANTS)
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
                             scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper: (dK, dV) per query head, ``[B, Sk, H, D]`` in the
@@ -291,6 +316,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch("flash_attention_bwd_dkv", err)
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.variant_launches[_bwd_variant(q.dtype, d)] += 1
     return dk, dv
 
 

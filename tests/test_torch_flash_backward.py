@@ -4,8 +4,9 @@ Autograd through ``paddle_tpu_torch.ops.flash_attention.flash_attention``
 on the CPU (forward and backward take their plain versions there) against
 ``jax.grad`` of the JAX package's Pallas kernels in interpret mode, on the
 same numpy inputs and cotangent. dq/dk/dv in f32 agree to 1e-4: the same
-sums in other orders. The kernel wrappers' per-head pieces and the GQA
-group sum are held against the same oracle.
+sums in other orders. The kernel wrappers' pieces are held against the
+same oracle, and the plain backward with P and dS rounded to bf16 (the
+chip gates' reference) against the Pallas kernels run on bf16 inputs.
 """
 import jax
 import jax.numpy as jnp
@@ -91,3 +92,65 @@ def test_fully_masked_rows_get_no_gradient():
     out.sum().backward()
     assert torch.equal(q.grad[:, :4], torch.zeros_like(q.grad[:, :4]))
     assert torch.isfinite(k.grad).all() and torch.isfinite(v.grad).all()
+
+
+# per-row tolerance of the p_dtype reference against the TPU kernels: the
+# JAX outputs are rounded to bf16 (half an ulp, 2^-9 = 0.00195 of each
+# element) and the two sum in other orders (worst row 0.0027 at these
+# inputs; the version that keeps P and dS in f32 is 0.0031-0.0044 off); a
+# row's norm counts at least ROW_FLOOR of the tensor's RMS row norm, since
+# under causal masking dq's first row sees one key and is rounding noise
+# (dP = delta in exact arithmetic)
+ROW_REL, ROW_FLOOR = 3e-3, 1e-2
+
+
+def _row_rel(got, want):
+    norms = want.norm(dim=-1)
+    floor = ROW_FLOOR * float(norms.pow(2).mean().sqrt())
+    return float(((got - want).norm(dim=-1) / norms.clamp_min(floor)).max())
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("kvh", [2, 1], ids=["mha", "gqa"])
+def test_plain_backward_rounds_where_the_tpu_kernels_round(kvh, causal):
+    """``flash_attention_bwd_plain(..., p_dtype=bf16)`` run in f32 on
+    bf16-valued inputs against the JAX package's ``_flash_bwd`` (Pallas,
+    interpret mode) on the same bf16 inputs, out and lse: P rounded before
+    ``P^T dO`` and dS before ``dS K`` and ``dS^T Q`` on both sides. Three
+    128-row tiles per side, so the causal ``live`` predicate skips tiles."""
+    from paddle_tpu.ops.flash_attention import _flash_bwd
+
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_plain)
+
+    h, s = 2, 384
+    q, k, v, w = (torch.from_numpy(x).to(torch.bfloat16).float()
+                  for x in _inputs(s, h, kvh, b=1, seed=3))
+    out, lse = flash_attention_fwd_plain(q, k, v, causal,
+                                         p_dtype=torch.bfloat16)
+    out = out.to(torch.bfloat16).float()
+    got = flash_attention_bwd_plain(q, k, v, out, lse, w, causal,
+                                    p_dtype=torch.bfloat16)
+
+    def bf16_bhsd(t, repeat=1):
+        a = jnp.asarray(t.transpose(1, 2).numpy(), dtype=jnp.bfloat16)
+        return jnp.repeat(a, repeat, axis=1) if repeat > 1 else a
+
+    group = h // kvh
+    dq, dk, dv = _flash_bwd(
+        bf16_bhsd(q), bf16_bhsd(k, group), bf16_bhsd(v, group), bf16_bhsd(out),
+        jnp.asarray(lse.numpy()), bf16_bhsd(w), 1.0 / np.sqrt(64), causal, True)
+
+    def port_layout(a, sum_groups=False):
+        t = torch.from_numpy(np.array(a.astype(jnp.float32))).transpose(1, 2)
+        if sum_groups:  # [B, S, H, D] -> each GQA group summed in f32
+            t = t.reshape(t.shape[0], t.shape[1], kvh, group, -1).sum(3)
+        return t
+
+    want = (port_layout(dq), port_layout(dk, True), port_layout(dv, True))
+    unrounded = flash_attention_bwd_plain(q, k, v, out, lse, w, causal)
+    for name, g, wnt, f32 in zip(("dq", "dk", "dv"), got, want, unrounded):
+        assert g.dtype == torch.float32 and g.shape == wnt.shape, name
+        assert _row_rel(g, wnt) <= ROW_REL, name
+        # the rounding points are what bring it this close
+        assert _row_rel(f32, wnt) > _row_rel(g, wnt), name
