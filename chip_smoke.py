@@ -143,7 +143,7 @@ ARGMAX_MIN = 0.9
 # (phases 3 and 7 count the forward's launches per variant, phase 7 the
 # backward's)
 FLASH_MAIN_VARIANT = "wgmma"
-BWD_MAIN_VARIANT = "mma_sync"
+BWD_MAIN_VARIANT = "wgmma"
 
 
 def fail(msg: str) -> None:

@@ -20,17 +20,18 @@ H=16, D=128; causal MHA, non-causal MHA, causal GQA with 4 kv heads):
 ``flash_attention_bwd.cu`` (the flash backward, bf16), held by
 ``chip_smoke.bwd_gate`` at the same three configurations:
 
-- ``dQ: stale K/V tile``: the dQ kernel's last key tile reuses the
-  previous tile's K and V;
-- ``dK/dV: stale Q/dO tile``: the dK/dV kernel's last query tile reuses
-  the previous tile's Q and dO;
+- ``dQ: stale K/V tile``: the dQ kernel's last key tile reads the other
+  ring stage, which holds the previous tile's K and V;
+- ``dK/dV: stale Q/dO tile``: the dK/dV kernel's last query tile reads the
+  previous tile's Q and dO the same way;
 - ``dQ: last key tile dropped``: the dQ kernel stops one key tile short;
 - ``dK/dV: last query tile dropped``: the dK/dV kernel stops one query
-  tile short;
+  tile short of each query head;
 - ``causal diagonal + 1``: both kernels let each row see the key past its
   diagonal;
 - ``GQA group``: the dQ kernel reads kv head ``h % HKV``, and the dK/dV
-  kernel gathers the wrong query heads into a kv head.
+  kernel sums query heads ``hk, hk + HKV, ...`` into kv head ``hk`` in
+  place of its own group.
 
 ``paged_decode_attention.cu`` (the paged decode, float and int8 pools),
 held by ``chip_smoke.decode_gate`` at phase 2's B=16 case (lengths
@@ -92,47 +93,34 @@ MUTANTS = {
     "flash_attention_bwd": {
         "as is": None,
         "dQ: stale K/V tile": [(
-            "// the previous tile's K/V are no longer read\n"
-            "    load_tile<T, D>(Ks, kb, st[4], k0, a.Sk);\n"
-            "    load_tile<T, D>(Vs, vb, st[7], k0, a.Sk);",
-            "// the previous tile's K/V are no longer read\n"
-            "    if (tile == 0 || tile < n_tiles - 1) {\n"
-            "    load_tile<T, D>(Ks, kb, st[4], k0, a.Sk);\n"
-            "    load_tile<T, D>(Vs, vb, st[7], k0, a.Sk);\n    }")],
+            "const int k0 = tile * BK;\n"
+            "    const uint32_t kt = kv_tiles + st * 2 * Tile::KV_BYTES;",
+            "const int k0 = tile * BK;\n"
+            "    const uint32_t kt = kv_tiles + (tile > 0 && tile == n_tiles - 1 ?\n"
+            "      (st + DQ_STAGES - 1) % DQ_STAGES : st) * 2 * Tile::KV_BYTES;")],
         "dK/dV: stale Q/dO tile": [(
-            "// the previous query tile is no longer read\n"
-            "    load_tile<T, D>(Qs, qb, st[1], qs0, a.Sq);\n"
-            "    load_tile<T, D>(Os, ob, st[10], qs0, a.Sq);",
-            "// the previous query tile is no longer read\n"
-            "    if (iq == first || iq < nq - 1) {\n"
-            "    load_tile<T, D>(Qs, qb, st[1], qs0, a.Sq);\n"
-            "    load_tile<T, D>(Os, ob, st[10], qs0, a.Sq);\n    }")],
+            "const int qs0 = (first + t % per_head) * BQ;\n"
+            "    const uint32_t qt = qo_tiles + st * 2 * Tile::QO_BYTES;",
+            "const int qs0 = (first + t % per_head) * BQ;\n"
+            "    const uint32_t qt = qo_tiles + (t > 0 && t == n_tiles - 1 ?\n"
+            "      (st + DKV_STAGES - 1) % DKV_STAGES : st) * 2 * Tile::QO_BYTES;")],
         "dQ: last key tile dropped": [(
-            "for (int tile = 0; tile < n_tiles; ++tile) {",
-            "for (int tile = 0; tile < n_tiles - 1; ++tile) {")],
+            "const int n_tiles = key_tiles(q0, DQ_BQ, Sq, Sk, BK, causal);",
+            "const int n_tiles = max(key_tiles(q0, DQ_BQ, Sq, Sk, BK, causal) - 1, "
+            "0);")],
         "dK/dV: last query tile dropped": [(
-            "for (int iq = first; iq < nq; ++iq) {\n"
-            "    const int qs0 = iq * BQ;\n"
-            "    __syncthreads();  // the previous query tile",
-            "for (int iq = first; iq < nq - 1; ++iq) {\n"
-            "    const int qs0 = iq * BQ;\n"
-            "    __syncthreads();  // the previous query tile")],
+            "const int per_head = max((Sq + BQ - 1) / BQ - first, 0);",
+            "const int per_head = max((Sq + BQ - 1) / BQ - first - 1, 0);")],
         "causal diagonal + 1": [
-            ("(!a.causal || qi + off >= kj);\n        const float p =\n",
-             "(!a.causal || qi + off + 1 >= kj);\n        const float p =\n"),
-            ("const bool ok =\n"
-             "              qi < a.Sq && kj < a.Sk && (!a.causal || qi + off >= kj);",
-             "const bool ok =\n"
-             "              qi < a.Sq && kj < a.Sk && (!a.causal || qi + off + 1 >= kj);")],
+            ("if (edge && (kj >= Sk || (causal && kj > qi + off))) p = 0.f;",
+             "if (edge && (kj >= Sk || (causal && kj > qi + off + 1))) p = 0.f;"),
+            ("if (edge && qi + off < kj) p = 0.f;",
+             "if (edge && qi + off + 1 < kj) p = 0.f;")],
         "GQA group": [
-            ("const int q0 = blockIdx.x * MMA_TILE, h = blockIdx.y, b = blockIdx.z;\n"
-             "  const int hk = h / (a.H / a.HKV);",
-             "const int q0 = blockIdx.x * MMA_TILE, h = blockIdx.y, b = blockIdx.z;\n"
-             "  const int hk = h % a.HKV;"),
-            ("const int k0 = blockIdx.x * MMA_TILE, h = blockIdx.y, b = blockIdx.z;\n"
-             "  const int hk = h / (a.H / a.HKV);",
-             "const int k0 = blockIdx.x * MMA_TILE, h = blockIdx.y, b = blockIdx.z;\n"
-             "  const int hk = h % a.HKV;")],
+            ("const int kv_head = h / (H / HKV);",
+             "const int kv_head = h % HKV;"),
+            ("const int h = hk * group + t / per_head;",
+             "const int h = (t / per_head) * HKV + hk;")],
     },
     "paged_decode_attention": {
         "as is": None,

@@ -4,16 +4,17 @@ Three hand-written CUDA kernels: the forward ``ops/kernels/
 flash_attention_fwd.cu`` (port of the TPU kernel ``_fwd_kernel``) and the
 backward pair in ``ops/kernels/flash_attention_bwd.cu`` (ports of
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``); bf16/f16 run on the tensor
-cores (the forward through TMA and ``wgmma``, warp-specialised), f32 on
-the CUDA cores; :func:`_fwd_variant` picks the forward kernel up front
-from dtype and head_dim. The forward keeps an online softmax with f32
-running max / denominator / accumulator, skips causal key tiles above the
-diagonal (offset ``sk - sq``), reads GQA kv heads by ``h // group`` without
-repeating K/V, masks with ``NEG_INF = -1e30`` (fully masked rows come out
-as zeros) and leaves an f32 logsumexp residual ``[B, H, Sq]``. The backward
-recomputes the probabilities from that residual; ``delta = sum(out * dO)``
-is formed in f32 outside the kernels, and GQA's dK/dV come out per query
-head and are summed per group in f32, then cast once.
+cores through TMA and ``wgmma``, warp-specialised (the backward at
+head_dim 64 and 128), the rest on the CUDA cores; :func:`_fwd_variant` and
+:func:`_bwd_variant` pick the kernels up front from dtype and head_dim.
+The forward keeps an online softmax with f32 running max / denominator /
+accumulator, skips causal key tiles above the diagonal (offset
+``sk - sq``), reads GQA kv heads by ``h // group`` without repeating K/V,
+masks with ``NEG_INF = -1e30`` (fully masked rows come out as zeros) and
+leaves an f32 logsumexp residual ``[B, H, Sq]``. The backward recomputes
+the probabilities from that residual; ``delta = sum(out * dO)`` is formed
+in f32 outside the kernels, and the dK/dV kernel sums each GQA group's
+query heads in f32 and casts once.
 
 Public layout is paddle's ``[B, S, H, D]``; the kernels read and write it
 through strides. :class:`FlashAttention` is the autograd seam in place of
@@ -219,19 +220,20 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal: bool = False,
     return dq.to(q.dtype), _sum_groups(dk, hkv, k.dtype), _sum_groups(dv, hkv, v.dtype)
 
 
-BWD_VARIANTS = ("mma_sync", "cuda_core")
+BWD_VARIANTS = ("wgmma", "cuda_core")
 
 
 def _bwd_variant(dtype, d: int) -> str:
     """Which backward kernels take ``dtype`` at head_dim ``d``, decided up
-    front: 2-byte types at head_dim 64 and 128 on the tensor cores
-    (``mma_sync``), f32 and head_dim 256 on the CUDA cores
+    front: 2-byte types at head_dim 64 and 128 on the tensor cores through
+    TMA and ``wgmma`` (``wgmma``), f32 and head_dim 256 (whose dK + dV
+    accumulators do not fit a warpgroup's registers) on the CUDA cores
     (``cuda_core``). Raises for what no kernel takes."""
     if d not in kernels.HEAD_DIMS:
         raise ValueError(f"flash kernel takes head_dim in {kernels.HEAD_DIMS}, "
                          f"got {d}")
     if dtype in (torch.bfloat16, torch.float16):
-        return "mma_sync" if d <= 128 else "cuda_core"
+        return "wgmma" if d <= 128 else "cuda_core"
     if dtype == torch.float32:
         return "cuda_core"
     raise ValueError(f"flash kernel takes f32/bf16/f16, got {dtype}")
@@ -282,7 +284,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    err = kernels.load("flash_attention_bwd").flash_attention_bwd_dq_launch(
+    variant = _bwd_variant(q.dtype, d)
+    lib = kernels.load("flash_attention_bwd")
+    launch = (lib.flash_attention_bwd_dq_wgmma_launch if variant == "wgmma"
+              else lib.flash_attention_bwd_dq_launch)
+    err = launch(
         kernels.dtype_code("flash_attention_bwd", q.dtype), q.data_ptr(),
         k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), None, b, h, hkv, sq, sk, d,
@@ -290,25 +296,30 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch("flash_attention_bwd_dq", err)
     flash_attention_bwd_dq.launches += 1
-    flash_attention_bwd_dq.variant_launches[_bwd_variant(q.dtype, d)] += 1
+    flash_attention_bwd_dq.variant_launches[variant] += 1
     return dq
 
 
 @kernels.kernel_wrapper("flash_attention_bwd_dkv", BWD_VARIANTS)
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
                             scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel wrapper: (dK, dV) per query head, ``[B, Sk, H, D]`` in the
-    input dtype (GQA groups not yet summed). CPU tensors take the plain
-    version."""
+    """Kernel wrapper: (dK, dV) ``[B, Sk, Hkv, D]`` in the input dtype, each
+    GQA group's query heads summed in f32 and cast once. CPU tensors take
+    the plain version."""
+    hkv = k.shape[2]
     if q.device.type == "cpu":
         _, dk, dv = _bwd_plain_heads(q, k, v, do, lse, delta, causal, scale)
-        return dk.to(k.dtype), dv.to(v.dtype)
+        return _sum_groups(dk, hkv, k.dtype), _sum_groups(dv, hkv, v.dtype)
     q, k, v, do = _bwd_inputs("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    dk = torch.empty(b, sk, h, d, dtype=k.dtype, device=k.device)
+    sk = k.shape[1]
+    dk = torch.empty(b, sk, hkv, d, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    err = kernels.load("flash_attention_bwd").flash_attention_bwd_dkv_launch(
+    variant = _bwd_variant(q.dtype, d)
+    lib = kernels.load("flash_attention_bwd")
+    launch = (lib.flash_attention_bwd_dkv_wgmma_launch if variant == "wgmma"
+              else lib.flash_attention_bwd_dkv_launch)
+    err = launch(
         kernels.dtype_code("flash_attention_bwd", q.dtype), q.data_ptr(),
         k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, sk, d,
@@ -316,7 +327,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch("flash_attention_bwd_dkv", err)
     flash_attention_bwd_dkv.launches += 1
-    flash_attention_bwd_dkv.variant_launches[_bwd_variant(q.dtype, d)] += 1
+    flash_attention_bwd_dkv.variant_launches[variant] += 1
     return dk, dv
 
 
@@ -332,8 +343,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
     delta = _delta(out, do)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, s)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, s)
-    hkv = k.shape[2]
-    return dq, _sum_groups(dk, hkv, k.dtype), _sum_groups(dv, hkv, v.dtype)
+    return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):

@@ -62,8 +62,10 @@ SOURCES = {
             "flash_attention_fwd_wgmma_launch": _FLASH_FWD_ARGS}),  # bf16/f16
     "flash_attention_bwd": (
         "flash_attention_bwd.cu", {
-            "flash_attention_bwd_dq_launch": _FLASH_BWD_ARGS,
-            "flash_attention_bwd_dkv_launch": _FLASH_BWD_ARGS}),
+            "flash_attention_bwd_dq_launch": _FLASH_BWD_ARGS,  # CUDA cores
+            "flash_attention_bwd_dkv_launch": _FLASH_BWD_ARGS,
+            "flash_attention_bwd_dq_wgmma_launch": _FLASH_BWD_ARGS,  # wgmma
+            "flash_attention_bwd_dkv_wgmma_launch": _FLASH_BWD_ARGS}),
     "fused_adamw": (
         "fused_adamw.cu", {"fused_adamw_launch":
         # p/g/m dtype codes, sr, p, g, m, v, scalars (4 f32), salts (2

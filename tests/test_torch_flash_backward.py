@@ -16,6 +16,7 @@ import torch
 
 from paddle_tpu.ops.flash_attention import flash_attention as j_flash
 from paddle_tpu_torch.ops.flash_attention import (
+    _bwd_plain_heads,
     _delta,
     _sum_groups,
     flash_attention,
@@ -60,22 +61,27 @@ def test_autograd_matches_jax_grad(s, kvh, causal):
 
 
 def test_kernel_wrappers_on_cpu_compose_to_the_backward():
-    """The dQ and dK/dV wrappers (plain on the CPU) with the group sum give
-    what ``flash_attention_bwd`` gives, and the launch counts stay put."""
+    """The dQ and dK/dV wrappers (plain on the CPU) give what
+    ``flash_attention_bwd`` gives, dK/dV already summed over each GQA group
+    as the kernel sums them, and the launch counts stay put."""
     q, k, v, w = (torch.from_numpy(x) for x in _inputs(128, 4, 2, seed=1))
     out, lse = flash_attention_fwd(q, k, v, True)
     scale = 1.0 / np.sqrt(64)
     before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
     delta = _delta(out, w)
     dq = flash_attention_bwd_dq(q, k, v, w, lse, delta, True, scale)
-    dk_h, dv_h = flash_attention_bwd_dkv(q, k, v, w, lse, delta, True, scale)
-    assert dk_h.shape == (2, 128, 4, 64)  # per query head, before the sum
+    dk, dv = flash_attention_bwd_dkv(q, k, v, w, lse, delta, True, scale)
+    assert dk.shape == dv.shape == (2, 128, 2, 64)  # per kv head, summed
     want = flash_attention_bwd(q, k, v, out, lse, w, True)
     torch.testing.assert_close(dq, want[0], atol=0, rtol=0)
-    torch.testing.assert_close(_sum_groups(dk_h, 2, k.dtype), want[1],
-                               atol=1e-6, rtol=0)
-    torch.testing.assert_close(_sum_groups(dv_h, 2, v.dtype), want[2],
-                               atol=1e-6, rtol=0)
+    torch.testing.assert_close(dk, want[1], atol=1e-6, rtol=0)
+    torch.testing.assert_close(dv, want[2], atol=1e-6, rtol=0)
+    # the group sum is the per-query-head gradients' sum
+    _, dk_h, dv_h = _bwd_plain_heads(q, k, v, w, lse, delta, True, scale)
+    torch.testing.assert_close(_sum_groups(dk_h, 2, k.dtype), dk, atol=0,
+                               rtol=0)
+    torch.testing.assert_close(_sum_groups(dv_h, 2, v.dtype), dv, atol=0,
+                               rtol=0)
     assert (flash_attention_bwd_dq.launches,
             flash_attention_bwd_dkv.launches) == before
 
