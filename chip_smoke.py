@@ -129,11 +129,13 @@ LOGITS_REL_TOL = 5e-2  # 8 bf16 layers, kernel vs plain attention
 # so dP = delta there in exact arithmetic and that row is rounding noise.
 # Set from the mma.sync kernels' first measurement on the H100
 # (chip_smoke.py and gate_mutants.py, phase 2's three configurations):
-# worst row 0.0056 (2.5x margin); atol needed beside rtol 1e-2 0.0011 for
-# MHA and 0.069 for GQA, whose dK/dV those kernels wrote per query head in
-# bf16 before the group sum (2.5x margin).
+# worst row 0.0056 (2.5x margin; the wgmma kernels' worst is 0.0064); atol
+# needed beside rtol 1e-2 0.0011 for MHA, but 0.069 for GQA, whose dK/dV
+# those kernels wrote per query head in bf16 before the group sum: hence
+# BWD_F32_ATOL 0.17 then. The wgmma kernels sum each group in f32 and need
+# at most 0.0023, so the bound is now 1e-2 (4.3x).
 BWD_ATOL, BWD_RTOL, BWD_REL = 5e-2, 5e-2, 1e-2
-BWD_ROW_REL, BWD_F32_ATOL, BWD_F32_RTOL, BWD_ROW_FLOOR = 1.4e-2, 0.17, 1e-2, 1e-2
+BWD_ROW_REL, BWD_F32_ATOL, BWD_F32_RTOL, BWD_ROW_FLOOR = 1.4e-2, 1e-2, 1e-2, 1e-2
 # phase 8: gradients of every parameter through 2 bf16 layers, kernels
 # against the plain paths (naive attention rounds its logits and
 # probabilities to bf16; the kernels keep scores in f32)
@@ -237,11 +239,13 @@ def rel_err(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def row_rel_err(a, b) -> float:
-    """The worst norm-relative error over the rows of the last axis."""
+def row_rel_err(a, b, floor: float = 0.0) -> float:
+    """The worst norm-relative error over the rows of the last axis, each
+    row's norm counted as at least ``floor`` of the RMS row norm."""
     a, b = a.float(), b.float()
-    return float(((a - b).norm(dim=-1)
-                  / b.norm(dim=-1).clamp_min(1e-30)).max())
+    norms = b.norm(dim=-1)
+    least = max(floor * float(norms.pow(2).mean().sqrt()), 1e-30)
+    return float(((a - b).norm(dim=-1) / norms.clamp_min(least)).max())
 
 
 def _prescaled_q32(q):
@@ -333,11 +337,8 @@ def bwd_gate(got, want, want32):
     r, old_ok, ok = {}, True, True
     for name, g, w, w32 in zip(("dq", "dk", "dv"), got, want, want32):
         g, w, w32 = g.float(), w.float(), w32.float()
-        norms = w32.norm(dim=-1)
-        floor = BWD_ROW_FLOOR * float(norms.pow(2).mean().sqrt())
         e = dict(max_abs_err=float((g - w).abs().max()), rel_err=rel_err(g, w),
-                 row_rel=float(((g - w32).norm(dim=-1)
-                                / norms.clamp_min(max(floor, 1e-30))).max()),
+                 row_rel=row_rel_err(g, w32, BWD_ROW_FLOOR),
                  f32_max_abs_err=float((g - w32).abs().max()),
                  f32_atol_needed=atol_needed(g, w32, BWD_F32_RTOL))
         o = (bool(torch.isfinite(g).all()) and e["rel_err"] <= BWD_REL
@@ -547,8 +548,8 @@ def flash_bwd_case(torch, dev, gen, causal, hkv):
     mm = 2.0 * B * H * pairs * D  # one Sq x Sk x D product
     dq_bound = bound(reads + B * S * H * D * 2, 3 * mm)
     dkv_bound = bound(reads + 2 * B * S * hkv * D * 2, 4 * mm)
-    return dict(causal=causal, hkv=hkv, gate=gate, variant=_bwd_variant(q.dtype, D),
-                dq_ms=dq_ms, dkv_ms=dkv_ms,
+    return dict(causal=causal, hkv=hkv, gate=gate,
+                variant=_bwd_variant(q.dtype, D), dq_ms=dq_ms, dkv_ms=dkv_ms,
                 plain_ms=plain_ms, library_ms=library_ms,
                 dq_bound=dq_bound, dkv_bound=dkv_bound,
                 dq_rate=f"{3 * mm / dq_ms / 1e9:.1f} TFLOP/s",
@@ -729,8 +730,7 @@ def kernel_class(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
         return "attention forward"
-    if any(k in n for k in ("flash_bwd", "dq_mma", "dkv_mma", "dq_scalar",
-                            "dkv_scalar")):
+    if any(k in n for k in ("flash_bwd", "dq_scalar", "dkv_scalar")):
         return "attention backward"
     if "adamw_kernel" in n:
         return "AdamW kernel"
@@ -1308,9 +1308,8 @@ def main() -> int:
     for name, ms_key, b_key in (("flash_attention_bwd_dq", "dq_ms", "dq_bound"),
                                 ("flash_attention_bwd_dkv", "dkv_ms",
                                  "dkv_bound")):
-        err = bwd_main["gate"]["dq" if name.endswith("dq") else "dk"]["max_abs_err"]
-        if name.endswith("dkv"):
-            err = max(err, bwd_main["gate"]["dv"]["max_abs_err"])
+        outs = ("dq",) if name.endswith("dq") else ("dk", "dv")
+        err = max(bwd_main["gate"][o]["max_abs_err"] for o in outs)
         entries.append(dict(
             name=name, route="cuda",
             source="paddle_tpu_torch/ops/kernels/flash_attention_bwd.cu",

@@ -248,7 +248,8 @@ def _strides(*ts) -> ctypes.Array:
 
 def _bwd_inputs(name, q, k, v, do, lse, delta):
     """Checks shared by the two backward kernel wrappers; returns q, k, v,
-    do made 16-byte aligned where the tensor-core kernels need it."""
+    do made 16-byte aligned where the tensor-core kernels need it, and the
+    variant (:func:`_bwd_variant`)."""
     _check(q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"{name}: dO {tuple(do.shape)} {do.dtype} does not "
@@ -261,7 +262,7 @@ def _bwd_inputs(name, q, k, v, do, lse, delta):
                              f"[B, H, Sq] = {(b, h, sq)}")
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
-    _bwd_variant(q.dtype, d)
+    variant = _bwd_variant(q.dtype, d)
     for t in (q, k, v, do):
         if t.stride(3) != 1:
             raise ValueError("flash kernel needs a unit stride on head_dim")
@@ -269,7 +270,7 @@ def _bwd_inputs(name, q, k, v, do, lse, delta):
         q, k, v, do = (t if _vector_aligned(t)
                        else t.clone(memory_format=torch.contiguous_format)
                        for t in (q, k, v, do))
-    return q, k, v, do
+    return q, k, v, do, variant
 
 
 @kernels.kernel_wrapper("flash_attention_bwd_dq", BWD_VARIANTS)
@@ -280,11 +281,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
     ``[B, H, Sq]``. CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return _bwd_plain_heads(q, k, v, do, lse, delta, causal, scale)[0].to(q.dtype)
-    q, k, v, do = _bwd_inputs("flash_attention_bwd_dq", q, k, v, do, lse, delta)
+    q, k, v, do, variant = _bwd_inputs("flash_attention_bwd_dq", q, k, v, do,
+                                       lse, delta)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    variant = _bwd_variant(q.dtype, d)
     lib = kernels.load("flash_attention_bwd")
     launch = (lib.flash_attention_bwd_dq_wgmma_launch if variant == "wgmma"
               else lib.flash_attention_bwd_dq_launch)
@@ -310,12 +311,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
     if q.device.type == "cpu":
         _, dk, dv = _bwd_plain_heads(q, k, v, do, lse, delta, causal, scale)
         return _sum_groups(dk, hkv, k.dtype), _sum_groups(dv, hkv, v.dtype)
-    q, k, v, do = _bwd_inputs("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
+    q, k, v, do, variant = _bwd_inputs("flash_attention_bwd_dkv", q, k, v, do,
+                                       lse, delta)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dk = torch.empty(b, sk, hkv, d, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    variant = _bwd_variant(q.dtype, d)
     lib = kernels.load("flash_attention_bwd")
     launch = (lib.flash_attention_bwd_dkv_wgmma_launch if variant == "wgmma"
               else lib.flash_attention_bwd_dkv_launch)

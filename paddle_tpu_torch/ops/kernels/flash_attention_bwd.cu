@@ -378,14 +378,10 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-template <typename T, int N>  // D[64 x N] (+)= A B^T, both K-major
-__device__ __forceinline__ void wgmma_nt(float (&d)[N / 2], uint64_t a,
+template <typename T>  // D[64 x 64] (+)= A B^T, both K-major
+__device__ __forceinline__ void wgmma_nt(float (&d)[32], uint64_t a,
                                          uint64_t b, int scale_d) {
-  if constexpr (N == 32) {
-    wgmma_ss_n32<T, 0, 0>(d, a, b, scale_d);
-  } else {
-    wgmma_ss_n64<T, 0, 0>(d, a, b, scale_d);
-  }
+  wgmma_ss_n64<T, 0, 0>(d, a, b, scale_d);
 }
 
 template <typename T, int N>  // D[64 x N] += A (registers) B, B MN-major
@@ -453,9 +449,11 @@ __device__ __forceinline__ void store_tile(const float (&acc)[D / 2],
 //   dQ += dS K (wgmma, dS from registers, K read MN-major).
 // Key tiles of 64 keep S, dP and dQ (32 + 32 + 64 f32 registers a thread at
 // D 128) inside the 168 registers ptxas allots each thread at 384 threads.
-// A consumer whose rows see none of a causal tile skips its products but
-// still releases the stage. Causal grids launch the heaviest query tiles
-// first.
+// S and dP are committed as two groups, so the exponentials of P run while
+// dP is still on the tensor cores (measured against one group, flash_ab.py
+// on the H100: causal MHA 0.270 -> 0.228 ms). A consumer whose rows see
+// none of a causal tile skips its products but still releases the stage.
+// Causal grids launch the heaviest query tiles first.
 
 constexpr int DQ_BQ = 128;       // query rows per block, 64 per consumer
 constexpr int DQ_THREADS = 384;  // producer + two consumer warpgroups
@@ -601,18 +599,24 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         const uint32_t box = kk / 4, in_box = (kk % 4) * 32;
         const uint32_t a_off = box * DQ_BQ * 128 + cw * 64 * 128 + in_box;
         const uint32_t b_off = box * BK * 128 + in_box;
-        wgmma_nt<T, BK>(s, desc_sw128(q_tile + a_off, 16, 1024),
+        wgmma_nt<T>(s, desc_sw128(q_tile + a_off, 16, 1024),
                         desc_sw128(kt + b_off, 16, 1024), kk > 0);
-        wgmma_nt<T, BK>(dp, desc_sw128(do_tile + a_off, 16, 1024),
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t box = kk / 4, in_box = (kk % 4) * 32;
+        const uint32_t a_off = box * DQ_BQ * 128 + cw * 64 * 128 + in_box;
+        const uint32_t b_off = box * BK * 128 + in_box;
+        wgmma_nt<T>(dp, desc_sw128(do_tile + a_off, 16, 1024),
                         desc_sw128(vt + b_off, 16, 1024), kk > 0);
       }
       wgmma_commit();
-      wgmma_wait<0>();
+      wgmma_wait<1>();  // S is in; dP runs on under P
       fence_operands(s);
-      fence_operands(dp);
 
       // element e of n-tile n: row (e < 2 ? row_a : row_b), key
-      // k0 + 8n + 2 t4 + (e & 1); dS into s
+      // k0 + 8n + 2 t4 + (e & 1); P, then dS, into s
       const bool edge =
           k0 + BK > Sk || (causal && k0 + BK - 1 > first_row + off);
 #pragma unroll
@@ -624,9 +628,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           float p = exp2_approx(
               fmaf(s[4 * n + e], scale_log2, -(e < 2 ? l2_a : l2_b)));
           if (edge && (kj >= Sk || (causal && kj > qi + off))) p = 0.f;
-          s[4 * n + e] = p * (dp[4 * n + e] - (e < 2 ? d_a : d_b)) * scale;
+          s[4 * n + e] = p;
         }
       }
+      wgmma_wait<0>();
+      fence_operands(dp);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        s[i] = s[i] * (dp[i] - ((i % 4) < 2 ? d_a : d_b)) * scale;
 
       // dQ += dS K: dS's accumulators for keys 16kk..16kk+15 are the A
       // fragment (rounded to K's dtype); K read MN-major, as V in P V
@@ -662,17 +671,26 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 //   and Q read MN-major).
 // dK + dV take 128 f32 registers a thread at D 128 and S^T + dP^T 64 more,
 // beyond the 168 ptxas allots at 384 threads: so one consumer per block,
-// whose 256 threads may use 255 registers each without setmaxnreg. The
+// whose 256 threads may use 255 registers each without setmaxnreg (246
+// used, no spill). Two consumers owning 64 keys each at 384 threads, with
+// 32-query tiles and setmaxnreg.inc 240, were measured against this
+// (flash_ab.py on the H100): ptxas still allots 168 and serialises their
+// wgmmas (C7512), 0.58 ms against 0.43 at causal MHA. The dQ kernel's
+// split of the score products into two commit groups gained nothing here
+// (0.44 ms, 238 registers). The
 // group's query heads accumulate into the same f32 registers, so dK/dV
 // leave summed over the group and cast once.
+// Block order: without GQA the key tile is the fastest grid axis, so the
+// ~130 resident blocks share a few heads' Q and dO in L2 (causal MHA 0.43
+// -> 0.36 ms, non-causal 0.84 -> 0.69 against the kv head fastest). With
+// GQA a block's chain is group times longer, and the kv head fastest, with
+// the heaviest causal key tiles launched first, keeps the longest chains
+// from starting last (GQA 4 kv heads 0.33 ms against 0.38).
 
 constexpr int DKV_BK = 64;        // keys per block
 constexpr int DKV_THREADS = 256;  // producer + one consumer warpgroup
 constexpr int DKV_STAGES = 3;     // Q/dO ring depth
-#ifndef FLASH_BWD_DKV_BQ
-#define FLASH_BWD_DKV_BQ 64
-#endif
-constexpr int DKV_BQ = FLASH_BWD_DKV_BQ;  // query rows per tile
+constexpr int DKV_BQ = 64;        // query rows per tile
 
 template <int D>
 struct DkvTile {
@@ -698,7 +716,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            int HKV, int Sq, int Sk, int64_t dk_sb,
                            int64_t dk_ss, int64_t dk_sh, int64_t dv_sb,
                            int64_t dv_ss, int64_t dv_sh, float scale,
-                           int causal) {
+                           int causal, int key_fastest) {
   using Tile = DkvTile<D>;
   constexpr int BQ = Tile::BQ;
   extern __shared__ unsigned char dkv_smem[];
@@ -713,7 +731,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t full0 = kv_full + 8;               // + 8 * stage
   const uint32_t empty0 = full0 + 8 * DKV_STAGES;   // + 8 * stage
 
-  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * DKV_BK;
+  const int hk = key_fastest ? blockIdx.y : blockIdx.x;
+  const int b = key_fastest ? blockIdx.z : blockIdx.y;
+  const int k0 = (key_fastest ? blockIdx.x : blockIdx.z) * DKV_BK;
   const int group = H / HKV;
   const int off = Sk - Sq;  // causal: row i sees keys j <= i + off
   // the first query tile whose last row sees key k0, and the tiles per head
@@ -813,9 +833,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const uint32_t box = kk / 4, in_box = (kk % 4) * 32;
       const uint32_t a_off = box * DKV_BK * 128 + in_box;
       const uint32_t b_off = box * BQ * 128 + in_box;
-      wgmma_nt<T, BQ>(s, desc_sw128(k_tile + a_off, 16, 1024),
+      wgmma_nt<T>(s, desc_sw128(k_tile + a_off, 16, 1024),
                       desc_sw128(qt + b_off, 16, 1024), kk > 0);
-      wgmma_nt<T, BQ>(dp, desc_sw128(v_tile + a_off, 16, 1024),
+      wgmma_nt<T>(dp, desc_sw128(v_tile + a_off, 16, 1024),
                       desc_sw128(ot + b_off, 16, 1024), kk > 0);
     }
     wgmma_commit();
@@ -984,11 +1004,14 @@ int launch_dkv_wgmma(int dtype, const BwdArgs& a, int B, cudaStream_t s) {
     e = encode_bshd_map(&do_map, dtype, a.dout, B, a.Sq, a.H, D, st[9],
                         st[10], st[11], Tile::BQ);
   if (e != 0) return e;
-  const dim3 grid(a.HKV, B, (a.Sk + DKV_BK - 1) / DKV_BK);
+  // the block order: see the dK/dV kernel's note
+  const int nk = (a.Sk + DKV_BK - 1) / DKV_BK;
+  const bool key_fastest = a.H == a.HKV;
+  const dim3 grid = key_fastest ? dim3(nk, a.HKV, B) : dim3(a.HKV, B, nk);
   flash_bwd_dkv_wgmma_kernel<T, D><<<grid, DKV_THREADS, Tile::SMEM, s>>>(
       q_map, k_map, v_map, do_map, a.lse, a.delta, (T*)a.o1, (T*)a.o2, a.H,
       a.HKV, a.Sq, a.Sk, st[12], st[13], st[14], st[15], st[16], st[17],
-      a.scale, a.causal);
+      a.scale, a.causal, key_fastest);
   return (int)cudaGetLastError();
 }
 

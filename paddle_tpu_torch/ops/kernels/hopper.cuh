@@ -208,30 +208,6 @@ __device__ __forceinline__ void fence_operands(float (&r)[N]) {
 // d[4j + e] is row 16w + g + 8 * (e / 2), column 8j + 2t + (e % 2). The A
 // fragment from registers is mma.sync's m16n8k16 A fragment. TA / TB = 1
 // reads that operand MN-major (transposed).
-// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B from shared memory.
-template <typename T, int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
-                                              uint64_t b, int scale_d) {
-#define WGMMA_SS_32(TY) \
-  asm volatile( \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
-      "%0, %1, %2, %3, %4, %5, %6, %7, " \
-      "%8, %9, %10, %11, %12, %13, %14, %15}, " \
-      "%16, %17, p, 1, 1, %19, %20;\n}\n" \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB))
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    WGMMA_SS_32("bf16");
-  } else {
-    WGMMA_SS_32("f16");
-  }
-#undef WGMMA_SS_32
-}
-
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory.
 template <typename T, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
