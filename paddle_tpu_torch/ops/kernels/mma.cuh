@@ -1,16 +1,8 @@
 // Tensor-core helpers shared by the flash-attention kernels: 2-byte element
-// pairs packed into the 32-bit registers of mma.sync fragments, and the
-// m16n8k16 product with f32 accumulation (bf16 or f16 operands).
+// pairs packed into the 32-bit registers of mma.sync / wgmma A fragments.
 #pragma once
 
-#include <type_traits>
-
 #include "common.cuh"
-
-template <typename T>
-__device__ __forceinline__ uint32_t ld_pair(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 template <typename T>
 __device__ __forceinline__ uint32_t pack2(T lo, T hi) {
@@ -21,24 +13,4 @@ __device__ __forceinline__ uint32_t pack2(T lo, T hi) {
 template <typename T>
 __device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
   return pack2<T>(from_f<T>(lo), from_f<T>(hi));
-}
-
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-  }
 }
