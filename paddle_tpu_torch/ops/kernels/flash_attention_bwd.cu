@@ -932,23 +932,23 @@ int launch_dkv_scalar(const BwdArgs& a, int B, cudaStream_t s) {
 
 // tile sizes of the CUDA-core kernels by head_dim: the f32 tiles of one
 // block stay under the 227 KB of shared memory and the accumulators under
-// 64 registers a thread
+// 64 registers a thread. 2-byte types take them at head_dim 256 only (the
+// wgmma kernels take 64 and 128).
 template <typename T>
 int launch_scalar_typed(bool dkv, const BwdArgs& a, int B, int D,
                         cudaStream_t s) {
-  switch (D) {
-    case 64:
+  if constexpr (std::is_same<T, float>::value) {
+    if (D == 64)
       return dkv ? launch_dkv_scalar<T, 64, 64, 64>(a, B, s)
                  : launch_dq_scalar<T, 64, 64, 64>(a, B, s);
-    case 128:
+    if (D == 128)
       return dkv ? launch_dkv_scalar<T, 128, 64, 64>(a, B, s)
                  : launch_dq_scalar<T, 128, 64, 64>(a, B, s);
-    case 256:
-      return dkv ? launch_dkv_scalar<T, 256, 32, 32>(a, B, s)
-                 : launch_dq_scalar<T, 256, 64, 32>(a, B, s);
-    default:
-      return -1;
   }
+  if (D == 256)
+    return dkv ? launch_dkv_scalar<T, 256, 32, 32>(a, B, s)
+               : launch_dq_scalar<T, 256, 64, 32>(a, B, s);
+  return -1;
 }
 
 template <typename T, int D>
