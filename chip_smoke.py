@@ -13,11 +13,13 @@ from ``--seed``: the serving slice's cache-less scoring
 ``benchmarks/serving_throughput.py`` configures them; the engine with the
 prefix cache on the shared-prefix workload of that script's router mode,
 over int8 KV pools (int8 paged-decode kernel) and over bf16 pools; and the
-training slice's flagship step of ``bench.py:main()`` (B=4, S=2048, masterless bf16
-``AdamW(lr=1e-4, moment_dtype="bfloat16", use_stochastic_rounding=True,
-fused=True)`` through ``jit.to_static(...).multi_step``: flash forward and
-backward kernels, fused-AdamW kernel). Each main path runs with every
-kernel launch count set to 0 just before it and read just after; a kernel
+training slice's flagship step of ``bench.py:main()`` (B=4, S=2048,
+masterless bf16 ``AdamW(lr=1e-4, moment_dtype="bfloat16",
+use_stochastic_rounding=True, fused=True)`` through
+``jit.to_static(...).multi_step``: flash forward and backward kernels, the
+fused-AdamW kernel once a step over all 75 tensors). Each main path runs
+with every kernel launch count set to 0 just before it and read just
+after; a kernel
 of the path that did not launch, or launched another number of times than
 the path needs, fails the run. Outputs are checked against the plain paths
 and, at a small f32 size, against the CPU.
@@ -26,9 +28,11 @@ Prints one line per phase, then a ``{"kernels": [...]}`` JSON line, then the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when CUDA is absent or any phase fails.
 Imports nothing of JAX. Timings: CUDA events around repeated launches after
-warm-up; peaks are the H100 SXM data sheet's (3.35 TB/s HBM, 989 TFLOP/s
-dense bf16, 67 TFLOP/s f32 outside the tensor cores) at a 700 W power
-limit.
+warm-up; the paged decode's and AdamW's kernel times (short kernels behind
+a wrapper's host work) from the profiler's device time of the kernel,
+taken last (phase 9), since a profiler session slows the host work of the
+phases after it; peaks are the H100 SXM data sheet's (3.35 TB/s HBM, 989 TFLOP/s dense
+bf16, 67 TFLOP/s f32 outside the tensor cores) at a 700 W power limit.
 """
 from __future__ import annotations
 
@@ -67,6 +71,12 @@ KV_REL_TOL = 0.05  # int8 against bf16 pools, the reference's quality gate
 # bench.py:434-441 (flagship model and batch) and :448-477 (optimizer)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
 TRAIN_LR = 1e-4
+# the fused AdamW launches once a step per (p, g, m dtype, SR) group of
+# parameters: the flagship's 75 tensors are all bf16 with SR, one group
+ADAMW_GROUPS = 1
+# phase 2's engine-like decode: phase 5b's batch and table width
+# (max_len 1024), every row between one and two thirds of the way in
+ENGINE_DECODE = dict(B=8, pages=1024 // 64, lo=512, hi=704)
 GRAD_DEPTH = 2  # phase 8's layers: the plain attention path holds
                 # [4, 16, 2048, 2048] f32 scores per layer for backward
 
@@ -198,6 +208,32 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, match: str, iters: int = 20, warmup: int = 2) -> float:
+    """The mean device time of a launch of the kernel whose name holds
+    ``match``, from the profiler's trace of ``iters`` calls of ``fn``
+    (each launching it once): the kernel alone, without the wrapper's host
+    work, which CUDA events around a wrapper whose kernel is shorter than
+    that host work would measure. The mean is over the launches the trace
+    recorded, which can be fewer than ``iters``."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and match in e.key]
+    launches = sum(e.count for e in seen)
+    if launches == 0:
+        fail(f"the profiler saw no launch of a kernel named {match!r}")
+    return sum(e.self_device_time_total for e in seen) / 1e3 / launches
 
 
 def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
@@ -379,17 +415,18 @@ def decode_gate(got, want, want_f32, int8: bool = False):
 
 
 # -- phase 2: kernels against their plain versions ----------------------
-def paged_inputs(torch, dev, gen, gen_cpu, B):
-    """Phase 2's paged-decode inputs: bf16 pools [16, B*32 + 1, 64, 128]
+def paged_inputs(torch, dev, gen, gen_cpu, B, pages=2048 // 64, lo=1,
+                 hi=2048):
+    """Phase 2's paged-decode inputs: bf16 pools [16, B*pages + 1, 64, 128]
     behind shuffled tables (pages past the live ones hold the trash block),
-    lengths drawn from 1..2048 with the spread's two ends, bf16 q. Returns
+    lengths drawn from lo..hi with the spread's two ends, bf16 q. Returns
     ``(q, k_pool, v_pool, tables, cache_len, lengths)``."""
     H = KVH = 16
-    D, BS, P = 128, 64, 2048 // 64
+    D, BS, P = 128, 64, pages
     nb = B * P + 1
     trash = nb - 1
-    lengths = torch.randint(1, 2049, (B,), generator=gen_cpu)
-    lengths[0], lengths[-1] = 1, 2048  # the spread's two ends
+    lengths = torch.randint(lo, hi + 1, (B,), generator=gen_cpu)
+    lengths[0], lengths[-1] = lo, hi  # the spread's two ends
     perm = torch.randperm(B * P, generator=gen_cpu)
     tables = perm.reshape(B, P).to(torch.int32)
     for b in range(B):  # pages past the live ones hold the trash id
@@ -402,14 +439,39 @@ def paged_inputs(torch, dev, gen, gen_cpu, B):
     return q, kp, vp, tables, cl, lengths
 
 
-def paged_case(torch, dev, gen, gen_cpu, B, int8=False):
-    """The float kernel on bf16 pools; with ``int8`` also the int8 kernel
-    on those pools quantized, at the same tables and lengths."""
-    from paddle_tpu_torch.ops.paged_attention import (
-        _kv_quantize, paged_decode, paged_decode_int8, paged_decode_int8_plain,
-        paged_decode_plain)
+def replayed(torch, dev, *states):
+    """Fresh generators, on the card then the CPU, in the given states."""
+    gens = (torch.Generator(device=dev), torch.Generator(device="cpu"))
+    for g, s in zip(gens, states):
+        g.set_state(s)
+    return gens
 
-    q, kp, vp, tables, cl, lengths = paged_inputs(torch, dev, gen, gen_cpu, B)
+
+def paged_case(torch, dev, gen, gen_cpu, B, int8=False, **shape):
+    """The float kernel on bf16 pools; with ``int8`` also the int8 kernel
+    on those pools quantized, at the same tables and lengths. ``shape``:
+    :func:`paged_inputs`' table width and length range. Each row's
+    ``device`` times its kernel (phase 9) on the same inputs made anew."""
+    from paddle_tpu_torch.ops.paged_attention import (
+        _kv_quantize, decode_splits, paged_decode, paged_decode_int8,
+        paged_decode_int8_plain, paged_decode_plain)
+
+    states = (gen.get_state(), gen_cpu.get_state())
+    q, kp, vp, tables, cl, lengths = paged_inputs(torch, dev, gen, gen_cpu, B,
+                                                  **shape)
+
+    def device(quantized):
+        q, kp, vp, tables, cl, _ = paged_inputs(
+            torch, dev, *replayed(torch, dev, *states), B, **shape)
+        if not quantized:
+            return device_ms(lambda: paged_decode(q, kp, vp, tables, cl),
+                             "paged_decode_kernel", 50)
+        (kq, ks), (vq, vs) = _kv_quantize(kp), _kv_quantize(vp)
+        del kp, vp
+        return device_ms(lambda: paged_decode_int8(q, kq, vq, ks, vs, tables,
+                                                   cl),
+                         "paged_decode_kernel", 50)
+
     KVH, _, BS, D = kp.shape
     H = q.shape[2]
     got = paged_decode(q, kp, vp, tables, cl)
@@ -418,19 +480,21 @@ def paged_case(torch, dev, gen, gen_cpu, B, int8=False):
     rel = rel_err(got, want)
     if not gate["ok"]:
         fail(f"paged decode B={B}: {gate} beyond the PAGED_* gates")
-    ms = time_ms(lambda: paged_decode(q, kp, vp, tables, cl), 50)
+    call_ms = time_ms(lambda: paged_decode(q, kp, vp, tables, cl), 50)
     plain_ms = time_ms(lambda: paged_decode_plain(q, kp, vp, tables, cl), 10)
     live = int(lengths.sum())
     pages = int(sum(-(-int(n) // BS) for n in lengths))
     nbytes = live * KVH * D * 2 * 2 + 2 * B * H * D * 2 + pages * 4 + B * 4
     b_ms, b_by = bound(nbytes, 4.0 * live * H * D)
-    row = dict(gate, B=B, rel_err=rel, ms=ms, plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, library_ms=None, live_tokens=live,
-               rate=f"{nbytes / ms / 1e6:.1f} GB/s")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = decode_splits(tables.shape[1], B, H, sms)
+    row = dict(gate, B=B, rel_err=rel, call_ms=call_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               live_tokens=live, nbytes=nbytes, splits=splits,
+               device=lambda: device(False))
     if not int8:
         return row, None
     (kq, ks), (vq, vs) = _kv_quantize(kp), _kv_quantize(vp)
-    del kp, vp
     args = (q, kq, vq, ks, vs, tables, cl)
     got = paged_decode_int8(*args)
     want = paged_decode_int8_plain(*args)
@@ -438,16 +502,17 @@ def paged_case(torch, dev, gen, gen_cpu, B, int8=False):
     rel = rel_err(got, want)
     if not gate["ok"]:
         fail(f"int8 paged decode B={B}: {gate} beyond the INT8_* gates")
-    ms = time_ms(lambda: paged_decode_int8(*args), 50)
+    call_ms = time_ms(lambda: paged_decode_int8(*args), 50)
     plain_ms = time_ms(lambda: paged_decode_int8_plain(*args), 10)
     # int8 K and V plus one f32 scale each per live row and kv head
     nbytes = live * KVH * (2 * D + 2 * 4) + 2 * B * H * D * 2 + pages * 4 + B * 4
     # scores and P @ V, and a multiply and a divide to dequantize each
     # element, all in f32
     b_ms, b_by = bound(nbytes, 4.0 * live * (H + KVH) * D, F32_FLOPS_PER_S)
-    return row, dict(gate, B=B, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     live_tokens=live, rate=f"{nbytes / ms / 1e6:.1f} GB/s")
+    return row, dict(gate, B=B, rel_err=rel, call_ms=call_ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, live_tokens=live, nbytes=nbytes,
+                     splits=splits, device=lambda: device(True))
 
 
 def flash_inputs(torch, dev, gen, hkv):
@@ -556,17 +621,25 @@ def flash_bwd_case(torch, dev, gen, causal, hkv):
                 dkv_rate=f"{4 * mm / dkv_ms / 1e9:.1f} TFLOP/s")
 
 
+def embedding_inputs(torch, dev, gen):
+    """p, g, m, v of the flagship's 32000 x 2048 embedding, bf16."""
+    shape, bf = (32000, 2048), torch.bfloat16
+    return (torch.randn(*shape, generator=gen, device=dev).to(bf),
+            (1e-2 * torch.randn(*shape, generator=gen, device=dev)).to(bf),
+            (1e-3 * torch.randn(*shape, generator=gen, device=dev)).to(bf),
+            (1e-5 * torch.rand(*shape, generator=gen, device=dev)).to(bf))
+
+
 def adamw_case(torch, dev, gen, sr):
     """The flagship's largest tensor: the 32000 x 2048 bf16 embedding with
-    bf16 moments, kernel against plain bit for bit."""
+    bf16 moments, kernel against plain bit for bit. The row's ``device``
+    times the kernel (phase 9) on the same inputs made anew."""
     from paddle_tpu_torch.ops.fused_adamw import (
         fused_adamw_hbm_bytes, fused_adamw_update, fused_adamw_update_plain)
 
-    shape, bf = (32000, 2048), torch.bfloat16
-    p = torch.randn(*shape, generator=gen, device=dev).to(bf)
-    g = (1e-2 * torch.randn(*shape, generator=gen, device=dev)).to(bf)
-    m = (1e-3 * torch.randn(*shape, generator=gen, device=dev)).to(bf)
-    v = (1e-5 * torch.rand(*shape, generator=gen, device=dev)).to(bf)
+    bf = torch.bfloat16
+    state = gen.get_state()
+    p, g, m, v = embedding_inputs(torch, dev, gen)
     kw = dict(lr=TRAIN_LR, beta1=0.9, beta2=0.999, epsilon=1e-8,
               beta1_pow=torch.tensor(0.9 ** 3, device=dev),
               beta2_pow=torch.tensor(0.999 ** 3, device=dev), weight_decay=0.01,
@@ -584,8 +657,14 @@ def adamw_case(torch, dev, gen, sr):
     err = max(float((a.float() - b.float()).abs().max())
               for a, b in zip((p, m, v), ref))
     del ref
-    ms = time_ms(lambda: fused_adamw_update(p, g, m, v, **kw), 20)
+    call_ms = time_ms(lambda: fused_adamw_update(p, g, m, v, **kw), 20)
     plain_ms = time_ms(lambda: fused_adamw_update_plain(p, g, m, v, **kw), 3)
+
+    def device():
+        again = embedding_inputs(torch, dev, replayed(torch, dev, state)[0])
+        return device_ms(lambda: fused_adamw_update(*again, **kw),
+                         "adamw_multi_kernel", 20)
+
     # torch's fused Adam(W) on the same tensors: another function (no SR,
     # another epsilon and bias-correction form), timed for scale only
     pf, gf, mf, vf = (t.clone() for t in (p, g, m, v))
@@ -596,9 +675,145 @@ def adamw_case(torch, dev, gen, sr):
     n = p.numel()
     nbytes = fused_adamw_hbm_bytes(n, bf, bf, bf)
     b_ms, b_by = bound(nbytes, 10.0 * n, F32_FLOPS_PER_S)
-    return dict(sr=sr, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    return dict(sr=sr, max_abs_err=err, call_ms=call_ms, plain_ms=plain_ms,
                 torch_fused_adamw_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                rate=f"{nbytes / ms / 1e6:.1f} GB/s")
+                nbytes=nbytes, device=device)
+
+
+def flagship_shapes(cfg=LLAMA_542M):
+    """The flagship's parameter shapes, in ``named_parameters`` order: the
+    embedding, per layer two norms and seven projections, the final norm
+    and the lm head (75 tensors, 542.1M elements for Llama-542M)."""
+    hid, ffn = cfg["hidden_size"], cfg["intermediate_size"]
+    vocab = cfg["vocab_size"]
+    kv = hid // cfg["num_attention_heads"] * cfg["num_key_value_heads"]
+    layer = [(hid,), (hid, hid), (hid, kv), (hid, kv), (hid, hid), (hid,),
+             (hid, ffn), (hid, ffn), (ffn, hid)]
+    return ([(vocab, hid)] + layer * cfg["num_hidden_layers"]
+            + [(hid,), (hid, vocab)])
+
+
+def adamw_multi_inputs(torch, dev, gen):
+    """The train step's AdamW launch at its shapes: the flagship's 75 bf16
+    tensors (p, g, bf16 m and v) as lists, f32 beta powers [75] of step 3,
+    per-tensor weight decays (none on the norms), the batched scalar rows
+    and [75, 2] salts. Fails unless each scalar row is bitwise the
+    per-tensor prologue's."""
+    from paddle_tpu_torch.ops.fused_adamw import (adamw_scalars,
+                                                  adamw_scalars_multi)
+
+    bf = torch.bfloat16
+    shapes = flagship_shapes()
+    t = len(shapes)
+    x = dict(
+        ps=[torch.randn(*s, generator=gen, device=dev).to(bf) for s in shapes],
+        gs=[(1e-2 * torch.randn(*s, generator=gen, device=dev)).to(bf)
+            for s in shapes],
+        ms=[(1e-3 * torch.randn(*s, generator=gen, device=dev)).to(bf)
+            for s in shapes],
+        vs=[(1e-5 * torch.rand(*s, generator=gen, device=dev)).to(bf)
+            for s in shapes],
+        b1p=torch.full((t,), 0.9 ** 3, device=dev),
+        b2p=torch.full((t,), 0.999 ** 3, device=dev),
+        wds=[0.0 if len(s) == 1 else 0.01 for s in shapes],
+        salts=torch.randint(0, 2 ** 32, (t, 2), generator=gen, device=dev))
+    x["scalars"] = adamw_scalars_multi(lr=TRAIN_LR, epsilon=1e-8,
+                                       beta1_pow=x["b1p"], beta2_pow=x["b2p"],
+                                       weight_decay=x["wds"])
+    for i in range(t):
+        row = adamw_scalars(lr=TRAIN_LR, epsilon=1e-8, beta1_pow=x["b1p"][i],
+                            beta2_pow=x["b2p"][i], weight_decay=x["wds"][i])
+        if not torch.equal(row.view(torch.int32),
+                           x["scalars"][i].view(torch.int32)):
+            fail(f"fused AdamW: the batched scalar row {i} "
+                 f"{x['scalars'][i].tolist()} differs from the per-tensor "
+                 f"prologue {row.tolist()}")
+    return x
+
+
+def adamw_multi_plain(x):
+    """75 per-tensor plain updates of copies of ``x``'s p, m, v, each with
+    its tensor's beta powers, decay and salts: ``[(p, m, v), ...]``."""
+    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_update_plain
+
+    out = []
+    for i, trio in enumerate(zip(x["ps"], x["ms"], x["vs"])):
+        p, m, v = (t.clone() for t in trio)
+        fused_adamw_update_plain(p, x["gs"][i], m, v, lr=TRAIN_LR, beta1=0.9,
+                                 beta2=0.999, epsilon=1e-8,
+                                 beta1_pow=x["b1p"][i], beta2_pow=x["b2p"][i],
+                                 weight_decay=x["wds"][i],
+                                 sr_salts=x["salts"][i])
+        out.append((p, m, v))
+    return out
+
+
+def adamw_multi_launch(x, ps, ms, vs):
+    """The multi-tensor kernel in place on ``ps``, ``ms``, ``vs`` with
+    ``x``'s gradients, scalar rows and salts."""
+    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_multi_update
+
+    fused_adamw_multi_update(ps, x["gs"], ms, vs, scalars=x["scalars"],
+                             sr_salts=x["salts"], beta1=0.9, beta2=0.999)
+
+
+def adamw_multi_diff(torch, got, want):
+    """``{"<tensor><p|m|v>": elements whose bits differ}`` between two
+    lists of (p, m, v): empty when bitwise equal."""
+    n_diff = {}
+    for i, (trio, ref) in enumerate(zip(got, want)):
+        for name, a, b in zip("pmv", trio, ref):
+            n = int((a.view(torch.int16) != b.view(torch.int16)).sum())
+            if n:
+                n_diff[f"{i}{name}"] = n
+    return n_diff
+
+
+def adamw_multi_case(torch, dev, gen):
+    """The train step's launch: the multi-tensor kernel over the flagship's
+    75 bf16 tensors with bf16 moments and SR, against 75 plain per-tensor
+    updates with the same salts, bit for bit."""
+    from paddle_tpu_torch.ops.fused_adamw import (
+        fused_adamw_hbm_bytes, fused_adamw_multi_update,
+        fused_adamw_multi_update_plain)
+
+    bf = torch.bfloat16
+    x = adamw_multi_inputs(torch, dev, gen)
+    want = adamw_multi_plain(x)
+    ps, ms, vs = x["ps"], x["ms"], x["vs"]
+    t = len(ps)
+    before = fused_adamw_multi_update.launches
+    adamw_multi_launch(x, ps, ms, vs)
+    torch.cuda.synchronize()
+    if fused_adamw_multi_update.launches != before + 1:
+        fail(f"fused AdamW: {t} tensors took more than one launch")
+    n_diff = adamw_multi_diff(torch, list(zip(ps, ms, vs)), want)
+    if n_diff:
+        fail(f"fused AdamW over the flagship's {t} tensors differs from the "
+             f"per-tensor plain updates (tensor, output: elements): {n_diff}")
+    del want
+    call_ms = time_ms(lambda: adamw_multi_launch(x, ps, ms, vs), 10)
+    plain_ms = time_ms(lambda: fused_adamw_multi_update_plain(
+        ps, x["gs"], ms, vs, scalars=x["scalars"], sr_salts=x["salts"],
+        beta1=0.9, beta2=0.999), 1, warmup=1)
+    # torch's fused Adam(W) over the same 75 tensors: another function (no
+    # SR, another epsilon and bias-correction form), timed for scale only
+    steps = [torch.tensor(3.0, device=dev) for _ in range(t)]
+    lib_ms = time_ms(lambda: torch._fused_adamw_(
+        ps, x["gs"], ms, vs, [], steps, lr=TRAIN_LR, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False), 10)
+    n = sum(p.numel() for p in ps)
+    nbytes = fused_adamw_hbm_bytes(n, bf, bf, bf)
+    b_ms, b_by = bound(nbytes, 10.0 * n, F32_FLOPS_PER_S)
+    def device():  # on fresh tensors: these are freed after phase 2
+        y = adamw_multi_inputs(torch, dev, gen)
+        return device_ms(lambda: adamw_multi_launch(y, y["ps"], y["ms"],
+                                                    y["vs"]),
+                         "adamw_multi_kernel", 10)
+
+    return dict(tensors=t, numel=n, max_abs_err=0.0, call_ms=call_ms,
+                plain_ms=plain_ms, torch_fused_adamw_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, device=device)
 
 
 def bench_step(model, opt):
@@ -693,6 +908,49 @@ def prefix_serving_phase(torch, np, model, cfg, card):
                 for r in done.values()):
             fail(f"{name} prefix serving: a request did not complete with "
                  f"in-range tokens")
+    # one decode step of each engine, profiled: all 8 slots decoding (the
+    # first wave, prefilled, with room for more tokens than the run gives)
+    for kv in ("int8", None):
+        eng = ContinuousBatchingEngine(model, **PREFIX_SERVE, kv_dtype=kv)
+        for rid, p in work[:wave]:
+            eng.add_request(rid, p, max_new_tokens=4 * PREFIX_NEW)
+        while eng._queue or eng.num_prefilling:
+            eng.step()
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            eng.step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 5 * 1e3
+        kernels.reset_launch_counts()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launch_counts()
+        kern = [(e.self_device_time_total / 1e3, e.key)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(t for t, _ in kern)
+        decode_ms = sum(t for t, k in kern if "paged_decode_kernel" in k)
+        name = ("paged_decode_attention_int8" if kv
+                else "paged_decode_attention")
+        print(f"phase 5b one decode step, {kv or 'bf16'} KV pools, "
+              f"{eng.num_active} of {PREFIX_SERVE['max_batch']} slots "
+              f"decoding: {step_ms:.3f} ms wall per step (mean of 5), "
+              f"{dev_ms:.3f} ms of kernel time in a profiled step "
+              f"({100 * dev_ms / step_ms:.1f}% device busy; that step "
+              f"{prof_ms:.3f} ms wall under the profiler), the decode kernel "
+              f"{decode_ms:.4f} ms in {counts[name]} launches [{card}]")
+        if counts[name] != L:
+            fail(f"phase 5b: one {kv or 'bf16'} decode step launched "
+                 f"{counts[name]} decode kernels, not {L}")
+        del eng, prof
     toks8, toks16 = ({rid: r.out for rid, r in runs[n][1].items()}
                      for n in ("int8", "bf16"))
     agree = float(np.mean([a == b for rid in toks16
@@ -732,7 +990,7 @@ def kernel_class(name: str) -> str:
         return "attention forward"
     if any(k in n for k in ("flash_bwd", "dq_scalar", "dkv_scalar")):
         return "attention backward"
-    if "adamw_kernel" in n:
+    if "adamw_multi_kernel" in n:
         return "AdamW kernel"
     if any(k in n for k in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
         return "GEMMs"
@@ -785,25 +1043,21 @@ def main() -> int:
     gen_cpu = torch.Generator(device="cpu").manual_seed(args.seed)
 
     # -- phase 2 ---------------------------------------------------------
-    paged_rows = []
-    for B in (16, 64):
-        r, r8 = paged_case(torch, dev, gen, gen_cpu, B, int8=B == 16)
-        paged_rows.append(r)
-        print(f"phase 2 paged_decode B={B} H=KVH=16 D=128 bs=64 "
-              f"live_tokens={r['live_tokens']}: max_abs_err={r['max_abs_err']:.3g} "
+    def show_paged(label, r, r8):
+        print(f"phase 2 paged_decode {label} H=KVH=16 D=128 bs=64 "
+              f"live_tokens={r['live_tokens']} splits x pages={r['splits']}: "
+              f"max_abs_err={r['max_abs_err']:.3g} "
               f"rel_err={r['rel_err']:.3g} worst row rel_err="
               f"{r['row_rel']:.3g} (atol {PAGED_ATOL} + rtol {RTOL}, row rel "
               f"{PAGED_ROW_REL}); against the plain version in f32: "
               f"max_abs_err={r['f32_max_abs_err']:.3g} worst row rel_err="
               f"{r['f32_row_rel']:.3g} (atol {PAGED_F32_ATOL} + rtol "
               f"{PAGED_F32_RTOL}, row rel {PAGED_F32_ROW_REL}; atol needed "
-              f"{r['f32_atol_needed']:.3g}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"{r['rate']}, {100 * r['bound_ms'] / r['ms']:.1f}% of bound "
-              f"[{card}]")
+              f"{r['f32_atol_needed']:.3g}); a wrapper call "
+              f"{r['call_ms']:.4f} ms, plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
         if r8 is not None:
-            int8_row = r8
-            print(f"phase 2 paged_decode_int8 B={B} H=KVH=16 D=128 bs=64 "
+            print(f"phase 2 paged_decode_int8 {label} H=KVH=16 D=128 bs=64 "
                   f"int8 pools, f32 scales, bf16 q, same tables: "
                   f"max_abs_err={r8['max_abs_err']:.3g} "
                   f"rel_err={r8['rel_err']:.3g} worst row rel_err="
@@ -812,11 +1066,23 @@ def main() -> int:
                   f"version in f32: max_abs_err={r8['f32_max_abs_err']:.3g} "
                   f"worst row rel_err={r8['f32_row_rel']:.3g} (atol "
                   f"{INT8_F32_ATOL} + rtol {INT8_F32_RTOL}, row rel "
-                  f"{INT8_F32_ROW_REL}) "
-                  f"ms={r8['ms']:.4f} plain_ms={r8['plain_ms']:.4f} "
+                  f"{INT8_F32_ROW_REL}; atol needed "
+                  f"{r8['f32_atol_needed']:.3g}); a wrapper call "
+                  f"{r8['call_ms']:.4f} ms, plain_ms={r8['plain_ms']:.4f} "
                   f"bound_ms={r8['bound_ms']:.4f} ({r8['bound_by']}) "
-                  f"{r8['rate']}, {100 * r8['bound_ms'] / r8['ms']:.1f}% of "
-                  f"bound [{card}]")
+                  f"[{card}]")
+
+    # kernels timed by device time in phase 9: (label, row with "device")
+    device_rows = []
+    paged_rows = []
+    for B in (16, 64):
+        r, r8 = paged_case(torch, dev, gen, gen_cpu, B, int8=B == 16)
+        paged_rows.append(r)
+        device_rows.append((f"paged_decode B={B}", r))
+        if r8 is not None:
+            int8_row = r8
+            device_rows.append((f"paged_decode_int8 B={B}", r8))
+        show_paged(f"B={B}", r, r8)
     flash_rows = []
     for causal, hkv in ((True, 16), (False, 16), (True, 4)):
         r = flash_case(torch, dev, gen, causal, hkv)
@@ -863,13 +1129,36 @@ def main() -> int:
     for sr in (False, True):
         r = adamw_case(torch, dev, gen, sr)
         adamw_rows.append(r)
+        device_rows.append((f"fused_adamw 32000x2048 sr={sr}", r))
         print(f"phase 2 fused_adamw 32000x2048 bf16 p/g/m/v sr={sr}: bitwise "
-              f"equal to plain (max abs err {r['max_abs_err']}) ms={r['ms']:.4f} "
+              f"equal to plain (max abs err {r['max_abs_err']}); a wrapper "
+              f"call with its prologue {r['call_ms']:.4f} ms, "
               f"plain_ms={r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} "
-              f"({r['bound_by']}) {r['rate']}, "
-              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound; "
-              f"torch._fused_adamw_ on the same tensors (another function, for "
-              f"scale) {r['torch_fused_adamw_ms']:.4f} ms [{card}]")
+              f"({r['bound_by']}); torch._fused_adamw_ on the same tensors "
+              f"(another function, for scale) "
+              f"{r['torch_fused_adamw_ms']:.4f} ms [{card}]")
+    r = adamw_multi_case(torch, dev, gen)
+    adamw_multi_row = r
+    device_rows.append((f"fused_adamw multi-tensor, {r['tensors']} tensors",
+                        r))
+    print(f"phase 2 fused_adamw multi-tensor, the flagship's {r['tensors']} "
+          f"bf16 tensors ({r['numel']} elements) with bf16 moments and SR in "
+          f"one launch: bitwise equal to {r['tensors']} per-tensor plain "
+          f"updates with the same salts, batched scalar rows bitwise the "
+          f"per-tensor prologue; a wrapper call {r['call_ms']:.4f} ms, "
+          f"plain_ms={r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} "
+          f"({r['bound_by']}); torch._fused_adamw_ over the same tensors "
+          f"(another function, for scale) {r['torch_fused_adamw_ms']:.4f} ms "
+          f"[{card}]")
+    torch.cuda.empty_cache()
+    eng = ENGINE_DECODE
+    r, r8 = paged_case(torch, dev, gen, gen_cpu, eng["B"], int8=True,
+                       pages=eng["pages"], lo=eng["lo"], hi=eng["hi"])
+    label = (f"engine-like B={eng['B']}, lengths {eng['lo']}..{eng['hi']}, "
+             f"{eng['pages']}-page tables")
+    device_rows += [(f"paged_decode {label}", r),
+                    (f"paged_decode_int8 {label}", r8)]
+    show_paged(label, r, r8)
     torch.cuda.empty_cache()
 
     # -- phase 3: scoring forward (main path of the flash kernel) ----------
@@ -1126,6 +1415,10 @@ def main() -> int:
 
     cfg7, model, opt = flagship(LLAMA_542M["num_hidden_layers"])
     n_tensors = len(list(model.parameters()))
+    shapes7 = [tuple(p.shape) for p in model.parameters()]
+    if shapes7 != flagship_shapes():
+        fail(f"phase 2's AdamW shapes {flagship_shapes()} are not the "
+             f"flagship's {shapes7}")
     compiled = bench_step(model, opt)
     ids_np = np.random.RandomState(args.seed).randint(
         0, cfg7.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
@@ -1144,7 +1437,7 @@ def main() -> int:
     L7 = cfg7.num_hidden_layers
     want_counts = {**flash_fwd_counts(L7 * TRAIN_STEPS),
                    **flash_bwd_counts(L7 * TRAIN_STEPS),
-                   "fused_adamw": n_tensors * TRAIN_STEPS,
+                   "fused_adamw": ADAMW_GROUPS * TRAIN_STEPS,
                    "paged_decode_attention": 0,
                    "paged_decode_attention_int8": 0}
     loss_list = [float(warm.detach())] + [float(x) for x in losses.cpu()]
@@ -1168,7 +1461,8 @@ def main() -> int:
     if train_counts != want_counts:
         fail(f"training launch counts {train_counts} != {want_counts} "
              f"(per step: {L7} flash forward, {L7} dq, {L7} dk/dv, "
-             f"{n_tensors} fused AdamW; every flash forward on "
+             f"{ADAMW_GROUPS} fused AdamW over {n_tensors} tensors; every "
+             f"flash forward on "
              f"{FLASH_MAIN_VARIANT}, every dq and dk/dv on "
              f"{BWD_MAIN_VARIANT})")
 
@@ -1278,6 +1572,21 @@ def main() -> int:
             and c8b["fused_adamw"] >= 1):
         fail("the small f32 training run on the card disagrees with the CPU")
 
+    # -- phase 9: the decode and AdamW kernels' device times ----------------
+    # taken last: a profiler session slows the host work of the phases
+    # after it (phases 4, 5 and 5b are host-bound)
+    for label, r in device_rows:
+        r["ms"] = r.pop("device")()
+        print(f"phase 9 {label}: kernel ms={r['ms']:.4f} (profiler device "
+              f"time; a wrapper call {r['call_ms']:.4f} ms) bound_ms="
+              f"{r['bound_ms']:.4f} ({r['bound_by']}), "
+              f"{r['nbytes'] / r['ms'] / 1e6:.1f} GB/s, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound [{card}]")
+    if int8_row["ms"] > paged_rows[0]["ms"]:
+        print(f"phase 9 note: the int8 decode ({int8_row['ms']:.4f} ms) is "
+              f"slower than the float decode on the same tokens "
+              f"({paged_rows[0]['ms']:.4f} ms)")
+
     # -- result ---------------------------------------------------------------
     paged16, flash_main = paged_rows[0], flash_rows[0]
     entries = [
@@ -1304,7 +1613,7 @@ def main() -> int:
              bound_by=flash_main["bound_by"],
              library_ms=flash_main["library_ms"]),
     ]
-    bwd_main, adamw_main = bwd_rows[0], adamw_rows[1]
+    bwd_main = bwd_rows[0]
     for name, ms_key, b_key in (("flash_attention_bwd_dq", "dq_ms", "dq_bound"),
                                 ("flash_attention_bwd_dkv", "dkv_ms",
                                  "dkv_bound")):
@@ -1319,14 +1628,16 @@ def main() -> int:
             launches=train_counts[name], max_abs_err=err, ms=bwd_main[ms_key],
             plain_ms=bwd_main["plain_ms"], bound_ms=bwd_main[b_key][0],
             bound_by=bwd_main[b_key][1], library_ms=bwd_main["library_ms"]))
+    # the train step's launch: all 75 tensors at once (adamw_multi_row)
     entries.append(dict(
         name="fused_adamw", route="cuda",
         source="paddle_tpu_torch/ops/kernels/fused_adamw.cu",
         replaces="paddle_tpu/ops/fused_adamw.py:111",
         launches=train_counts["fused_adamw"],
-        max_abs_err=adamw_main["max_abs_err"], ms=adamw_main["ms"],
-        plain_ms=adamw_main["plain_ms"], bound_ms=adamw_main["bound_ms"],
-        bound_by=adamw_main["bound_by"], library_ms=None))
+        max_abs_err=adamw_multi_row["max_abs_err"], ms=adamw_multi_row["ms"],
+        plain_ms=adamw_multi_row["plain_ms"],
+        bound_ms=adamw_multi_row["bound_ms"],
+        bound_by=adamw_multi_row["bound_by"], library_ms=None))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the flash kernels of the checkout it is run from.
+"""Times the flash kernels or the paged decode of the checkout it is run from.
 
     cd <checkout> && python3 <path>/flash_ab.py LABEL [fwd|bwd]
+    cd <checkout> && python3 <path>/flash_ab.py LABEL decode [BLOCKS_PER_SM..]
 
 Builds that checkout's flash kernels, then times them at
 ``chip_smoke.py`` phase 2's three configurations (B=4, S=2048, H=16,
@@ -15,7 +16,12 @@ build's seconds, the times in ms, ptxas' non-zero spill reports and its
 count of serialised-``wgmma`` warnings for the source timed. To compare two
 versions of a kernel, unpack both into directories that ``.gitignore``
 lists and run this in each in turns (A, B, B, A) within one call on the
-card. Needs an NVIDIA card and ``nvcc``.
+card. ``decode`` times the float and int8 paged-decode kernels at
+``chip_smoke.py`` phase 2's B=16 and B=64 cases and its engine-like B=8
+case: the kernel's device time per launch from the profiler, three means of
+20 launches; each BLOCKS_PER_SM given (default: the wrapper's own) sets the
+wrapper's split target for one pass over the cases. Needs an NVIDIA card
+and ``nvcc``.
 """
 import json
 import os
@@ -40,6 +46,49 @@ def mean_ms(torch, fn, iters=20, reps=3):
     return ts
 
 
+def decode(torch, targets):
+    """``{target: {case: {"float": [ms...], "int8": [ms...], "splits": ...}}}``
+    for each blocks-per-SM target of the decode wrappers' split."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.ops import paged_attention as PA
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = {"B=16": dict(B=16), "B=64": dict(B=64),
+             "engine B=8": dict(B=cs.ENGINE_DECODE["B"],
+                                pages=cs.ENGINE_DECODE["pages"],
+                                lo=cs.ENGINE_DECODE["lo"],
+                                hi=cs.ENGINE_DECODE["hi"])}
+    inputs = {}
+    for name, kw in cases.items():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        gen_cpu = torch.Generator().manual_seed(0)
+        q, kp, vp, tables, cl, _ = cs.paged_inputs(torch, dev, gen, gen_cpu,
+                                                   **kw)
+        (kq, ks), (vq, vs) = PA._kv_quantize(kp), PA._kv_quantize(vp)
+        inputs[name] = ((q, kp, vp, tables, cl),
+                        (q, kq, vq, ks, vs, tables, cl))
+    res = {}
+    default = PA._DECODE_BLOCKS_PER_SM
+    try:
+        for target in targets or [default]:
+            PA._DECODE_BLOCKS_PER_SM = target
+            row = res[str(target)] = {}
+            for name, (f_args, i_args) in inputs.items():
+                b, _, h, _ = f_args[0].shape
+                row[name] = dict(splits=PA.decode_splits(
+                    f_args[3].shape[1], b, h, sms))
+                for kind, fn, args in (("float", PA.paged_decode, f_args),
+                                       ("int8", PA.paged_decode_int8, i_args)):
+                    row[name][kind] = [
+                        round(cs.device_ms(lambda: fn(*args),
+                                           "paged_decode_kernel"), 4)
+                        for _ in range(3)]
+    finally:
+        PA._DECODE_BLOCKS_PER_SM = default
+    return res
+
+
 def main() -> int:
     sys.path.insert(0, os.getcwd())
     import torch
@@ -55,11 +104,22 @@ def main() -> int:
               file=sys.stderr)
         return 2
     mode = sys.argv[2] if len(sys.argv) > 2 else "fwd"
-    lib = {"fwd": "flash_attention_fwd", "bwd": "flash_attention_bwd"}[mode]
+    lib = {"fwd": "flash_attention_fwd", "bwd": "flash_attention_bwd",
+           "decode": "paged_decode_attention"}[mode]
     t0 = time.time()
-    kernels.build(["flash_attention_fwd", "flash_attention_bwd"])
+    kernels.build(["flash_attention_fwd", "flash_attention_bwd"]
+                  if mode != "decode" else [lib])
     build_s = time.time() - t0
     log = (kernels.build_dir() / f"{lib}.log").read_text()
+    if mode == "decode":
+        res = decode(torch, [int(x) for x in sys.argv[3:]])
+        lines = log.splitlines()
+        regs = sorted({ln.split("Used ")[1].split(",")[0] for ln in lines
+                       if "Used " in ln})
+        print(json.dumps({"label": sys.argv[1], "mode": mode,
+                          "build_s": round(build_s, 1), "ms": res,
+                          "registers": regs}))
+        return 0
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     res = {}

@@ -3,7 +3,7 @@
 
     python3 gate_mutants.py [--seed N]
 
-Builds three kernel sources as they are and in broken forms, each form
+Builds four kernel sources as they are and in broken forms, each form
 from its own copy of the kernel sources in a temporary directory (the
 checkout is not touched), every ``nvcc`` started together:
 
@@ -33,29 +33,42 @@ H=16, D=128; causal MHA, non-causal MHA, causal GQA with 4 kv heads):
   kernel sums query heads ``hk, hk + HKV, ...`` into kv head ``hk`` in
   place of its own group.
 
-``paged_decode_attention.cu`` (the paged decode, float and int8 pools),
-held by ``chip_smoke.decode_gate`` at phase 2's B=16 case (lengths
-1..2048 with both ends, H=KVH=16, D=128, bf16 q; the int8 kernel on the
-same pools quantized), over all rows and over the rows of the sequences
-longer than one token:
+``paged_decode_attention.cu`` (the split paged decode, float and int8
+pools), held by ``chip_smoke.decode_gate`` at phase 2's B=16 case (lengths
+1..2048 with both ends, H=KVH=16, D=128, bf16 q, 8 splits of 4 pages; the
+int8 kernel on the same pools quantized), over all rows and over the rows
+of the sequences longer than one token:
 
-- ``scale row + 1``: every K/V row is dequantized with the next row's
-  scale (int8 only);
+- ``scale row + 1``: every K/V row is scaled with the next row's scale
+  (int8 only);
 - ``last partial page dropped``: each sequence stops at its last full page;
 - ``last token dropped``: each sequence attends over one token too few;
 - ``last page's table slot + 1``: each sequence reads its last page
   through the next slot of its table row (sequences whose last page is the
-  row's last slot are unchanged).
+  row's last slot are unchanged);
+- ``merge skips the last split``: the block that merges a sequence's
+  splits leaves out the last live one.
+
+``fused_adamw.cu`` (the multi-tensor AdamW), held bitwise by
+``chip_smoke.adamw_multi_diff`` at the train step's launch (the flagship's
+75 bf16 tensors, bf16 moments, SR) against 75 per-tensor plain updates:
+
+- ``chunk offset + 1 past a tensor boundary``: every tensor but the first
+  starts one chunk late, so its first chunk is never updated;
+- ``the next tensor's salts``: tensor t rounds with tensor t + 1's salts;
+- ``the table's last tensor skipped``: the grid ends at the last tensor's
+  first chunk.
 
 Each variant runs through the kernel's own wrapper (``paged_decode`` and
-``paged_decode_int8`` for the decode). It also prints the verdict of the
+``paged_decode_int8`` for the decode, ``fused_adamw_multi_update`` for
+AdamW). It also prints the verdict of the
 looser gates used before (flash forward: atol 2e-2 + rtol 2e-2 and lse;
 flash backward: atol 5e-2 + rtol 5e-2 and 1e-2 over each whole gradient;
 decode: atol 3e-2 + rtol 2e-2). Exits 0 only if each source as it is
 passes and every broken form fails wherever it changes the result: a flash
 mutant in every configuration where it does, a decode mutant on the long
-rows alone. The last line names the mutants refused. Needs an NVIDIA card
-and ``nvcc``.
+rows alone, an AdamW mutant on the launch. The last line names the
+mutants refused. Needs an NVIDIA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -124,17 +137,35 @@ MUTANTS = {
     },
     "paged_decode_attention": {
         "as is": None,
-        "scale row + 1": [("s = scales[row];", "s = scales[row + 1];")],
+        "scale row + 1": [("s = __ldg(scales + row);",
+                           "s = __ldg(scales + row + 1);")],
         "last partial page dropped": [(
-            "const int len = min(lengths[b], P * BS);",
-            "const int len = min(lengths[b] / BS * BS, P * BS);")],
+            "const int len = min(cache_len[b * cl_stride] + 1, P * BS);",
+            "const int len = min((cache_len[b * cl_stride] + 1) / BS * BS, "
+            "P * BS);")],
         "last token dropped": [(
-            "const int len = min(lengths[b], P * BS);",
-            "const int len = min(lengths[b] - 1, P * BS);")],
+            "const int len = min(cache_len[b * cl_stride] + 1, P * BS);",
+            "const int len = min(cache_len[b * cl_stride], P * BS);")],
         "last page's table slot + 1": [(
-            "row[i] = head_rows + (int64_t)trow[t / BS] * BS + (t % BS);",
-            "row[i] = head_rows + (int64_t)trow[min(t / BS + (t / BS == "
-            "(len - 1) / BS), P - 1)] * BS + (t % BS);")],
+            "s_pages[i] = trow[i];",
+            "s_pages[i] = trow[min(i + (split * pps + i == (len - 1) / BS), "
+            "P - 1 - split * pps)];")],
+        "merge skips the last split": [(
+            "merge_splits<T, D>(partials + bh * splits * (D + 2), n_live, o);",
+            "merge_splits<T, D>(partials + bh * splits * (D + 2), n_live - 1, "
+            "o);")],
+    },
+    "fused_adamw": {
+        "as is": None,
+        "chunk offset + 1 past a tensor boundary": [(
+            "const int64_t local = c - tab.chunk0[t];",
+            "const int64_t local = c - tab.chunk0[t] + (t > 0);")],
+        "the next tensor's salts": [(
+            "const long long* st = salts + 2 * t;",
+            "const long long* st = salts + 2 * ((t + 1) % tab.n_tensors);")],
+        "the table's last tensor skipped": [(
+            "const int grid = tab.chunk0[T];",
+            "const int grid = tab.chunk0[T - 1];")],
     },
 }
 FLASH_CONFIGS = ((True, 16), (False, 16), (True, 4))  # (causal, kv heads)
@@ -303,6 +334,36 @@ def decode_mutants(torch, kernels, libs, dev, gen, gen_cpu, card):
     return ok, refused, counted
 
 
+def adamw_mutants(torch, kernels, libs, dev, gen, card):
+    """Every AdamW variant on the train step's launch, each from the same
+    p, m, v; the gate is bitwise, so a mutant is refused where it changes
+    the result, and one that changes nothing fails the run. Returns (ok,
+    refused, mutants counted)."""
+    lib_name = "fused_adamw"
+    x = cs.adamw_multi_inputs(torch, dev, gen)
+    want = cs.adamw_multi_plain(x)
+    ok, refused = True, []
+    for name in MUTANTS[lib_name]:
+        kernels._libs[lib_name] = libs[lib_name, name]
+        ps, ms, vs = ([t.clone() for t in x[k]] for k in ("ps", "ms", "vs"))
+        cs.adamw_multi_launch(x, ps, ms, vs)
+        torch.cuda.synchronize()
+        n_diff = cs.adamw_multi_diff(torch, list(zip(ps, ms, vs)), want)
+        del ps, ms, vs
+        if name == "as is":
+            ok &= not n_diff
+        elif n_diff:
+            refused.append(f"fused_adamw: {name}")
+        else:
+            ok = False
+        shown = dict(list(n_diff.items())[:6], tensors_differing=len(
+            {k[:-1] for k in n_diff}))
+        print(f"fused_adamw {name}: elements differing from the per-tensor "
+              f"plain updates {shown} -> {'FAIL' if n_diff else 'pass'} "
+              f"[{card}]")
+    return ok, refused, len(MUTANTS[lib_name]) - 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -331,6 +392,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         results.append(decode_mutants(torch, kernels, libs, dev, gen, gen_cpu,
                                       card))
+        torch.cuda.empty_cache()
+        results.append(adamw_mutants(torch, kernels, libs, dev, gen, card))
     finally:
         for lib_name in MUTANTS:
             kernels._libs.pop(lib_name, None)

@@ -46,10 +46,12 @@ def get_generator(device: Optional[Union[str, torch.device]] = None
     return gen
 
 
-def sr_salts(device: Union[str, torch.device]) -> torch.Tensor:
+def sr_salts(device: Union[str, torch.device], n: Optional[int] = None
+             ) -> torch.Tensor:
     """Two uint32 salts for one stochastic-rounding writeback, as an int64
-    ``[2]`` tensor drawn on ``device`` from its salt generator (seeded from
-    the last :func:`seed`); no value comes back to the host."""
+    ``[2]`` tensor (``[n, 2]`` for n writebacks, in one draw) drawn on
+    ``device`` from its salt generator (seeded from the last :func:`seed`);
+    no value comes back to the host."""
     dev = torch.device(device)
     key = str(dev)
     gen = _sr_generators.get(key)
@@ -57,5 +59,5 @@ def sr_salts(device: Union[str, torch.device]) -> torch.Tensor:
         gen = torch.Generator(device=dev)
         gen.manual_seed(_seed + _SR_STREAM)
         _sr_generators[key] = gen
-    return torch.randint(0, 2 ** 32, (2,), dtype=torch.int64, device=dev,
-                         generator=gen)
+    return torch.randint(0, 2 ** 32, (2,) if n is None else (n, 2),
+                         dtype=torch.int64, device=dev, generator=gen)

@@ -48,14 +48,17 @@ SOURCES = {
     "paged_decode_attention": (
         "paged_decode_attention.cu", {
             "paged_decode_attention_launch":
-            # dtype, q, k_pool, v_pool, tables, lengths, out,
-            # B, H, KVH, NB, BS, P, D, scale, stream
-            [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+            # dtype, q, k_pool, v_pool, tables, cache_len, its stride, out,
+            # partials, tickets, B, H, KVH, NB, BS, P, D, splits, pages per
+            # split, scale, stream
+            [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+             _I, _I, _I, _F, _P],
             "paged_decode_attention_int8_launch":
-            # dtype, q, k_pool, v_pool, k_scale, v_scale, tables, lengths,
-            # out, B, H, KVH, NB, BS, P, D, scale, stream
-            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _F, _P]}),
+            # dtype, q, k_pool, v_pool, k_scale, v_scale, tables,
+            # cache_len, its stride, out, partials, tickets, B, H, KVH, NB,
+            # BS, P, D, splits, pages per split, scale, stream
+            [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+             _I, _I, _I, _I, _I, _F, _P]}),
     "flash_attention_fwd": (
         "flash_attention_fwd.cu", {
             "flash_attention_fwd_launch": _FLASH_FWD_ARGS,  # f32
@@ -67,10 +70,11 @@ SOURCES = {
             "flash_attention_bwd_dq_wgmma_launch": _FLASH_BWD_ARGS,  # wgmma
             "flash_attention_bwd_dkv_wgmma_launch": _FLASH_BWD_ARGS}),
     "fused_adamw": (
-        "fused_adamw.cu", {"fused_adamw_launch":
-        # p/g/m dtype codes, sr, p, g, m, v, scalars (4 f32), salts (2
-        # int64), n, beta1, 1 - beta1, beta2, 1 - beta2, stream
-        [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _P]}),
+        "fused_adamw.cu", {"fused_adamw_multi_launch":
+        # p/g/m dtype codes, sr, host table (T rows of p, g, m, v pointers
+        # and numel, int64), T, scalars (f32 [T, 4]), salts (int64 [T, 2]),
+        # beta1, 1 - beta1, beta2, 1 - beta2, stream
+        [_I, _I, _I, _I, _P, _I, _P, _P, _F, _F, _F, _F, _P]}),
 }
 
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

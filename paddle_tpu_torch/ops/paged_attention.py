@@ -24,7 +24,8 @@ Int8 KV (``kv_dtype="int8"``): int8 value pools plus f32 scale pools
 head, row-indexed by the same physical block ids as the values, so a
 block's scales travel with its bytes through adopt, fork and copy. Writes
 quantize in the same scatter (``_kv_quantize``); reads dequantize, in the
-gather for prefill and in registers in the int8 decode kernel.
+gather for prefill; the int8 decode kernel folds each row's scale into
+its score and its probability.
 
 Block tables and ``cache_len`` stay int32 like the reference (the kernels
 read them as int32); they are widened to int64 wherever torch indexes
@@ -47,7 +48,7 @@ __all__ = [
     "alloc_paged_kv_caches", "paged_update_kv_cache", "paged_gather_kv",
     "paged_write_kv", "paged_attention_step", "paged_decode_attention",
     "paged_decode", "paged_decode_plain", "paged_decode_int8",
-    "paged_decode_int8_plain",
+    "paged_decode_int8_plain", "decode_splits",
 ]
 
 
@@ -639,22 +640,72 @@ def _check_decode_args(name: str, q, k_pool, v_pool, tables):
         raise ValueError(f"{name}: tables {tuple(tables.shape)} for B={b}")
 
 
+# the decode kernels' grid: enough blocks to fill every SM this many times
+# over, whatever the lengths; and the kernel's limits on a split
+_DECODE_BLOCKS_PER_SM = 16
+_MAX_SPLITS = 64
+_MAX_SPLIT_PAGES = 64
+# per device: the kernels' uint32 tickets, one per (sequence, head), zero
+# between calls (each call returns the ones it takes to zero)
+_tickets: Dict[torch.device, torch.Tensor] = {}
+
+
+def decode_splits(pages: int, batch: int, heads: int, sms: int
+                  ) -> Tuple[int, int]:
+    """``(splits, pages_per_split)`` of the decode kernels' grid (splits,
+    heads, batch), from host-known shapes alone: enough page-aligned
+    splits of the ``pages``-wide table row that the grid holds
+    ``_DECODE_BLOCKS_PER_SM`` blocks per SM, at most one split per page;
+    the splits cover the row and none is empty of pages."""
+    if pages > _MAX_SPLITS * _MAX_SPLIT_PAGES:
+        raise ValueError(f"paged decode kernels take at most "
+                         f"{_MAX_SPLITS * _MAX_SPLIT_PAGES} pages a row; got "
+                         f"{pages}")
+    want = -(-sms * _DECODE_BLOCKS_PER_SM // (batch * heads))
+    splits = max(min(pages, want, _MAX_SPLITS), -(-pages // _MAX_SPLIT_PAGES))
+    pps = -(-pages // splits)
+    return -(-pages // pps), pps
+
+
+def _decode_tickets(device: torch.device, n: int) -> torch.Tensor:
+    t = _tickets.get(device)
+    if t is None or t.numel() < n:
+        t = _tickets[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return t
+
+
 def _launch_decode(name: str, symbol: str, q, pools, tables, cache_len):
     """Shared launch of the two paged-decode kernels: ``pools`` is
-    ``(k, v)`` or ``(k, v, k_scale, v_scale)``; returns ``[B, 1, H, D]``."""
+    ``(k, v)`` or ``(k, v, k_scale, v_scale)``; returns ``[B, 1, H, D]``.
+    Allocates the kernel's f32 workspace ``[B, H, splits, D + 2]`` when the
+    row takes more than one split."""
     b, _, h, d = q.shape
     kvh, nb, bs, _ = pools[0].shape
     code = kernels.dtype_code(name, q.dtype)
     qc = q.reshape(b, h, d).contiguous()
+    if qc.data_ptr() % 16:  # the kernels load q in 16-byte pieces
+        qc = qc.clone()
     tbl = tables.to(torch.int32).contiguous()
     cl = _validate_cache_len(cache_len, b, q.device)
-    lengths = (cl.to(torch.int32) + 1).expand(b).contiguous()
+    cl = cl.to(torch.int32).contiguous()
     out = torch.empty_like(qc)
+    pages = tbl.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits, pps = decode_splits(pages, b, h, sms)
+    partials = tickets = None
+    if splits > 1:
+        partials = torch.empty((b, h, splits, d + 2), dtype=torch.float32,
+                               device=q.device)
+        tickets = _decode_tickets(q.device, b * h)
     lib = kernels.load("paged_decode_attention")
     err = getattr(lib, symbol)(
         code, qc.data_ptr(), *(p.data_ptr() for p in pools), tbl.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, h, kvh, nb, bs, tbl.shape[1],
-        d, 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+        cl.data_ptr(), cl.dim(), out.data_ptr(),
+        None if partials is None else partials.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), b, h, kvh, nb, bs,
+        pages, d, splits, pps, 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(name, err)
     return out.reshape(b, 1, h, d)
 
@@ -665,8 +716,12 @@ def paged_decode(q, k_pool, v_pool, tables, cache_len) -> torch.Tensor:
     q ``[B, 1, H, D]`` (unscaled; the kernel pre-scales it by 1/sqrt(D) in
     q's dtype like the TPU kernel path), pools ``[kvh, blocks, bs, D]``,
     tables ``[B, pages]``, cache_len scalar or ``[B]`` (each row attends
-    over ``cache_len + 1`` tokens) -> ``[B, 1, H, D]``. CPU tensors take
-    :func:`paged_decode_plain`; CUDA tensors launch the kernel or raise."""
+    over ``cache_len + 1`` tokens) -> ``[B, 1, H, D]``. One launch per
+    call: the kernel splits each row into page-aligned pieces
+    (:func:`decode_splits`) and merges them itself. CPU tensors take
+    :func:`paged_decode_plain`; CUDA tensors launch the kernel or raise.
+    Launches on one stream at a time per device (they share the kernel's
+    tickets)."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, tables, cache_len)
     if q.device.type != "cuda":
@@ -685,10 +740,14 @@ def paged_decode(q, k_pool, v_pool, tables, cache_len) -> torch.Tensor:
 def paged_decode_int8(q, k_pool, v_pool, k_scale, v_scale, tables,
                       cache_len) -> torch.Tensor:
     """Kernel wrapper: single-token decode over int8 pools ``[kvh, blocks,
-    bs, D]`` with f32 scale pools ``[kvh, blocks, bs]``. The kernel
-    dequantizes each element in f32 as ``(q * h) / 127.5`` (the TPU
-    kernel's order) and keeps scores, softmax and ``P @ V`` in f32; q is
-    pre-scaled by 1/sqrt(D) in its own dtype. CPU tensors take
+    bs, D]`` with f32 scale pools ``[kvh, blocks, bs]``, split and merged
+    like :func:`paged_decode`. The kernel folds each row's scale into its
+    score and its probability, ``s_k * (q . x_k) / 127.5`` and ``(p * s_v
+    / 127.5) * x_v``, where the TPU kernel dequantizes each element as
+    ``(x * s) / 127.5`` before the products: the same function in f32,
+    rounded at other points (an ulp of each term; the INT8_* gates hold
+    it). Scores, softmax and ``P @ V`` stay in f32; q is pre-scaled by
+    1/sqrt(D) in its own dtype. CPU tensors take
     :func:`paged_decode_int8_plain`; CUDA tensors launch the kernel or
     raise."""
     if q.device.type == "cpu":

@@ -11,10 +11,11 @@ Accumulators live in ``self._accumulators[name][param_name]``; a param's
 name is its position in the optimizer's parameter list (``param_<i>``), so
 ``state_dict`` keys (``param_<i>.<accumulator>``) restore positionally.
 
-``AdamW(fused=True)`` routes each update through the fused AdamW kernel
-(``ops/fused_adamw.py``) with the same numerics. Stochastic-rounding salts
-come from ``base.random.sr_salts`` on the parameter's device: no value is
-read back to the host.
+``AdamW(fused=True)`` routes the step's updates through the fused AdamW
+kernel (``ops/fused_adamw.py``) with the same numerics, one launch per
+(device, p, g, m dtype, SR) group of parameters. Stochastic-rounding salts
+come from ``base.random.sr_salts`` on the parameter's device, one ``[T, 2]``
+draw per group: no value is read back to the host.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from typing import Dict
 import torch
 
 from ..base import random as _random
-from ..ops.fused_adamw import fused_adamw_update, stochastic_round_bf16
+from ..ops.fused_adamw import (adamw_scalars_multi, fused_adamw_multi_update,
+                               stochastic_round_bf16)
 from .lr import LRScheduler
 
 __all__ = [
@@ -312,8 +314,9 @@ class Adam(_AdamBase):
 class AdamW(_AdamBase):
     """Decoupled weight decay (default coeff 0.01); ``apply_decay_param_fun``
     takes a param name (``param_<i>``) and filters which params decay.
-    ``fused=True`` runs each update through the fused AdamW kernel with the
-    same numerics."""
+    ``fused=True`` runs the step's updates through the fused AdamW kernel
+    with the same numerics, one launch per group of parameters that share
+    the kernel's types."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
@@ -334,6 +337,7 @@ class AdamW(_AdamBase):
         self._lr_ratio = lr_ratio
         self._apply_decay_param_fun = apply_decay_param_fun
         self._fused = bool(fused)
+        self._fused_pending = None  # (p, g, lr) of this step's fused updates
 
     def _decay_for(self, p) -> float:
         decay = self._coeff
@@ -348,12 +352,26 @@ class AdamW(_AdamBase):
         # the kernel computes in f32: f64 params keep the unfused path
         return p.dtype != torch.float64 and g.is_floating_point()
 
+    @torch.no_grad()
+    def step(self):
+        """The reference's step; the fused updates are gathered on the way
+        and launched together at its end (each parameter's update depends
+        on nothing but its own tensors, so the order does not matter)."""
+        self._fused_pending = []
+        try:
+            super().step()
+            if self._fused_pending:
+                self._fused_step(self._fused_pending)
+        finally:
+            self._fused_pending = None
+
     def _update_param(self, p, g, lr_scale, group):
         lr = self._lr() * lr_scale
         if self._lr_ratio is not None:
             lr = lr * self._lr_ratio(p)
         if self._fused and self._fused_supported(p, g):
-            return self._fused_update(p, g, lr)
+            self._fused_pending.append((p, g, lr))
+            return
         pv, g, m, v, b1p, b2p = self._moments(p, g)
         decay = self._decay_for(p)
         # decay in the f32 compute dtype (in bf16 a relative change of
@@ -362,28 +380,53 @@ class AdamW(_AdamBase):
         pv = pv.to(compute) * (1.0 - lr * decay)
         self._apply(p, pv - self._adam_delta(lr, m, v, b1p, b2p))
 
-    def _fused_update(self, p, g, lr):
+    def _beta_pows(self, ps, device):
+        """This group's beta powers advanced by one step, as two f32 ``[T]``
+        vectors (the unfused path's f32 products, one launch per vector);
+        each parameter's ``beta1_pow`` / ``beta2_pow`` accumulator becomes
+        a view of its entry, so ``state_dict`` keeps its keys."""
+        names = [self._name(p) for p in ps]
+        out = []
+        for accum, beta in (("beta1_pow", self._beta1),
+                            ("beta2_pow", self._beta2)):
+            store = self._accumulators.setdefault(accum, {})
+            if any(n not in store for n in names):  # first step: ones
+                ones = torch.ones((), dtype=torch.float32, device=device)
+                for n in names:
+                    store.setdefault(n, ones)
+            vec = torch.stack([store[n].to(torch.float32) for n in names]) * beta
+            store.update(zip(names, vec.unbind(0)))
+            out.append(vec)
+        return out
+
+    def _fused_step(self, pending):
         """Kernel backend: same accumulator layout and writeback modes as
         _moments/_apply (master weights updated in place, masterless bf16
-        with the SR writeback, or a plain cast)."""
-        pv = self._param_value(p)
-        m = self._get_accum("moment1", p, dtype=self._moment_dtype)
-        v = self._get_accum("moment2", p, dtype=self._moment_dtype)
-        ones = torch.ones((), dtype=torch.float32, device=p.device)
-        b1p = self._get_accum("beta1_pow", p, init=ones).to(torch.float32) * self._beta1
-        b2p = self._get_accum("beta2_pow", p, init=ones.clone()).to(torch.float32) * self._beta2
-        use_master = self._use_master(p)
-        sr = (not use_master and self._stochastic_rounding
-              and p.dtype == torch.bfloat16)
-        fused_adamw_update(
-            pv, g, m, v, lr=lr, beta1=self._beta1, beta2=self._beta2,
-            epsilon=self._epsilon, beta1_pow=b1p, beta2_pow=b2p,
-            weight_decay=self._decay_for(p),
-            sr_salts=_random.sr_salts(p.device) if sr else None)
-        self._set_accum("beta1_pow", p, b1p)
-        self._set_accum("beta2_pow", p, b2p)
-        if use_master:
-            p.copy_(pv)
+        with the SR writeback, or a plain cast), one launch per (device, p,
+        g, m dtype, SR) group."""
+        groups = {}
+        for p, g, lr in pending:
+            pv = self._param_value(p)
+            m = self._get_accum("moment1", p, dtype=self._moment_dtype)
+            v = self._get_accum("moment2", p, dtype=self._moment_dtype)
+            use_master = self._use_master(p)
+            sr = (not use_master and self._stochastic_rounding
+                  and p.dtype == torch.bfloat16)
+            key = (p.device, pv.dtype, g.dtype, m.dtype, sr)
+            groups.setdefault(key, []).append((p, pv, g, m, v, lr, use_master))
+        for (device, *_, sr), items in groups.items():
+            ps, pvs, gs, ms, vs, lrs, masters = map(list, zip(*items))
+            b1p, b2p = self._beta_pows(ps, device)
+            scalars = adamw_scalars_multi(
+                lr=lrs, epsilon=self._epsilon, beta1_pow=b1p, beta2_pow=b2p,
+                weight_decay=[self._decay_for(p) for p in ps])
+            fused_adamw_multi_update(
+                pvs, gs, ms, vs, scalars=scalars, beta1=self._beta1,
+                beta2=self._beta2,
+                sr_salts=_random.sr_salts(device, len(ps)) if sr else None)
+            for p, pv, use_master in zip(ps, pvs, masters):
+                if use_master:
+                    p.copy_(pv)
 
 
 def _later(name: str):

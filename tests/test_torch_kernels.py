@@ -44,6 +44,9 @@ from paddle_tpu_torch.ops.flash_attention import (
     flash_attention_fwd_plain,
 )
 from paddle_tpu_torch.ops.fused_adamw import (
+    adamw_scalars_multi,
+    fused_adamw_multi_update,
+    fused_adamw_multi_update_plain,
     fused_adamw_update,
     fused_adamw_update_plain,
 )
@@ -161,6 +164,72 @@ def test_paged_decode_attention_takes_kernel_on_contiguous_tables(dev, int8):
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+# (B, H, KVH, lengths): at bs=64 and a 32-page table, B=5 and H=16 take
+# 16 splits of 2 pages (128 tokens): one token, exactly one split, one past
+# it, a ragged middle and the full table (the splits past a short row hold
+# no live page); B=1 takes 32 splits of one page
+SPLIT_EDGES = {
+    "mha": (5, 16, 16, [1, 128, 129, 700, 2048]),
+    "gqa4": (5, 16, 4, [1, 128, 129, 700, 2048]),
+    "b1_full": (1, 16, 16, [2048]),
+    "b1_one_page_past": (1, 8, 2, [65]),
+}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("case", list(SPLIT_EDGES))
+def test_paged_decode_kernels_split_edges(dev, int8, case):
+    """Both decode kernels at lengths on the split edges, bf16 q: against
+    the plain version (the float kernel's and the int8 kernel's tolerances
+    above) and, per (sequence, head) row, within 5e-3 of the plain version
+    run in f32 on the kernel's pre-scaled q; a second call gives the same
+    bits (each call returns its tickets to zero)."""
+    from paddle_tpu_torch.ops.paged_attention import (_kv_quantize,
+                                                      decode_splits)
+
+    b, h, kvh, lens = SPLIT_EDGES[case]
+    d, bs, per = 128, 64, 32
+    g = torch.Generator(device="cpu").manual_seed(11)
+    nb = b * per + 1
+    tables = torch.randperm(b * per, generator=g).reshape(b, per)
+    tables = tables.to(torch.int32).to(dev)
+    kp, vp = (torch.randn(kvh, nb, bs, d, generator=g).to(dev, torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn(b, 1, h, d, generator=g).to(dev, torch.bfloat16)
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev) - 1
+    splits, pps = decode_splits(per, b, h, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert splits > 1
+    if int8:
+        (kp, ks), (vp, vs) = _kv_quantize(kp), _kv_quantize(vp)
+        wrapper, args = paged_decode_int8, (q, kp, vp, ks, vs, tables, cl)
+        plain = paged_decode_int8_plain
+        want32 = plain(_prescaled_q32(q), *args[1:])
+    else:
+        wrapper, args = paged_decode, (q, kp, vp, tables, cl)
+        plain = paged_decode_plain
+        want32 = plain(_prescaled_q32(q), kp.float(), vp.float(), tables, cl)
+    before = wrapper.launches
+    got = wrapper(*args)
+    again = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(got, again)
+    want = plain(*args)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                               rtol=2e-2 if int8 else 0)
+    assert _row_rel(got, want32) <= 5e-3
+
+
+def _prescaled_q32(q):
+    """q as the decode kernels round it (``q * (1/sqrt(D))`` in q's dtype),
+    back at unit scale in f32 for the plain versions' own scaling."""
+    d = q.shape[-1]
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32).to(q.dtype)
+    return (q * scale).float() * d ** 0.5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -454,10 +523,10 @@ def test_fused_adamw_kernel_bitwise_vs_plain(dev, combo, sr, shape):
               sr_salts=(torch.tensor([0xDEADBEEF, 0x12345678], device=dev)
                         if sr else None))
     ref = [t.clone() for t in (p, m, v)]
-    before = fused_adamw_update.launches
+    before = fused_adamw_multi_update.launches  # the kernel's one count
     fused_adamw_update(p, gr, m, v, **kw)
     torch.cuda.synchronize()
-    assert fused_adamw_update.launches == before + 1
+    assert fused_adamw_multi_update.launches == before + 1
     fused_adamw_update_plain(ref[0], gr, ref[1], ref[2], **kw)
     for a, b, name in zip((p, m, v), ref, "pmv"):
         assert torch.equal(_bits(a), _bits(b)), name
@@ -477,3 +546,104 @@ def test_fused_adamw_kernel_skip_writes_nothing(dev):
     torch.cuda.synchronize()
     for a, b in zip((p, m, v), ref):
         assert torch.equal(_bits(a), _bits(b))
+
+
+def _adamw_set(dev, sizes, dtypes, seed, offsets=None):
+    """One (p, g, m, v) per size; with ``offsets``, each tensor a view that
+    starts that many elements into a larger buffer (p, g, m, v offsets)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rows = []
+    for i, n in enumerate(sizes):
+        off = offsets[i] if offsets else (0, 0, 0, 0)
+        scales = (1.0, 0.1, 0.01, 0.01)
+        row = []
+        for k, (dt, o, sc) in enumerate(zip(dtypes, off, scales)):
+            buf = (torch.rand if k == 3 else torch.randn)(n + o, generator=g)
+            row.append((sc * buf).to(dev, dt)[o:])
+        rows.append(row)
+    return rows
+
+
+def _adamw_rows(dev, t, sr, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    scalars = adamw_scalars_multi(
+        lr=[1e-2 * (1 + i % 3) for i in range(t)], epsilon=1e-8,
+        beta1_pow=torch.full((t,), 0.9 ** 3, device=dev),
+        beta2_pow=torch.full((t,), 0.999 ** 3, device=dev),
+        weight_decay=[0.01 * (i % 2) for i in range(t)])
+    salts = (torch.randint(0, 2 ** 32, (t, 2), generator=g).to(dev)
+             if sr else None)
+    return scalars, salts
+
+
+def _check_multi(rows, scalars, salts, launches):
+    ref = [[x.clone() for x in row] for row in rows]
+    before = fused_adamw_multi_update.launches
+    fused_adamw_multi_update(*zip(*rows), scalars=scalars, beta1=0.9,
+                             beta2=0.999, sr_salts=salts)
+    torch.cuda.synchronize()
+    assert fused_adamw_multi_update.launches == before + launches
+    fused_adamw_multi_update_plain(*zip(*ref), scalars=scalars, beta1=0.9,
+                                   beta2=0.999, sr_salts=salts)
+    for i, (got, want) in enumerate(zip(rows, ref)):
+        for k in (0, 2, 3):
+            assert torch.equal(_bits(got[k]), _bits(want[k])), (i, "pgmv"[k])
+
+
+@pytest.mark.parametrize("combo", ADAMW_COMBOS,
+                         ids=lambda c: "-".join(str(x)[6:] for x in c))
+@pytest.mark.parametrize("sr", [False, True], ids=["rne", "sr"])
+def test_fused_adamw_multi_kernel_bitwise_vs_plain(dev, combo, sr):
+    """One launch over tensors of 1, 7, 2049, 8192 * 3 + 5 and 2048 x 33
+    elements: bitwise the T per-tensor plain updates."""
+    p_dt, g_dt, m_dt = combo
+    if sr and p_dt != torch.bfloat16:
+        pytest.skip("the SR writeback takes bf16 params only")
+    rows = _adamw_set(dev, [1, 7, 2049, 8192 * 3 + 5, 2048 * 33],
+                      (p_dt, g_dt, m_dt, m_dt), seed=12)
+    _check_multi(rows, *_adamw_rows(dev, len(rows), sr), launches=1)
+
+
+@pytest.mark.parametrize("sr", [False, True], ids=["rne", "sr"])
+def test_fused_adamw_multi_kernel_misaligned_views(dev, sr):
+    """Views that start off a 16-byte boundary: all four at one phase (an
+    element-wise head, then 16-byte accesses), at different phases (the
+    whole tensor element-wise), and at the same phase in bf16 and f32."""
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = _adamw_set(dev, [2049, 10000, 5000, 3], (bf, bf, bf, bf), seed=13,
+                      offsets=[(3, 3, 3, 3), (1, 2, 3, 4), (7, 7, 7, 7),
+                               (5, 0, 1, 2)])
+    _check_multi(rows, *_adamw_rows(dev, len(rows), sr), launches=1)
+    rows = _adamw_set(dev, [9001, 17], (bf, f32, bf, bf), seed=14,
+                      offsets=[(4, 4, 4, 4), (1, 1, 1, 1)])
+    _check_multi(rows, *_adamw_rows(dev, len(rows), sr), launches=1)
+
+
+def test_fused_adamw_multi_kernel_splits_long_tables_and_skips_empty(dev):
+    """600 tensors take two launches (512 a launch); empty tensors are left
+    out of the table."""
+    bf = torch.bfloat16
+    sizes = [0 if i % 97 == 5 else 1 + (i * 37) % 3000 for i in range(600)]
+    rows = _adamw_set(dev, sizes, (bf, bf, bf, bf), seed=15)
+    _check_multi(rows, *_adamw_rows(dev, len(rows), True), launches=2)
+
+
+def test_fused_adamw_multi_kernel_skip_writes_nothing(dev):
+    """The found-inf veto, one flag for the whole launch."""
+    bf = torch.bfloat16
+    rows = _adamw_set(dev, [513 * 7, 1, 70000], (bf, bf, bf, bf), seed=16)
+    for row in rows:
+        row[1].fill_(float("inf"))
+    ref = [[x.clone() for x in row] for row in rows]
+    scalars = adamw_scalars_multi(
+        lr=1e-2, epsilon=1e-8, beta1_pow=torch.full((3,), 0.9, device=dev),
+        beta2_pow=torch.full((3,), 0.999, device=dev),
+        skip=torch.tensor(True, device=dev))
+    fused_adamw_multi_update(*zip(*rows), scalars=scalars, beta1=0.9,
+                             beta2=0.999,
+                             sr_salts=torch.ones(3, 2, dtype=torch.int64,
+                                                 device=dev))
+    torch.cuda.synchronize()
+    for got, want in zip(rows, ref):
+        for k in (0, 2, 3):
+            assert torch.equal(_bits(got[k]), _bits(want[k]))

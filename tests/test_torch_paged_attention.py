@@ -153,3 +153,26 @@ def test_prefill_update_mask_matches_reference():
         torch.from_numpy(cl), s)
     np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
     np.testing.assert_array_equal(tkc.numpy(), np.asarray(jkc))
+
+
+@pytest.mark.parametrize("pages,batch,heads", [
+    (32, 16, 16), (16, 8, 16), (32, 64, 16), (32, 1, 16), (1, 5, 8),
+    (9, 5, 8), (200, 1, 1), (128, 16, 16), (4096, 1, 1)])
+def test_decode_splits_cover_the_row_and_fill_the_card(pages, batch, heads):
+    """The decode kernels' split of a table row, from host shapes alone:
+    page-aligned splits that cover the row, none empty of pages, within the
+    kernel's limits, at most one per page, and about enough to give each of
+    the card's 132 SMs 16 blocks where the row has the pages for it."""
+    from paddle_tpu_torch.ops.paged_attention import decode_splits
+
+    splits, pps = decode_splits(pages, batch, heads, 132)
+    assert splits * pps >= pages and (splits - 1) * pps < pages
+    assert 1 <= splits <= 64 and 1 <= pps <= 64 and splits <= pages
+    # rounding the pages per split up loses at most half the splits asked
+    assert 2 * splits >= min(pages, -(-132 * 16 // (batch * heads)), 64)
+    # phase 2's B=16 case: 8 splits of 4 pages; the engine's B=8 at
+    # max_len 1024: one page each
+    assert decode_splits(32, 16, 16, 132) == (8, 4)
+    assert decode_splits(16, 8, 16, 132) == (16, 1)
+    with pytest.raises(ValueError, match="at most 4096 pages"):
+        decode_splits(4097, 1, 1, 132)
