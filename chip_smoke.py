@@ -515,23 +515,24 @@ def paged_case(torch, dev, gen, gen_cpu, B, int8=False, **shape):
                      splits=splits, device=lambda: device(True))
 
 
-def flash_inputs(torch, dev, gen, hkv):
-    """Phase 2's flash inputs: bf16 randn q ``[4, 2048, 16, 128]`` and k/v
-    ``[4, 2048, hkv, 128]``."""
+def flash_inputs(torch, dev, gen, hkv, dtype=None):
+    """Phase 2's flash inputs: bf16 (or ``dtype``) randn q ``[4, 2048, 16,
+    128]`` and k/v ``[4, 2048, hkv, 128]``."""
     B, S, H, D = 4, 2048, 16, 128
-    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn(B, S, hkv, D, generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn(B, S, hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    dt = dtype or torch.bfloat16
+    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, S, hkv, D, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, S, hkv, D, generator=gen, device=dev).to(dt)
     return q, k, v
 
 
-def flash_case(torch, dev, gen, causal, hkv):
+def flash_case(torch, dev, gen, causal, hkv, dtype=None):
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.flash_attention import (
         _fwd_variant, flash_attention_fwd, flash_attention_fwd_plain)
 
-    q, k, v = flash_inputs(torch, dev, gen, hkv)
+    q, k, v = flash_inputs(torch, dev, gen, hkv, dtype)
     B, S, H, D = q.shape
     out, lse = flash_attention_fwd(q, k, v, causal)
     refs = flash_references(q, k, v, causal)
@@ -557,29 +558,31 @@ def flash_case(torch, dev, gen, causal, hkv):
                 library_ms=library_ms)
 
 
-def flash_bwd_inputs(torch, dev, gen, causal, hkv):
-    """Phase 2's flash backward inputs: bf16 randn q, dO ``[4, 2048, 16,
-    128]`` and k, v ``[4, 2048, hkv, 128]``, with the flash forward's out
-    and lse. Returns ``(q, k, v, out, lse, do)``."""
+def flash_bwd_inputs(torch, dev, gen, causal, hkv, dtype=None):
+    """Phase 2's flash backward inputs: bf16 (or ``dtype``) randn q, dO
+    ``[4, 2048, 16, 128]`` and k, v ``[4, 2048, hkv, 128]``, with the flash
+    forward's out and lse. Returns ``(q, k, v, out, lse, do)``."""
     from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
 
     B, S, H, D = 4, 2048, 16, 128
-    q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    dt = dtype or torch.bfloat16
+    q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
              for _ in range(2))
-    k, v = (torch.randn(B, S, hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, S, hkv, D, generator=gen, device=dev).to(dt)
             for _ in range(2))
     out, lse = flash_attention_fwd(q, k, v, causal)
     return q, k, v, out, lse, do
 
 
-def flash_bwd_case(torch, dev, gen, causal, hkv):
+def flash_bwd_case(torch, dev, gen, causal, hkv, dtype=None):
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.flash_attention import (
         _bwd_variant, _delta, flash_attention_bwd, flash_attention_bwd_dkv,
         flash_attention_bwd_dq, flash_attention_bwd_plain)
 
-    q, k, v, out, lse, do = flash_bwd_inputs(torch, dev, gen, causal, hkv)
+    q, k, v, out, lse, do = flash_bwd_inputs(torch, dev, gen, causal, hkv,
+                                             dtype)
     B, S, H, D = q.shape
     before = {w: dict(w.variant_launches)
               for w in (flash_attention_bwd_dq, flash_attention_bwd_dkv)}
@@ -693,16 +696,16 @@ def flagship_shapes(cfg=LLAMA_542M):
             + [(hid,), (hid, vocab)])
 
 
-def adamw_multi_inputs(torch, dev, gen):
+def adamw_multi_inputs(torch, dev, gen, dtype=None, sr=True):
     """The train step's AdamW launch at its shapes: the flagship's 75 bf16
-    tensors (p, g, bf16 m and v) as lists, f32 beta powers [75] of step 3,
-    per-tensor weight decays (none on the norms), the batched scalar rows
-    and [75, 2] salts. Fails unless each scalar row is bitwise the
-    per-tensor prologue's."""
+    (or ``dtype``) tensors (p, g, m and v of that type) as lists, f32 beta
+    powers [75] of step 3, per-tensor weight decays (none on the norms),
+    the batched scalar rows and [75, 2] salts (None without ``sr``). Fails
+    unless each scalar row is bitwise the per-tensor prologue's."""
     from paddle_tpu_torch.ops.fused_adamw import (adamw_scalars,
                                                   adamw_scalars_multi)
 
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
     shapes = flagship_shapes()
     t = len(shapes)
     x = dict(
@@ -716,7 +719,8 @@ def adamw_multi_inputs(torch, dev, gen):
         b1p=torch.full((t,), 0.9 ** 3, device=dev),
         b2p=torch.full((t,), 0.999 ** 3, device=dev),
         wds=[0.0 if len(s) == 1 else 0.01 for s in shapes],
-        salts=torch.randint(0, 2 ** 32, (t, 2), generator=gen, device=dev))
+        salts=(torch.randint(0, 2 ** 32, (t, 2), generator=gen, device=dev)
+               if sr else None))
     x["scalars"] = adamw_scalars_multi(lr=TRAIN_LR, epsilon=1e-8,
                                        beta1_pow=x["b1p"], beta2_pow=x["b2p"],
                                        weight_decay=x["wds"])
@@ -743,7 +747,8 @@ def adamw_multi_plain(x):
                                  beta2=0.999, epsilon=1e-8,
                                  beta1_pow=x["b1p"][i], beta2_pow=x["b2p"][i],
                                  weight_decay=x["wds"][i],
-                                 sr_salts=x["salts"][i])
+                                 sr_salts=(None if x["salts"] is None
+                                           else x["salts"][i]))
         out.append((p, m, v))
     return out
 
@@ -763,22 +768,28 @@ def adamw_multi_diff(torch, got, want):
     n_diff = {}
     for i, (trio, ref) in enumerate(zip(got, want)):
         for name, a, b in zip("pmv", trio, ref):
-            n = int((a.view(torch.int16) != b.view(torch.int16)).sum())
+            n = int((bits(torch, a) != bits(torch, b)).sum())
             if n:
                 n_diff[f"{i}{name}"] = n
     return n_diff
 
 
-def adamw_multi_case(torch, dev, gen):
+def bits(torch, t):
+    """A tensor's bits as integers of its width (bit-for-bit comparison)."""
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def adamw_multi_case(torch, dev, gen, dtype=None, sr=True):
     """The train step's launch: the multi-tensor kernel over the flagship's
-    75 bf16 tensors with bf16 moments and SR, against 75 plain per-tensor
-    updates with the same salts, bit for bit."""
+    75 bf16 tensors with bf16 moments and SR (or p, g, m, v of ``dtype``,
+    SR or not), against 75 plain per-tensor updates with the same salts,
+    bit for bit."""
     from paddle_tpu_torch.ops.fused_adamw import (
         fused_adamw_hbm_bytes, fused_adamw_multi_update,
         fused_adamw_multi_update_plain)
 
-    bf = torch.bfloat16
-    x = adamw_multi_inputs(torch, dev, gen)
+    bf = dtype or torch.bfloat16
+    x = adamw_multi_inputs(torch, dev, gen, dtype, sr)
     want = adamw_multi_plain(x)
     ps, ms, vs = x["ps"], x["ms"], x["vs"]
     t = len(ps)
@@ -806,7 +817,7 @@ def adamw_multi_case(torch, dev, gen):
     nbytes = fused_adamw_hbm_bytes(n, bf, bf, bf)
     b_ms, b_by = bound(nbytes, 10.0 * n, F32_FLOPS_PER_S)
     def device():  # on fresh tensors: these are freed after phase 2
-        y = adamw_multi_inputs(torch, dev, gen)
+        y = adamw_multi_inputs(torch, dev, gen, dtype, sr)
         return device_ms(lambda: adamw_multi_launch(y, y["ps"], y["ms"],
                                                     y["vs"]),
                          "adamw_multi_kernel", 10)
@@ -981,6 +992,427 @@ def prefix_serving_phase(torch, np, model, cfg, card):
     if not (np.isfinite(kv_rel) and kv_rel <= KV_REL_TOL):
         fail(f"int8 KV pools: last-logit rel err {kv_rel} beyond {KV_REL_TOL}")
     return runs["int8"][2]
+
+
+# -- phase 10: the training recipe ------------------------------------------
+# Touvron et al. 2023, "Llama 2", section 2.2 (Training Details): AdamW with
+# beta1 0.9, beta2 0.95, weight decay 0.1, gradient clipping at a global norm
+# of 1.0, a linear warmup and a cosine decay to 10% of the peak. Cut to 6
+# steps: warmup over 2, peak 3e-4 (the 7B model's), cosine over the other 4.
+RECIPE = dict(beta1=0.9, beta2=0.95, weight_decay=0.1)
+RECIPE_CLIP, RECIPE_PEAK_LR, RECIPE_WARMUP, RECIPE_STEPS = 1.0, 3e-4, 2, 6
+# phase 10(a): captured against eager from copies of one state, 2 layers,
+# SR off, 7 steps. The captured step forms AdamW's decay factor in f32 on
+# the device where the eager one rounds a Python double (ROADMAP C2), which
+# could move a parameter by an ulp; at this seed and schedule the first
+# measurement on the H100 came out bitwise equal (losses and parameters),
+# so the bound is bitwise: nothing in the step is nondeterministic
+CAPTURE_LOSS_REL, CAPTURE_PARAM_REL = 0.0, 0.0
+FP16_DEPTH = LLAMA_542M["num_hidden_layers"]  # phase 10(b) at full depth
+
+
+def recipe_schedule():
+    """The recipe's ``[6]`` learning rates, from the port's ``LinearWarmup``
+    over ``CosineAnnealingDecay``."""
+    from paddle_tpu_torch.optimizer import lr
+
+    sched = lr.LinearWarmup(
+        lr.CosineAnnealingDecay(RECIPE_PEAK_LR,
+                                T_max=RECIPE_STEPS - RECIPE_WARMUP,
+                                eta_min=0.1 * RECIPE_PEAK_LR),
+        warmup_steps=RECIPE_WARMUP, start_lr=0.0, end_lr=RECIPE_PEAK_LR)
+    out = []
+    for _ in range(RECIPE_STEPS):
+        out.append(float(sched()))
+        sched.step()
+    return out
+
+
+def recipe_model(torch, dev, depth, dtype, seed, sr=True, clip=True,
+                 **opt_kw):
+    """Llama-542M at ``depth`` layers and its recipe AdamW (fused, bf16
+    moments and SR for bf16 parameters, f32 otherwise)."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    pt_seed(seed)
+    cfg = LlamaConfig(**dict(LLAMA_542M, max_position_embeddings=TRAIN_SEQ,
+                             num_hidden_layers=depth))
+    m = LlamaForCausalLM(cfg, device=dev, dtype=dtype)
+    kw = dict(RECIPE, learning_rate=RECIPE_PEAK_LR, fused=True,
+              grad_clip=ClipGradByGlobalNorm(RECIPE_CLIP) if clip else None)
+    if dtype == torch.bfloat16:
+        kw.update(moment_dtype="bfloat16", use_stochastic_rounding=sr)
+    kw.update(opt_kw)
+    return m, AdamW(parameters=m.parameters(), **kw)
+
+
+def recipe_step(model, opt, scaler=None, amp_dtype=None):
+    """The recipe's step under ``jit.to_static``: the loss (under
+    ``auto_cast(level="O1", dtype=amp_dtype)`` when given), backward
+    (through ``scaler`` when given), the step and ``clear_grad``."""
+    import contextlib
+
+    from paddle_tpu_torch import amp, jit
+
+    def step(ids, labels):
+        ctx = (amp.auto_cast(level="O1", dtype=amp_dtype) if amp_dtype
+               else contextlib.nullcontext())
+        with ctx:
+            loss = model.loss(ids, labels)
+        if scaler is None:
+            loss.backward()
+            opt.step()
+        else:
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+        opt.clear_grad()
+        return loss
+
+    return jit.to_static(step, layers=[model], optimizers=[opt],
+                         scalers=[] if scaler is None else [scaler])
+
+
+def profile_step(torch, fn):
+    """One call of ``fn`` under the profiler: (wall ms, kernel ms by class,
+    [(kernel name, launches)])."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    split, names = {}, []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            c = kernel_class(e.key)
+            split[c] = split.get(c, 0.0) + e.self_device_time_total / 1e3
+            names.append((e.key, e.count))
+    return wall, split, names
+
+
+def kernels_seen(names, match):
+    return sum(n for k, n in names if match in k)
+
+
+def state_of(torch, model, opt):
+    """Copies of the parameters and every optimizer accumulator."""
+    return ([p.detach().clone() for p in model.parameters()],
+            {k: v.detach().clone() for k, v in opt.state_dict().items()
+             if isinstance(v, torch.Tensor)})
+
+
+def state_diff(torch, a, b):
+    """Names of the parameters and accumulators whose bits differ."""
+    out = [f"param {i}" for i, (x, y) in enumerate(zip(a[0], b[0]))
+           if not torch.equal(bits(torch, x), bits(torch, y))]
+    return out + [k for k in a[1] if not torch.equal(
+        bits(torch, a[1][k].reshape(-1)), bits(torch, b[1][k].reshape(-1)))]
+
+
+def fp16_overflow_check(torch, dev, depth, ids, labels, seed, timed=False):
+    """Phase 10(b): ``auto_cast(level="O1", dtype="float16")`` over f32
+    parameters, ``GradScaler`` at the reference's defaults and fused AdamW,
+    captured with ``scalers=``. A scale of 2**40 set before one replay
+    overflows it: parameters, moments and beta powers must come out bitwise
+    as they were, the scale and counters as the reference's rule leaves
+    them (one bad step of the two that halve the scale), and, with the
+    scale set back, the next replay must apply. The overflowed replay is
+    profiled: the AdamW kernel ran in it. Returns a dict with ``ok``."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import kernels
+
+    model, opt = recipe_model(torch, dev, depth, torch.float32, seed)
+    scaler = amp.GradScaler()
+    compiled = recipe_step(model, opt, scaler, amp_dtype="float16")
+    lrs = recipe_schedule()
+    r = dict(depth=depth)
+    compiled(ids, labels)  # warm-up, eager
+    compiled(ids, labels)  # captured, then replayed
+    if timed:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = compiled.multi_step(ids, labels, steps=3, lr_schedule=lrs[:3])
+        torch.cuda.synchronize()
+        r["ms_per_step"] = (time.perf_counter() - t0) / 3 * 1e3
+        r["counts"] = kernels.launch_counts()
+        r["losses"] = [float(x) for x in losses.cpu()]
+    good0 = int(scaler._good_steps)
+    scale0 = scaler.get_scale_value()
+    before = state_of(torch, model, opt)
+    scaler.set_scale_value(2.0 ** 40)
+    wall, _, names = profile_step(torch, lambda: compiled(ids, labels))
+    after = state_of(torch, model, opt)
+    r["changed_on_skip"] = state_diff(torch, before, after)
+    r["scale_after_skip"] = scaler.get_scale_value()
+    r["counters_after_skip"] = (int(scaler._good_steps),
+                                int(scaler._bad_steps))
+    r["adamw_in_trace"] = kernels_seen(names, "adamw_multi_kernel")
+    r["f16_flash_in_trace"] = [(k[:90], n) for k, n in names
+                               if "flash" in k and "half" in k]
+    del before
+    scaler.set_scale_value(scale0)
+    compiled(ids, labels)
+    after2 = state_of(torch, model, opt)
+    r["applied_next"] = len(state_diff(torch, after, after2))
+    r["counters_next"] = (int(scaler._good_steps), int(scaler._bad_steps))
+    r["graphs"] = len(compiled._graphs)
+    r["ok"] = (not r["changed_on_skip"] and r["scale_after_skip"] == 2.0 ** 40
+               and r["counters_after_skip"] == (0, 1)
+               and r["adamw_in_trace"] >= 1 and r["applied_next"] > 0
+               and r["counters_next"] == (1, 0) and r["graphs"] == 1
+               and good0 >= 1)
+    del model, opt, compiled, after, after2
+    torch.cuda.empty_cache()
+    return r
+
+
+def recipe_phase(torch, np, dev, args, card, ids, labels, phase7_profile,
+                 device_rows, gen):
+    """Phase 10 (a)-(c) and its kernel times. Returns the launch counts of
+    (a)'s first captured multi_step."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.ops import kernels
+
+    lrs = recipe_schedule()
+    L = LLAMA_542M["num_hidden_layers"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # (a) the captured flagship against its eager step, in turns
+    model, opt = recipe_model(torch, dev, L, torch.bfloat16, args.seed)
+    compiled = recipe_step(model, opt)
+    losses = [float(compiled(ids, labels).detach())]  # warm-up, eager
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses.append(float(compiled(ids, labels)))  # capture, then one replay
+    capture_s = time.perf_counter() - t0
+    # one eager step first: the capture emptied the allocator's cache, and
+    # the first eager turn would pay for refilling it
+    jit.enable_to_static(False)
+    losses.append(float(compiled(ids, labels).detach()))
+    jit.enable_to_static(True)
+    turns, counts_a = [], None
+    for mode in ("eager", "captured", "captured", "eager"):
+        jit.enable_to_static(mode == "captured")
+        try:
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = compiled.multi_step(ids, labels, steps=RECIPE_STEPS,
+                                      lr_schedule=lrs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            jit.enable_to_static(True)
+        counts = kernels.launch_counts()
+        if mode == "captured" and counts_a is None:
+            counts_a = counts
+        losses += [float(x) for x in out.cpu()]
+        ms = dt / RECIPE_STEPS * 1e3
+        tok_s = tokens * RECIPE_STEPS / dt
+        turns.append((mode, ms, tok_s,
+                      tok_s * model.flops_per_token(TRAIN_SEQ) / BF16_FLOPS_PER_S,
+                      counts))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for mode, ms, tok_s, mfu, counts in turns:
+        print(f"phase 10(a) recipe step Llama-542M bf16 B={TRAIN_BATCH} "
+              f"S={TRAIN_SEQ} (AdamW b2 {RECIPE['beta2']}, wd "
+              f"{RECIPE['weight_decay']}, clip {RECIPE_CLIP}, lr "
+              f"{[f'{x:.3g}' for x in lrs]}), {mode} multi_step(steps="
+              f"{RECIPE_STEPS}): {ms:.2f} ms/step, {tok_s:.1f} tokens/s, MFU "
+              f"{mfu:.4f}, counts {json.dumps(counts)} [{card}]")
+    want = {**flash_fwd_counts(L * RECIPE_STEPS),
+            **flash_bwd_counts(L * RECIPE_STEPS),
+            "fused_adamw": ADAMW_GROUPS * RECIPE_STEPS,
+            "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+    print(f"phase 10(a) capture of the step: {capture_s:.2f} s (one replay "
+          f"included); graphs {len(compiled._graphs)}; peak memory "
+          f"{peak_gb:.2f} GB; losses {[round(x, 4) for x in losses]} "
+          f"(warm-up, capture, one eager step, then the four turns)")
+    if counts_a != want:
+        fail(f"phase 10(a): captured launch counts {counts_a} != {want}")
+    if not (all(np.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        fail(f"phase 10(a): losses not finite and falling: {losses}")
+    wall, split, names = profile_step(torch, lambda: compiled(ids, labels))
+    busy = sum(split.values())
+    seen = {m: kernels_seen(names, m) for m in
+            ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma",
+             "adamw_multi_kernel")}
+    p7_wall, p7_busy = phase7_profile
+    print(f"phase 10(a) one profiled replayed step: {wall:.2f} ms wall, "
+          f"{busy:.2f} ms of kernel time ({100 * busy / wall:.1f}% busy; host "
+          f"gaps {wall - busy:.2f} ms) beside phase 7's eager step "
+          f"{p7_wall:.2f} ms wall, {p7_busy:.2f} ms of kernels (host gaps "
+          f"{p7_wall - p7_busy:.2f} ms): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                      sorted(split.items(), key=lambda kv: -kv[1]))
+          + f"; kernels in the replay's trace {json.dumps(seen)} [{card}]")
+    if seen != {"flash_fwd_wgmma": L, "flash_bwd_dq_wgmma": L,
+                "flash_bwd_dkv_wgmma": L, "adamw_multi_kernel": 1}:
+        fail(f"phase 10(a): the replay's trace shows {seen}")
+    del model, opt, compiled
+    torch.cuda.empty_cache()
+
+    # phase 7's bench step (no clipping, flat lr 1e-4, weight decay 0.01),
+    # eager and captured in turns: the capture's gain on the same function
+    model, opt = recipe_model(torch, dev, L, torch.bfloat16, args.seed,
+                              clip=False, beta2=0.999, weight_decay=0.01,
+                              learning_rate=TRAIN_LR)
+    compiled = bench_step(model, opt)
+    compiled(ids, labels)  # warm-up, eager
+    compiled(ids, labels)  # capture, then one replay
+    jit.enable_to_static(False)
+    compiled(ids, labels)  # the eager path's allocator cache
+    jit.enable_to_static(True)
+    bench_turns = []
+    for mode in ("eager", "captured", "captured", "eager"):
+        jit.enable_to_static(mode == "captured")
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            compiled.multi_step(ids, labels, steps=TRAIN_STEPS)
+            torch.cuda.synchronize()
+            bench_turns.append((mode, (time.perf_counter() - t0)
+                                / TRAIN_STEPS * 1e3))
+        finally:
+            jit.enable_to_static(True)
+    wall_b, split_b, _ = profile_step(torch, lambda: compiled(ids, labels))
+    busy_b = sum(split_b.values())
+    print(f"phase 10(a) phase 7's bench step in turns, multi_step(steps="
+          f"{TRAIN_STEPS}): " + ", ".join(f"{m} {ms:.2f} ms/step" for m, ms in
+                                        bench_turns)
+          + f"; one profiled replayed step {wall_b:.2f} ms wall, "
+          f"{busy_b:.2f} ms of kernels [{card}]")
+    del model, opt, compiled
+    torch.cuda.empty_cache()
+
+    # (a) captured against eager from copies of one state, SR off
+    res = []
+    for captured in (True, False):
+        m, o = recipe_model(torch, dev, GRAD_DEPTH, torch.bfloat16, args.seed,
+                            sr=False)
+        c = recipe_step(m, o)
+        jit.enable_to_static(captured)
+        try:
+            first = c(ids, labels).detach()
+            out = c.multi_step(ids, labels, steps=RECIPE_STEPS, lr_schedule=lrs)
+        finally:
+            jit.enable_to_static(True)
+        res.append((torch.cat([first.reshape(1), out]).float(),
+                    [p.detach().clone() for p in m.parameters()],
+                    len(c._graphs)))
+        del m, o, c
+    (lc, pc, gc), (le, pe, ge) = res
+    bitwise = torch.equal(lc, le) and all(torch.equal(a, b)
+                                          for a, b in zip(pc, pe))
+    loss_rel = float(((lc - le).abs() / le.abs()).max())
+    param_rel = max(rel_err(a, b) for a, b in zip(pc, pe))
+    print(f"phase 10(a) captured vs eager, {GRAD_DEPTH} layers at full width, "
+          f"SR off, {1 + RECIPE_STEPS} steps from copies of one state: "
+          f"bitwise equal {bitwise}; worst loss rel diff {loss_rel:.3g} (tol "
+          f"{CAPTURE_LOSS_REL}), worst parameter rel err {param_rel:.3g} (tol "
+          f"{CAPTURE_PARAM_REL}); graphs {gc} / {ge}")
+    if not (gc == 1 and ge == 0 and loss_rel <= CAPTURE_LOSS_REL
+            and param_rel <= CAPTURE_PARAM_REL):
+        fail("phase 10(a): the captured step disagrees with the eager one")
+    del res, pc, pe
+    torch.cuda.empty_cache()
+
+    # (b) fp16 with loss scaling, a forced overflow
+    r = fp16_overflow_check(torch, dev, FP16_DEPTH, ids, labels, args.seed,
+                            timed=True)
+    c = r["counts"]
+    print(f"phase 10(b) fp16 O1 over f32 parameters, GradScaler, fused AdamW "
+          f"(f32 group), captured, {FP16_DEPTH} layers: {r['ms_per_step']:.2f} "
+          f"ms/step over 3 replays, losses {[round(x, 4) for x in r['losses']]}"
+          f"; launches flash fwd {c['flash_attention_fwd']} ("
+          f"wgmma {c['flash_attention_fwd:wgmma']}), dq "
+          f"{c['flash_attention_bwd_dq']} (wgmma "
+          f"{c['flash_attention_bwd_dq:wgmma']}), dk/dv "
+          f"{c['flash_attention_bwd_dkv']} (wgmma "
+          f"{c['flash_attention_bwd_dkv:wgmma']}), AdamW {c['fused_adamw']}; "
+          f"f16 flash kernels in the overflowed replay's trace "
+          f"{r['f16_flash_in_trace']} [{card}]")
+    print(f"phase 10(b) forced overflow (scale 2**40): changed on the skipped "
+          f"step {r['changed_on_skip'][:6]} (none wanted); scale after "
+          f"{r['scale_after_skip']:.6g}, (good, bad) {r['counters_after_skip']}"
+          f"; AdamW launches in its trace {r['adamw_in_trace']}; the next "
+          f"step changed {r['applied_next']} tensors, (good, bad) "
+          f"{r['counters_next']}")
+    want_b = {**flash_fwd_counts(3 * FP16_DEPTH), **flash_bwd_counts(
+        3 * FP16_DEPTH), "fused_adamw": 3, "paged_decode_attention": 0,
+        "paged_decode_attention_int8": 0}
+    if not r["ok"] or c != want_b or len(r["f16_flash_in_trace"]) < 3:
+        fail(f"phase 10(b): the fp16 recipe failed its checks ({c} vs "
+             f"{want_b})")
+
+    # (c) interleaved updates: one captured step against the serial step
+    res = []
+    for inter in (True, False):
+        m, o = recipe_model(torch, dev, L, torch.bfloat16, args.seed, sr=False,
+                            clip=False, weight_decay=0.0,
+                            interleave_updates=inter)
+        c = recipe_step(m, o)
+        jit.enable_to_static(inter)
+        try:
+            first = c(ids, labels).detach()
+            kernels.reset_launch_counts()
+            second = c(ids, labels).detach()
+            torch.cuda.synchronize()
+        finally:
+            jit.enable_to_static(True)
+        res.append((torch.stack([first, second]).float(),
+                    [p.detach().clone() for p in m.parameters()],
+                    kernels.launch_counts(), len(c._graphs)))
+        del m, o, c
+        torch.cuda.empty_cache()
+    (li, pi, ci, gi), (ls, ps, cs_, gs) = res
+    n_tensors = len(pi)
+    same = torch.equal(li, ls) and all(torch.equal(a, b) for a, b in zip(pi, ps))
+    print(f"phase 10(c) interleave_updates, {L} layers, SR off: one captured "
+          f"step against the serial step from the same state: bitwise equal "
+          f"{same} (losses {li.tolist()} / {ls.tolist()}); AdamW launches in "
+          f"the captured step {ci['fused_adamw']} (one a parameter: "
+          f"{n_tensors}) against {cs_['fused_adamw']} serial; graphs {gi}")
+    if not (same and gi == 1 and ci["fused_adamw"] == n_tensors
+            and cs_["fused_adamw"] == ADAMW_GROUPS
+            and ci["flash_attention_bwd_dkv:wgmma"] == L):
+        fail("phase 10(c): the interleaved step disagrees with the serial one")
+    del res, pi, ps
+    torch.cuda.empty_cache()
+
+    # f16 flash at the flagship's shape beside sdpa's f16, and AdamW's f32
+    # group over the 75 tensors (its device time in phase 9)
+    f16 = torch.float16
+    rf = flash_case(torch, dev, gen, True, 16, dtype=f16)
+    rb = flash_bwd_case(torch, dev, gen, True, 16, dtype=f16)
+    print(f"phase 10 flash_fwd f16 B=4 S=2048 H=16 D=128 causal variant="
+          f"{rf['variant']}: worst row {rf['row_rel']:.4g} (row rel "
+          f"{FLASH_ROW_REL}), ms={rf['ms']:.4f} bound_ms={rf['bound_ms']:.4f} "
+          f"({rf['bound_by']}) {rf['rate']}, library_ms(sdpa f16)="
+          f"{rf['library_ms']:.4f}, plain_ms={rf['plain_ms']:.3f} [{card}]")
+    print(f"phase 10 flash_bwd f16 same shape variant={rb['variant']}: worst "
+          f"rows dq/dk/dv {[round(rb['gate'][n]['row_rel'], 5) for n in ('dq', 'dk', 'dv')]}"
+          f" (row rel {BWD_ROW_REL}); dq ms={rb['dq_ms']:.4f} (bound "
+          f"{rb['dq_bound'][0]:.4f}), dkv ms={rb['dkv_ms']:.4f} (bound "
+          f"{rb['dkv_bound'][0]:.4f}), library_ms(sdpa f16 backward)="
+          f"{rb['library_ms']:.4f}, plain_ms={rb['plain_ms']:.3f} [{card}]")
+    torch.cuda.empty_cache()
+    ra = adamw_multi_case(torch, dev, gen, dtype=torch.float32, sr=False)
+    device_rows.append((f"fused_adamw f32 group, {ra['tensors']} tensors", ra))
+    print(f"phase 10 fused_adamw f32 p/g/m/v over the flagship's "
+          f"{ra['tensors']} tensors ({ra['numel']} elements) in one launch: "
+          f"bitwise equal to the per-tensor plain updates; a wrapper call "
+          f"{ra['call_ms']:.4f} ms, bound_ms={ra['bound_ms']:.4f} "
+          f"({ra['bound_by']}: {ra['nbytes'] / 1e9:.2f} GB), plain_ms="
+          f"{ra['plain_ms']:.3f}; torch._fused_adamw_ (another function) "
+          f"{ra['torch_fused_adamw_ms']:.4f} ms [{card}]")
+    torch.cuda.empty_cache()
+    return counts_a, rf, rb, ra
 
 
 def kernel_class(name: str) -> str:
@@ -1400,6 +1832,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 7: the flagship train step at full width ----------------------
+    # phases 7 and 8 run the step eagerly, as before the capture existed;
+    # phase 10 runs it captured
+    from paddle_tpu_torch import jit as pt_jit
+
+    pt_jit.enable_to_static(False)
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.optimizer import AdamW
 
@@ -1571,6 +2008,14 @@ def main() -> int:
     if not (e8 <= 1e-4 and c8b["flash_attention_bwd_dkv"] >= 1
             and c8b["fused_adamw"] >= 1):
         fail("the small f32 training run on the card disagrees with the CPU")
+
+    pt_jit.enable_to_static(True)
+
+    # -- phase 10: the training recipe, captured -------------------------------
+    phase7_profile = (prof_wall_ms, busy if busy > 0 else float("nan"))
+    recipe_counts, f16_fwd, f16_bwd, f32_adamw = recipe_phase(
+        torch, np, dev, args, card, ids, labels, phase7_profile, device_rows,
+        gen)
 
     # -- phase 9: the decode and AdamW kernels' device times ----------------
     # taken last: a profiler session slows the host work of the phases

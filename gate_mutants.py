@@ -57,7 +57,12 @@ of the sequences longer than one token:
   starts one chunk late, so its first chunk is never updated;
 - ``the next tensor's salts``: tensor t rounds with tensor t + 1's salts;
 - ``the table's last tensor skipped``: the grid ends at the last tensor's
-  first chunk.
+  first chunk;
+- ``skip veto ignored``: the kernel updates p, m and v where the found-inf
+  veto is set. The bitwise gate runs without the veto, so it is
+  ``chip_smoke.fp16_overflow_check`` (phase 10(b)'s check, at one layer of
+  full width) that must refuse it: a step overflowed by a scale of 2**40
+  must leave parameters, moments and beta powers as they were.
 
 Each variant runs through the kernel's own wrapper (``paged_decode`` and
 ``paged_decode_int8`` for the decode, ``fused_adamw_multi_update`` for
@@ -166,6 +171,9 @@ MUTANTS = {
         "the table's last tensor skipped": [(
             "const int grid = tab.chunk0[T];",
             "const int grid = tab.chunk0[T - 1];")],
+        "skip veto ignored": [(
+            "if (sc[3] != 0.f) return;",
+            "if (sc[3] != 0.f && false) return;")],
     },
 }
 FLASH_CONFIGS = ((True, 16), (False, 16), (True, 4))  # (causal, kv heads)
@@ -334,11 +342,12 @@ def decode_mutants(torch, kernels, libs, dev, gen, gen_cpu, card):
     return ok, refused, counted
 
 
-def adamw_mutants(torch, kernels, libs, dev, gen, card):
+def adamw_mutants(torch, kernels, libs, dev, gen, card, ids):
     """Every AdamW variant on the train step's launch, each from the same
-    p, m, v; the gate is bitwise, so a mutant is refused where it changes
-    the result, and one that changes nothing fails the run. Returns (ok,
-    refused, mutants counted)."""
+    p, m, v, and through phase 10(b)'s forced-overflow check; the launch's
+    gate is bitwise, so a mutant is refused where either check fails, and
+    one that both pass fails the run. Returns (ok, refused, mutants
+    counted)."""
     lib_name = "fused_adamw"
     x = cs.adamw_multi_inputs(torch, dev, gen)
     want = cs.adamw_multi_plain(x)
@@ -350,17 +359,21 @@ def adamw_mutants(torch, kernels, libs, dev, gen, card):
         torch.cuda.synchronize()
         n_diff = cs.adamw_multi_diff(torch, list(zip(ps, ms, vs)), want)
         del ps, ms, vs
+        skip = cs.fp16_overflow_check(torch, dev, 1, ids, ids, seed=0)
+        failed = bool(n_diff) or not skip["ok"]
         if name == "as is":
-            ok &= not n_diff
-        elif n_diff:
+            ok &= not failed
+        elif failed:
             refused.append(f"fused_adamw: {name}")
         else:
             ok = False
         shown = dict(list(n_diff.items())[:6], tensors_differing=len(
             {k[:-1] for k in n_diff}))
         print(f"fused_adamw {name}: elements differing from the per-tensor "
-              f"plain updates {shown} -> {'FAIL' if n_diff else 'pass'} "
-              f"[{card}]")
+              f"plain updates {shown}; forced overflow at one layer: changed "
+              f"{skip['changed_on_skip'][:4]}, next step changed "
+              f"{skip['applied_next']} tensors -> "
+              f"{'FAIL' if failed else 'pass'} [{card}]")
     return ok, refused, len(MUTANTS[lib_name]) - 1
 
 
@@ -393,7 +406,11 @@ def main() -> int:
         results.append(decode_mutants(torch, kernels, libs, dev, gen, gen_cpu,
                                       card))
         torch.cuda.empty_cache()
-        results.append(adamw_mutants(torch, kernels, libs, dev, gen, card))
+        ids = torch.randint(0, cs.LLAMA_542M["vocab_size"],
+                            (cs.TRAIN_BATCH, cs.TRAIN_SEQ),
+                            generator=gen_cpu).to(dev)
+        results.append(adamw_mutants(torch, kernels, libs, dev, gen, card,
+                                     ids))
     finally:
         for lib_name in MUTANTS:
             kernels._libs.pop(lib_name, None)

@@ -12,7 +12,7 @@ from typing import Dict, Optional, Union
 
 import torch
 
-__all__ = ["seed", "get_generator", "sr_salts"]
+__all__ = ["seed", "get_generator", "sr_generator", "sr_salts"]
 
 _seed = 0
 _generators: Dict[str, torch.Generator] = {}
@@ -30,6 +30,13 @@ def seed(value: int) -> int:
     return _seed
 
 
+def _key(dev: torch.device) -> str:
+    """One key per device: ``cuda`` and ``cuda:<current>`` are one card."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
 def get_generator(device: Optional[Union[str, torch.device]] = None
                   ) -> torch.Generator:
     """The generator for ``device``, seeded from the last :func:`seed`
@@ -37,7 +44,7 @@ def get_generator(device: Optional[Union[str, torch.device]] = None
     from .device import get_device
 
     dev = get_device(device)
-    key = str(dev)
+    key = _key(dev)
     gen = _generators.get(key)
     if gen is None:
         gen = torch.Generator(device=dev)
@@ -46,18 +53,25 @@ def get_generator(device: Optional[Union[str, torch.device]] = None
     return gen
 
 
-def sr_salts(device: Union[str, torch.device], n: Optional[int] = None
-             ) -> torch.Tensor:
-    """Two uint32 salts for one stochastic-rounding writeback, as an int64
-    ``[2]`` tensor (``[n, 2]`` for n writebacks, in one draw) drawn on
-    ``device`` from its salt generator (seeded from the last :func:`seed`);
-    no value comes back to the host."""
+def sr_generator(device: Union[str, torch.device]) -> torch.Generator:
+    """The salt generator of ``device``, seeded from the last :func:`seed`
+    (created on first use)."""
     dev = torch.device(device)
-    key = str(dev)
+    key = _key(dev)
     gen = _sr_generators.get(key)
     if gen is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(_seed + _SR_STREAM)
         _sr_generators[key] = gen
+    return gen
+
+
+def sr_salts(device: Union[str, torch.device], n: Optional[int] = None
+             ) -> torch.Tensor:
+    """Two uint32 salts for one stochastic-rounding writeback, as an int64
+    ``[2]`` tensor (``[n, 2]`` for n writebacks, in one draw) drawn on
+    ``device`` from its salt generator; no value comes back to the host."""
+    dev = torch.device(device)
     return torch.randint(0, 2 ** 32, (2,) if n is None else (n, 2),
-                         dtype=torch.int64, device=dev, generator=gen)
+                         dtype=torch.int64, device=dev,
+                         generator=sr_generator(dev))

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..base.amp_state import amp_cast
 from ..base.device import get_device
 from ..base.dtype import to_torch_dtype
 from ..base.random import get_generator
@@ -55,11 +56,15 @@ def _rope(q, k, theta: float, position_offset=0):
     """Rotary position embedding on ``[B, S, H, D]`` (half-split layout).
     ``position_offset`` is a scalar or a per-sequence ``[B]`` tensor;
     positions and angles are f32, the rotation runs in q's dtype."""
+    q, k = amp_cast("rope", q, k)
     d = q.shape[-1]
     s = q.shape[1]
     dev = q.device
-    off = torch.as_tensor(position_offset, device=dev).to(torch.float32)
-    pos = torch.arange(s, dtype=torch.float32, device=dev)[None, :] + off.reshape(-1, 1)
+    pos = torch.arange(s, dtype=torch.float32, device=dev)[None, :]
+    if isinstance(position_offset, torch.Tensor):
+        pos = pos + position_offset.to(dev, torch.float32).reshape(-1, 1)
+    elif position_offset:
+        pos = pos + float(position_offset)
     inv_freq = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
                                              device=dev) / d))
     angles = pos[..., None] * inv_freq  # [B|1, S, D/2]
@@ -135,6 +140,11 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out), (k_cache, v_cache)
 
 
+def _add(a, b):
+    a, b = amp_cast("add", a, b)
+    return a + b
+
+
 class LlamaMLP(nn.Module):
     """SwiGLU feed-forward."""
 
@@ -147,7 +157,9 @@ class LlamaMLP(nn.Module):
         self.down_proj = Linear(i, h, bias=False, **kw)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        gate, up = amp_cast("multiply", F.silu(self.gate_proj(x)),
+                            self.up_proj(x))
+        return self.down_proj(gate * up)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -165,12 +177,12 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, x, cache=None, cur_len=None):
         if cache is None:
-            x = x + self.self_attn(self.input_layernorm(x))
+            attn_out = self.self_attn(self.input_layernorm(x))
         else:
             attn_out, cache = self.self_attn(self.input_layernorm(x),
                                              cache=cache, cur_len=cur_len)
-            x = x + attn_out
-        x = x + self.mlp(self.post_attention_layernorm(x))
+        x = _add(x, attn_out)
+        x = _add(x, self.mlp(self.post_attention_layernorm(x)))
         return x if cache is None else (x, cache)
 
 
@@ -233,7 +245,8 @@ class LlamaForCausalLM(nn.Module):
 
     def _head(self, h):
         if self.lm_head is None:
-            return torch.matmul(h, self.llama.embed_tokens.weight.t())
+            h, w = amp_cast("tied_lm_head", h, self.llama.embed_tokens.weight)
+            return torch.matmul(h, w.t())
         return self.lm_head(h)
 
     # -- KV-cache generation (see models/generation.py) -----------------

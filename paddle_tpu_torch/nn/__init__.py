@@ -1,4 +1,8 @@
 from . import functional
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   clip_grad_norm_, clip_grad_value_)
 from .layer import Embedding, Linear, RMSNorm
 
-__all__ = ["functional", "Embedding", "Linear", "RMSNorm"]
+__all__ = ["functional", "Embedding", "Linear", "RMSNorm",
+           "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+           "clip_grad_norm_", "clip_grad_value_"]

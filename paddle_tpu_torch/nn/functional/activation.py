@@ -4,8 +4,11 @@ from __future__ import annotations
 
 import torch
 
+from ...base.amp_state import amp_cast
+
 __all__ = ["silu"]
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
+    x = amp_cast("silu", x)
     return x * torch.sigmoid(x)

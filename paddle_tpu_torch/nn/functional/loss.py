@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ...base.amp_state import amp_cast
+
 __all__ = ["cross_entropy", "softmax_with_cross_entropy", "nll_loss"]
 
 
@@ -24,7 +26,7 @@ def _reduce(out, reduction):
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
                   reduction="mean", soft_label=False, axis=-1, use_softmax=True,
                   label_smoothing=0.0, name=None):
-    logits = input
+    logits, label, weight = amp_cast("cross_entropy", input, label, weight)
     ax = axis % logits.dim()
     num_classes = logits.shape[ax]
     hard = not (soft_label or (label.dim() == logits.dim()

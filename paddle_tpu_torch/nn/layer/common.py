@@ -13,6 +13,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...base.amp_state import amp_cast
+
 __all__ = ["Linear", "Embedding"]
 
 
@@ -32,8 +34,9 @@ class Linear(nn.Module):
                      if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.weight)
-        return y if self.bias is None else y + self.bias
+        x, w, b = amp_cast("linear", x, self.weight, self.bias)
+        y = torch.matmul(x, w)
+        return y if b is None else y + b
 
     def extra_repr(self) -> str:
         return f"in_features={self.in_features}, out_features={self.out_features}"
@@ -50,7 +53,7 @@ class Embedding(nn.Module):
         self.weight = nn.Parameter(w)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.weight[ids.long()]
+        return amp_cast("embedding", self.weight)[ids.long()]
 
     def extra_repr(self) -> str:
         return f"{self.weight.shape[0]}, {self.weight.shape[1]}"

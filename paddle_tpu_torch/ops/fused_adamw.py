@@ -110,32 +110,77 @@ def adamw_scalars(*, lr, epsilon: float, beta1_pow: torch.Tensor,
     return torch.stack([lr_t.reshape(()), eps_eff.reshape(()), decay_f, skip_f])
 
 
-def adamw_scalars_multi(*, lr: Union[float, Sequence[float]], epsilon: float,
-                        beta1_pow: torch.Tensor, beta2_pow: torch.Tensor,
+def _const_vector(values: Sequence[float], device) -> torch.Tensor:
+    """Host floats as an f32 device vector made by fills (one per run of
+    equal values), so no host memory is copied: sound inside a CUDA-graph
+    capture."""
+    runs = []
+    for x in values:
+        if runs and runs[-1][0] == x:
+            runs[-1][1] += 1
+        else:
+            runs.append([x, 1])
+    parts = [torch.full((n,), x, dtype=torch.float32, device=device)
+             for x, n in runs]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _lr_vector(lr, t: int, device) -> torch.Tensor:
+    """A device learning rate (one f32 scalar, or T of them) as ``[T]``."""
+    if isinstance(lr, torch.Tensor):
+        v = lr.to(device=device, dtype=torch.float32).reshape(-1)
+        return v.expand(t) if v.numel() == 1 else v
+    return torch.stack([x.to(device=device, dtype=torch.float32).reshape(())
+                        if isinstance(x, torch.Tensor) else
+                        torch.full((), float(x), dtype=torch.float32,
+                                   device=device) for x in lr])
+
+
+def adamw_scalars_multi(*, lr, epsilon: float, beta1_pow: torch.Tensor,
+                        beta2_pow: torch.Tensor,
                         weight_decay: Union[float, Sequence[float]] = 0.0,
                         skip: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The scalar rows of T tensors at once, as an f32 ``[T, 4]`` tensor on
     the beta powers' device: ``beta1_pow`` / ``beta2_pow`` are ``[T]``,
-    ``lr`` and ``weight_decay`` one Python float each or one per tensor,
-    ``skip`` one device bool for all. Row t is bitwise what
-    :func:`adamw_scalars` gives for tensor t: the same f32 ops elementwise,
-    ``lr`` rounded to f32 as a Python scalar operand is, and ``decay_f``
-    rounded to f32 from the Python double per tensor. The two host vectors
-    travel in one copy (pinned, so the host does not wait for the card)."""
+    ``weight_decay`` one Python float or one per tensor, ``skip`` one
+    device bool for all. ``lr`` is one Python float or one per tensor: row
+    t is then bitwise what :func:`adamw_scalars` gives for tensor t (the
+    same f32 ops elementwise, ``lr`` rounded to f32 as a Python scalar
+    operand is, ``decay_f`` rounded to f32 from the Python double; the two
+    host vectors travel in one pinned copy, so the host does not wait for
+    the card). ``lr`` may instead be a device tensor (one f32 scalar, or
+    ``[T]``, or a list of device scalars), as under ``jit.to_static``'s
+    capture: then ``decay_f = 1 - lr * weight_decay`` is formed in f32 on
+    the device, as the reference's compiled step forms it, and nothing
+    is copied from the host."""
     b1p = beta1_pow.to(torch.float32).reshape(-1)
     b2p = beta2_pow.to(torch.float32).reshape(-1)
     t = b1p.numel()
     dev = b1p.device
-    lrs, wds = ([float(x)] * t if isinstance(x, (int, float))
-                else [float(y) for y in x] for x in (lr, weight_decay))
-    if not (len(lrs) == len(wds) == t == b2p.numel()):
-        raise ValueError(f"adamw_scalars_multi: {t} beta powers, {len(lrs)} "
+    wds = ([float(weight_decay)] * t if isinstance(weight_decay, (int, float))
+           else [float(y) for y in weight_decay])
+    on_device = isinstance(lr, torch.Tensor) or (
+        not isinstance(lr, (int, float))
+        and any(isinstance(x, torch.Tensor) for x in lr))
+    if on_device:
+        lr_v = _lr_vector(lr, t, dev)
+        n_lr = lr_v.numel()
+    else:
+        lrs = [float(lr)] * t if isinstance(lr, (int, float)) else [
+            float(y) for y in lr]
+        n_lr = len(lrs)
+    if not (n_lr == len(wds) == t == b2p.numel()):
+        raise ValueError(f"adamw_scalars_multi: {t} beta powers, {n_lr} "
                          f"learning rates, {len(wds)} weight decays")
-    host = torch.tensor([lrs, [1.0 - a * w for a, w in zip(lrs, wds)]],
-                        dtype=torch.float32)
-    if dev.type == "cuda":
-        host = host.pin_memory()
-    lr_v, decay_f = host.to(dev, non_blocking=True)
+    if on_device:
+        decay_f = (1 - lr_v * _const_vector(wds, dev) if any(wds)
+                   else torch.ones(t, dtype=torch.float32, device=dev))
+    else:
+        host = torch.tensor([lrs, [1.0 - a * w for a, w in zip(lrs, wds)]],
+                            dtype=torch.float32)
+        if dev.type == "cuda":
+            host = host.pin_memory()
+        lr_v, decay_f = host.to(dev, non_blocking=True)
     root = torch.sqrt(1 - b2p)
     lr_t = lr_v * root / (1 - b1p)
     eps_eff = epsilon * root

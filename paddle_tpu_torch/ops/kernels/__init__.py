@@ -115,6 +115,28 @@ def reset_launch_counts() -> None:
         fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
 
 
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Set every count to its value in ``counts`` (``launch_counts()``'s
+    form)."""
+    for name, fn in KERNELS.items():
+        fn.launches = counts.get(name, 0)
+        for variant in fn.variant_launches:
+            fn.variant_launches[variant] = counts.get(f"{name}:{variant}", 0)
+
+
+def count_delta(before: Dict[str, int], after: Dict[str, int]
+                ) -> Dict[str, int]:
+    """``after - before`` per count (``launch_counts()``'s form)."""
+    return {k: v - before.get(k, 0) for k, v in after.items()}
+
+
+def add_launch_counts(delta: Dict[str, int]) -> None:
+    """Add ``delta`` to the counts: a CUDA-graph replay launches the
+    kernels its capture counted, without running their wrappers."""
+    set_launch_counts({k: v + delta.get(k, 0)
+                       for k, v in launch_counts().items()})
+
+
 def build_dir() -> Path:
     """``<checkout>/build/torch_kernels`` (``.gitignore`` lists it)."""
     return _HERE.parents[2] / "build" / "torch_kernels"

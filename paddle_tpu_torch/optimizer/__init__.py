@@ -1,8 +1,8 @@
 """Optimizers and learning-rate schedulers (counterpart of
-``paddle_tpu/optimizer``). The training slice carries ``SGD``, ``Momentum``,
-``Adam`` and ``AdamW``; the reference's other optimizers exist by name and
-raise ``NotImplementedError`` until a later slice ports them."""
+``paddle_tpu/optimizer``): every optimizer of the reference, ``LBFGS``
+included, and every scheduler of ``lr.py``."""
 from . import lr
+from .lbfgs import LBFGS
 from .optimizer import (
     ASGD,
     SGD,
@@ -11,8 +11,8 @@ from .optimizer import (
     Adam,
     Adamax,
     AdamW,
+    L1Decay,
     L2Decay,
-    LBFGS,
     Lamb,
     Momentum,
     NAdam,
@@ -22,6 +22,6 @@ from .optimizer import (
     Rprop,
 )
 
-__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW", "L2Decay",
-           "Adagrad", "Adadelta", "Adamax", "RMSProp", "Lamb", "NAdam",
-           "RAdam", "Rprop", "ASGD", "LBFGS"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW", "L1Decay",
+           "L2Decay", "Adagrad", "Adadelta", "Adamax", "RMSProp", "Lamb",
+           "NAdam", "RAdam", "Rprop", "ASGD", "LBFGS"]

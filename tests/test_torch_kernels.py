@@ -647,3 +647,275 @@ def test_fused_adamw_multi_kernel_skip_writes_nothing(dev):
     for got, want in zip(rows, ref):
         for k in (0, 2, 3):
             assert torch.equal(_bits(got[k]), _bits(want[k]))
+
+
+def test_fused_adamw_multi_kernel_f32_group_skip_writes_nothing(dev):
+    """The fp16 recipe's group (f32 p, g, m, v, no SR) under the veto
+    GradScaler feeds it: nothing is written; without it, bitwise the plain
+    version."""
+    f32 = torch.float32
+    rows = _adamw_set(dev, [513 * 7, 1, 70000], (f32, f32, f32, f32), seed=17)
+    for row in rows[:1]:
+        row[1][0] = float("inf")
+    ref = [[x.clone() for x in row] for row in rows]
+    scalars = adamw_scalars_multi(
+        lr=1e-2, epsilon=1e-8, beta1_pow=torch.full((3,), 0.9, device=dev),
+        beta2_pow=torch.full((3,), 0.999, device=dev),
+        skip=torch.tensor(True, device=dev))
+    fused_adamw_multi_update(*zip(*rows), scalars=scalars, beta1=0.9,
+                             beta2=0.999)
+    torch.cuda.synchronize()
+    for got, want in zip(rows, ref):
+        for k in (0, 2, 3):
+            assert torch.equal(_bits(got[k]), _bits(want[k]))
+    rows[0][1].zero_()
+    _check_multi(rows, *_adamw_rows(dev, len(rows), False), launches=1)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f16_at_the_training_shape(dev, causal):
+    """The f16 forward and backward at the flagship's head shape (S=2048,
+    D=128; fewer heads) under the FLASH_* and BWD_* per-row gates: the
+    instantiations ``auto_cast(dtype="float16")`` puts on the main path."""
+    g = torch.Generator(device="cpu").manual_seed(21)
+    q, k, v, do = (torch.randn(1, 2048, 4, 128, generator=g).to(dev, torch.float16)
+                   for _ in range(4))
+    before = dict(flash_attention_fwd.variant_launches)
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.variant_launches["wgmma"] == before["wgmma"] + 1
+    _check_flash_rows(out, q, k, v, causal)
+    _check_bwd_rows(got, q, k, v, out, lse, do, causal)
+
+
+# -- the captured step (jit.to_static on the card) ---------------------------
+def _train_setup(dev, sr=False, seed=0, **opt_kw):
+    """A 2-layer bf16 Llama whose attention takes the flash kernels (head_dim
+    128, S=128), fused AdamW (weight decay 0, so the captured step's device
+    decay factor is exactly the eager one), and its bench step."""
+    from paddle_tpu_torch import jit, seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    pt_seed(seed)
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_size=256,
+                           intermediate_size=512, num_attention_heads=2,
+                           num_key_value_heads=2, max_position_embeddings=256)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    kw = dict(learning_rate=1e-3, weight_decay=0.0, moment_dtype="bfloat16",
+              use_stochastic_rounding=sr, fused=True)
+    kw.update(opt_kw)
+    opt = AdamW(parameters=model.parameters(), **kw)
+
+    def step(ids, labels):
+        loss = model.loss(ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    ids = torch.randint(0, 512, (2, 128),
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+    return model, opt, jit.to_static(step, layers=[model], optimizers=[opt]), ids
+
+
+def _run(compiled, ids, n):
+    return torch.stack([compiled(ids, ids).detach() for _ in range(n)])
+
+
+@pytest.mark.parametrize("sr", [False, True], ids=["sr_off", "sr_on"])
+def test_captured_step_equals_the_eager_step(dev, sr):
+    """Four calls: the warm-up runs eagerly, the second captures the step
+    and replays it, the last two replay. From the same seed and state the
+    eager run (``enable_to_static(False)``) gives the same losses and
+    parameters bitwise: with SR on as well, since the salt generator is
+    registered with the graph and a replay draws what an eager step from
+    the same generator state would."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_multi_update
+
+    runs = []
+    for captured in (True, False):
+        model, opt, compiled, ids = _train_setup(dev, sr=sr)
+        jit.enable_to_static(captured)
+        try:
+            kernels.reset_launch_counts()
+            losses = _run(compiled, ids, 4)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        finally:
+            jit.enable_to_static(True)
+        runs.append((losses, [p.detach().clone() for p in model.parameters()],
+                     counts, opt._global_step, len(compiled._graphs)))
+    (lc, pc, cc, sc, gc), (le, pe, ce, se, ge) = runs
+    assert gc == 1 and ge == 0 and sc == se == 4
+    assert cc == ce and cc["fused_adamw"] == 4
+    assert cc["flash_attention_fwd:wgmma"] == cc["flash_attention_bwd_dq:wgmma"] == 8
+    assert torch.equal(lc, le), (lc, le)
+    for a, b in zip(pc, pe):
+        assert torch.equal(a, b)
+    assert lc[-1] < lc[0]
+    assert fused_adamw_multi_update.launches == 4
+
+
+def test_two_replays_draw_different_salts(dev):
+    from paddle_tpu_torch import jit, seed as pt_seed
+    from paddle_tpu_torch.base import random as R
+
+    pt_seed(7)
+    x = torch.zeros(4, device=dev)
+    compiled = jit.to_static(lambda t: t + R.sr_salts(dev, 3).float().sum())
+    compiled(x)  # warm-up, eager
+    state = R.sr_generator(dev).get_state()
+    a, b = compiled(x), compiled(x)  # capture + replay, replay
+    assert len(compiled._graphs) == 1 and not torch.equal(a, b)
+    R.sr_generator(dev).set_state(state)
+    ea = x + R.sr_salts(dev, 3).float().sum()
+    eb = x + R.sr_salts(dev, 3).float().sum()
+    assert torch.equal(a, ea) and torch.equal(b, eb)
+
+
+def test_replays_keep_parameter_grad_and_state_addresses(dev):
+    """With ``clear_grad(set_to_zero=True)`` the gradients outlive the step:
+    the capture accumulates into the buffers the warm-up made, and the
+    parameters, gradients and moments keep their addresses over replays."""
+    model, opt, _, ids = _train_setup(dev)
+    from paddle_tpu_torch import jit
+
+    def step(ids, labels):
+        loss = model.loss(ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad(set_to_zero=True)
+        return loss
+
+    compiled = jit.to_static(step, layers=[model], optimizers=[opt])
+    compiled(ids, ids)
+    params = list(model.parameters())
+    ptrs = ([p.data_ptr() for p in params], [p.grad.data_ptr() for p in params],
+            [t.data_ptr() for t in opt._accumulators["moment1"].values()])
+    losses = _run(compiled, ids, 3)
+    torch.cuda.synchronize()
+    assert len(compiled._graphs) == 1 and bool(torch.isfinite(losses).all())
+    assert ptrs == ([p.data_ptr() for p in params],
+                    [p.grad.data_ptr() for p in params],
+                    [t.data_ptr() for t in opt._accumulators["moment1"].values()])
+    assert all(not p.grad.any() for p in params)
+    assert losses[-1] < losses[0]
+
+
+def test_a_step_that_reads_the_host_is_refused_or_runs_eagerly(dev):
+    from paddle_tpu_torch import jit
+
+    model, opt, _, ids = _train_setup(dev)
+
+    def step(ids, labels):
+        loss = model.loss(ids, labels)
+        if loss.item() > 1e9:  # a host branch on a device value
+            return loss
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    strict = jit.to_static(step, layers=[model], optimizers=[opt])
+    strict(ids, ids)
+    with pytest.raises(RuntimeError, match="could not capture the step"):
+        strict(ids, ids)
+    assert all(p.grad is None for p in model.parameters())
+    loose = jit.to_static(step, layers=[model], optimizers=[opt],
+                          full_graph=False)
+    loose(ids, ids)
+    with pytest.warns(UserWarning, match="cannot be captured"):
+        loose(ids, ids)
+    assert loose._fallback_eager and not loose._graphs
+    assert torch.isfinite(loose(ids, ids))
+
+
+def test_captured_fp16_step_with_a_forced_overflow(dev):
+    """``auto_cast(float16)`` over f32 parameters, ``GradScaler`` and fused
+    AdamW, captured with ``scalers=``: a scale of 2**40 overflows the next
+    replay, which leaves parameters, moments and beta powers bitwise as
+    they were and counts one bad step; with the scale set back, the replay
+    after it applies."""
+    from paddle_tpu_torch import amp, jit, seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    pt_seed(3)
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_size=256,
+                           intermediate_size=512, num_attention_heads=2,
+                           num_key_value_heads=2, max_position_embeddings=256)
+    model = LlamaForCausalLM(cfg, device=dev)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(), fused=True)
+    scaler = amp.GradScaler()
+
+    def step(ids, labels):
+        with amp.auto_cast(level="O1", dtype="float16"):
+            loss = model.loss(ids, labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss
+
+    compiled = jit.to_static(step, layers=[model], optimizers=[opt],
+                             scalers=[scaler])
+    ids = torch.randint(0, 512, (2, 128),
+                        generator=torch.Generator().manual_seed(6)).to(dev)
+    kernels.reset_launch_counts()
+    _run(compiled, ids, 3)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_fwd:wgmma"] == 6 and counts["fused_adamw"] == 3
+
+    def state():
+        return ([p.detach().clone() for p in model.parameters()],
+                {k: v.clone() for k, v in opt.state_dict().items()
+                 if isinstance(v, torch.Tensor)})
+
+    before = state()
+    scaler.set_scale_value(2.0 ** 40)
+    compiled(ids, ids)
+    after = state()
+    for a, b in zip(before[0], after[0]):
+        assert torch.equal(a, b)
+    for k in before[1]:
+        assert torch.equal(before[1][k], after[1][k]), k
+    # the reference's rule at its defaults: one bad step of the two that
+    # halve the scale
+    assert scaler.get_scale_value() == 2.0 ** 40
+    assert int(scaler._bad_steps) == 1 and int(scaler._good_steps) == 0
+    scaler.set_scale_value(2.0 ** 15)
+    compiled(ids, ids)
+    assert not torch.equal(after[0][0], next(model.parameters()))
+    assert int(scaler._good_steps) == 1 and int(scaler._bad_steps) == 0
+    assert len(compiled._graphs) == 1 and scaler.n_skipped_steps == 0
+
+
+def test_a_state_load_between_calls_is_captured_afresh(dev):
+    """``set_state_dict`` after the warm-up call binds new accumulators: the
+    capture that meets them puts the state back, runs that call eagerly
+    and captures the next; the run equals the eager one bitwise (a graph
+    that kept the old beta powers would not)."""
+    from paddle_tpu_torch import jit
+
+    runs = []
+    for captured in (True, False):
+        model, opt, compiled, ids = _train_setup(dev)
+        jit.enable_to_static(captured)
+        try:
+            losses = [compiled(ids, ids).detach()]
+            opt.set_state_dict(opt.state_dict())
+            losses += [compiled(ids, ids).detach() for _ in range(4)]
+            torch.cuda.synchronize()
+        finally:
+            jit.enable_to_static(True)
+        runs.append((torch.stack(losses),
+                     [p.detach().clone() for p in model.parameters()],
+                     len(compiled._graphs), opt._global_step))
+    (lc, pc, gc, sc), (le, pe, ge, se) = runs
+    assert gc == 1 and ge == 0 and sc == se == 5
+    assert torch.equal(lc, le)
+    for a, b in zip(pc, pe):
+        assert torch.equal(a, b)

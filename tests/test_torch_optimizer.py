@@ -309,15 +309,49 @@ def test_state_dict_round_trip_resumes_exactly():
                                   "Lamb", "NAdam", "RAdam", "Rprop", "ASGD",
                                   "LBFGS"])
 def test_later_slice_features_raise(name):
-    p = [torch.nn.Parameter(torch.zeros(2))]
-    assert hasattr(jopt, name)  # each one is the reference's
-    with pytest.raises(NotImplementedError,
-                       match=f"{name} arrives with a later slice"):
-        getattr(topt, name)(learning_rate=0.1, parameters=p)
-    with pytest.raises(NotImplementedError, match="a later slice"):
-        topt.AdamW(parameters=p, interleave_updates=True)
-    with pytest.raises(NotImplementedError, match="a later slice"):
-        topt.SGD(parameters=p, grad_clip=object())
+    """The optimizers a later slice was to port (they raised here before
+    this slice): each one, built as it was built here, now steps as the
+    reference's does — 3 steps at their defaults, parameters at 1e-6
+    (LBFGS: one closure-driven step on a quadratic, 1e-5). Their options,
+    ``interleave_updates`` and ``grad_clip`` have their own tests
+    (``test_torch_optimizer_rest.py``, ``test_torch_clip.py``)."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(6).astype(np.float32)
+    jp, tp = jnn.Parameter(x), torch.nn.Parameter(torch.from_numpy(x.copy()))
+    jo = getattr(jopt, name)(learning_rate=0.1, parameters=[jp])
+    to = getattr(topt, name)(learning_rate=0.1, parameters=[tp])
+    if name == "LBFGS":
+        c = rng.randn(6).astype(np.float32)
+        jc, tc = paddle.to_tensor(c), torch.from_numpy(c)
+
+        def jclosure():
+            jo.clear_grad()
+            loss = ((jp - jc) * (jp - jc)).sum()
+            loss.backward()
+            return loss
+
+        def tclosure():
+            to.clear_grad()
+            loss = ((tp - tc) ** 2).sum()
+            loss.backward()
+            return loss
+
+        np.testing.assert_allclose(to.step(tclosure), jo.step(jclosure),
+                                   rtol=1e-5)
+        atol = 1e-5
+    else:
+        for step in range(3):
+            g = (0.5 * np.random.RandomState(50 + step).randn(6)).astype(
+                np.float32)
+            jp.grad = paddle.to_tensor(g)
+            tp.grad = torch.from_numpy(g)
+            jo.step()
+            to.step()
+            jo.clear_grad()
+            to.clear_grad()
+        atol = 1e-6
+    np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp._data),
+                               atol=atol, rtol=0)
 
 
 # -- schedulers -----------------------------------------------------------

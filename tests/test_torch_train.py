@@ -9,8 +9,8 @@ f32, with the JAX model's weights carried over by ``load_jax_params``.
   ``opt.clear_grad()``) with ``AdamW(lr=1e-3)``, unfused and fused, against
   the JAX package's compiled step: each loss and the final parameters at
   1e-4.
-- ``multi_step(steps=3)`` returns the three losses as one ``[3]`` tensor,
-  equal to three calls.
+- ``multi_step(steps=3)``, after the warm-up call it requires, returns the
+  three losses as one ``[3]`` tensor, equal to three calls.
 """
 import numpy as np
 import pytest
@@ -120,12 +120,13 @@ def test_multi_step_returns_the_losses_of_three_calls():
         opt = topt.AdamW(learning_rate=1e-3, parameters=model.parameters(),
                          fused=True)
         compiled = _torch_step(model, opt)
+        compiled(ids, labels)  # the warm-up call multi_step requires
         if multi:
             losses = compiled.multi_step(ids, labels, steps=3)
         else:
             losses = torch.stack([compiled(ids, labels).detach() for _ in range(3)])
         runs.append(losses)
-        assert opt._lr_override is None and opt._global_step == 3
+        assert opt._lr_override is None and opt._global_step == 4
     assert runs[1].shape == (3,) and not runs[1].requires_grad
     assert torch.equal(runs[0], runs[1])
     for a, b in zip(tm.parameters(), tm2.parameters()):
@@ -149,6 +150,7 @@ def test_multi_step_holds_the_lr_and_takes_stacked_batches():
 
     compiled = tjit.to_static(step, layers=[tm], optimizers=[opt])
     ids, labels = (torch.from_numpy(np.stack([x, x])) for x in _batch(3))
+    compiled(ids[0], labels[0])  # the warm-up call: lr 1e-3, then 5e-4
     out = compiled.multi_step(ids, labels)
-    assert out.shape == (2,) and seen == [1e-3, 1e-3]
-    assert opt._lr_override is None and opt.get_lr() == 2.5e-4
+    assert out.shape == (2,) and seen == [1e-3, 5e-4, 5e-4]
+    assert opt._lr_override is None and opt.get_lr() == 1.25e-4
