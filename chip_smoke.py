@@ -17,7 +17,10 @@ training slice's flagship step of ``bench.py:main()`` (B=4, S=2048,
 masterless bf16 ``AdamW(lr=1e-4, moment_dtype="bfloat16",
 use_stochastic_rounding=True, fused=True)`` through
 ``jit.to_static(...).multi_step``: flash forward and backward kernels, the
-fused-AdamW kernel once a step over all 75 tensors). Each main path runs
+fused-AdamW kernel once a step over all 75 tensors); and the engine's
+decode loop (phase 11): its decode programs eager, captured as CUDA graphs
+and pipelined with ``overlap=True``, speculative decoding on bf16 and int8
+pools, and ``generate`` captured and sampling. Each main path runs
 with every kernel launch count set to 0 just before it and read just
 after; a kernel
 of the path that did not launch, or launched another number of times than
@@ -29,8 +32,9 @@ card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when CUDA is absent or any phase fails.
 Imports nothing of JAX. Timings: CUDA events around repeated launches after
 warm-up; the paged decode's and AdamW's kernel times (short kernels behind
-a wrapper's host work) from the profiler's device time of the kernel,
-taken last (phase 9), since a profiler session slows the host work of the
+a wrapper's host work) from the profiler's device time of the kernel
+(or, where its trace holds no launch of it, CUDA events around a CUDA
+graph of the calls), taken last (phase 9), since a profiler session slows the host work of the
 phases after it; peaks are the H100 SXM data sheet's (3.35 TB/s HBM, 989 TFLOP/s dense
 bf16, 67 TFLOP/s f32 outside the tensor cores) at a 700 W power limit.
 """
@@ -210,14 +214,20 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, match: str, iters: int = 20, warmup: int = 2) -> float:
+def device_ms(fn, match: str, iters: int = 20, warmup: int = 2):
     """The mean device time of a launch of the kernel whose name holds
     ``match``, from the profiler's trace of ``iters`` calls of ``fn``
     (each launching it once): the kernel alone, without the wrapper's host
     work, which CUDA events around a wrapper whose kernel is shorter than
     that host work would measure. The mean is over the launches the trace
-    recorded, which can be fewer than ``iters``."""
+    recorded, which can be fewer than ``iters``. Also times the ``iters``
+    calls captured in one CUDA graph, by CUDA events around its replay
+    (device time without the host work, launch gaps within the graph
+    included), and takes that time where the trace holds no launch of the
+    kernel. Returns ``(ms, how)``: the time and the words saying how it
+    was taken."""
     import torch
+    from paddle_tpu_torch.ops import kernels
 
     for _ in range(warmup):
         fn()
@@ -231,9 +241,23 @@ def device_ms(fn, match: str, iters: int = 20, warmup: int = 2) -> float:
             if e.device_type == torch.autograd.DeviceType.CUDA
             and match in e.key]
     launches = sum(e.count for e in seen)
+    n0 = sum(f.launches for f in kernels.KERNELS.values())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    if sum(f.launches for f in kernels.KERNELS.values()) - n0 < iters:
+        fail(f"the CUDA graph timing {match!r} holds fewer than {iters} "
+             f"kernel launches")
+    replay_ms = time_ms(graph.replay, 5, warmup=1) / iters
+    del graph
     if launches == 0:
-        fail(f"the profiler saw no launch of a kernel named {match!r}")
-    return sum(e.self_device_time_total for e in seen) / 1e3 / launches
+        return replay_ms, (f"the profiler's trace held no launch of "
+                           f"{match!r}: CUDA events around a CUDA graph of "
+                           f"{iters} calls")
+    ms = sum(e.self_device_time_total for e in seen) / 1e3 / launches
+    return ms, (f"profiler device time; {replay_ms:.4f} ms a call in a CUDA "
+                f"graph of {iters}")
 
 
 def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
@@ -1415,6 +1439,464 @@ def recipe_phase(torch, np, dev, args, card, ids, labels, phase7_profile,
     return counts_a, rf, rb, ra
 
 
+# -- phase 11: the decode loop ----------------------------------------------
+# (a) phase 4's workload and SERVE in three engines, run in turns: eager
+# (jit.enable_to_static(False)), captured sync and captured overlap. Each
+# engine first serves warm-up requests, LOOP_WARM_REQUESTS of each budget
+# in LOOP_WARM_NEW in turn: K-step chunks, then single steps (overlap mode
+# over-issues chunks where sync mode steps singly), so each decode program
+# runs eagerly once and is captured before the counted run
+LOOP_ORDER = ("eager", "captured", "overlap", "overlap", "captured", "eager")
+LOOP_WARM_REQUESTS, LOOP_WARM_NEW = 2, (40, 8)
+# then each engine's steady state: all 16 slots decoding 256-token prompts,
+# LOOP_STEADY_STEPS timed engine steps (K-step chunks) after 3 warm ones,
+# then LOOP_PROFILE_STEPS profiled ones, taken last
+LOOP_STEADY_NEW, LOOP_STEADY_STEPS, LOOP_PROFILE_STEPS = 1 + 16 * 16, 10, 2
+# (b) speculative decoding: prompts of a random segment repeated, so that
+# the n-gram proposer finds drafts; plain and speculative engines serve
+# SERVE with single decode steps (a verify round against one step)
+SPEC_K = 4
+SPEC_SERVE = dict(SERVE, decode_chunk=1)
+SPEC_REQUESTS, SPEC_SEGMENT, SPEC_COPIES, SPEC_NEW = 16, 32, 8, 64
+# at a first difference between a speculative and a plain bf16 stream, the
+# top-2 gap of the plain stream's logits there (scoring forward over the
+# prompt and the plain tokens before it, bf16) must lie below this bound:
+# the verify scores through masked attention over the gathered view where
+# plain decode runs the paged-decode kernel, which can flip a near tie. Set
+# from the first two measurements on the H100: 54 first differences of 64
+# streams (bf16 and int8 pools), every gap 0, 0.0078 or once 0.0156 (exact
+# bf16 ties, or one or two bf16 ulps of logits between 1 and 2); the bound
+# is three such ulps. The random bf16 model's logits tie often (the median
+# gap over all plain positions was 0.0547), so the phase prints the share
+# of all positions below the bound: a departure at a position drawn at
+# random passes the gate with that chance
+SPEC_GAP_BOUND = 0.0235
+# phase 6's small f32 model: speculative streams equal plain ones exactly
+SPEC_SMALL = dict(max_batch=3, max_len=256, block_size=16, num_blocks=48,
+                  prompt_pad=128)
+SPEC_SMALL_REQUESTS, SPEC_SMALL_SEGMENT, SPEC_SMALL_COPIES = 6, 12, 6
+SPEC_SMALL_NEW = 40
+# (c) generate at B=16, and the sampler on fixed f32 logits on a 0.25 grid
+# (ties at the k-th value); the chi-square test's p must exceed CHI2_P_MIN
+GEN_B, GEN_PROMPT, GEN_NEW = 16, 128, 64
+SAMPLE_ROWS, SAMPLE_DRAWS, SAMPLE_T, SAMPLE_TOP_K = 16, 4096, 0.8, 50
+CHI2_P_MIN = 1e-3
+
+
+def graph_counts(eng):
+    """Captured graphs of each of the engine's decode programs."""
+    return {name: len(getattr(eng, f"_{name}_fn")._graphs)
+            for name in ("decode", "chunk", "verify")}
+
+
+@contextlib.contextmanager
+def static_mode(captured: bool):
+    """Run the block with ``jit.to_static`` capturing (True) or eager."""
+    from paddle_tpu_torch import jit
+
+    jit.enable_to_static(captured)
+    try:
+        yield
+    finally:
+        jit.enable_to_static(True)
+
+
+def serving_prompts(torch, seed, n_req, vocab):
+    """Phase 4's prompts: lengths PROMPT_LENS in turn, from ``seed + n``."""
+    rng = torch.Generator(device="cpu").manual_seed(seed + n_req)
+    return [torch.randint(0, vocab, (PROMPT_LENS[i % len(PROMPT_LENS)],),
+                          generator=rng).numpy() for i in range(n_req)]
+
+
+def loop_run(torch, model, kind, prompts, L):
+    """One engine of kind ``kind`` over phase 4's workload, after its own
+    warm-up; returns what the phase prints and gates on."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import kernels
+
+    eng = ContinuousBatchingEngine(model, **SERVE, overlap=kind == "overlap")
+    with static_mode(kind != "eager"):
+        for new in LOOP_WARM_NEW:
+            for i in range(LOOP_WARM_REQUESTS):
+                eng.add_request(("warm", new, i), prompts[i],
+                                max_new_tokens=new)
+            eng.run()
+        graphs0 = graph_counts(eng)
+        steps0, disp0, dtok0 = (eng.decode_steps, eng.n_dispatches,
+                                eng.decode_tokens)
+        reqs = [eng.add_request(i, p, max_new_tokens=NEW_TOKENS)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    steps = eng.decode_steps - steps0
+    r = dict(kind=kind, wall=wall, steps=steps,
+             dispatches=eng.n_dispatches - disp0,
+             decode_tokens=eng.decode_tokens - dtok0,
+             ttft=statistics.median(q.ttft() for q in reqs),
+             tokens={q.req_id: list(q.out) for q in reqs},
+             graphs0=graphs0, graphs=graph_counts(eng), counts=counts,
+             stats=eng.overlap_stats())
+    if counts["paged_decode_attention"] != L * steps or steps == 0:
+        fail(f"phase 11 {kind} serving: {counts['paged_decode_attention']} "
+             f"paged-decode launches for {steps} decode steps x {L} layers")
+    want = {"decode": 0, "chunk": 0, "verify": 0} if kind == "eager" else \
+        {"decode": 1, "chunk": 1, "verify": 0}
+    if graphs0 != want or r["graphs"] != want:
+        fail(f"phase 11 {kind} serving: captured graphs {graphs0} after the "
+             f"warm-up and {r['graphs']} at the end, expected {want}")
+    del eng
+    return r
+
+
+def loop_steady(torch, model, kind, prompts):
+    """All 16 slots decoding: the wall time of LOOP_STEADY_STEPS engine
+    steps over the forwards they ran. Returns the engine (profiled last)
+    and ms per decode step."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(model, **SERVE, overlap=kind == "overlap")
+    with static_mode(kind != "eager"):
+        for i in range(SERVE["max_batch"]):
+            eng.add_request(i, prompts[i][:PROMPT_LENS[0]],
+                            max_new_tokens=LOOP_STEADY_NEW)
+        while eng._queue or len(eng._decode_rows()) < SERVE["max_batch"]:
+            eng.step()
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+        s0 = eng.decode_steps
+        t0 = time.perf_counter()
+        for _ in range(LOOP_STEADY_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (eng.decode_steps - s0)
+    return eng, ms
+
+
+def loop_profile(torch, eng, kind):
+    """LOOP_PROFILE_STEPS steps of a steady engine under the profiler:
+    kernel ms and the device's busy share of the wall time."""
+    with static_mode(kind != "eager"):
+        torch.cuda.synchronize()
+        s0 = eng.decode_steps
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(LOOP_PROFILE_STEPS):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return dev_ms, wall, eng.decode_steps - s0
+
+
+def spec_prompts(np, vocab, seed, n, segment, copies):
+    rng = np.random.RandomState(seed)
+    return [np.tile(rng.randint(0, vocab, (segment,)), copies)
+            for _ in range(n)]
+
+
+_SPEC_COUNTERS = ("spec_proposed", "spec_accepted", "spec_emitted",
+                  "spec_dispatches", "spec_slot_rounds", "decode_steps",
+                  "n_dispatches")
+
+
+def spec_serve(torch, model, prompts, new, engine_kw, warm=False, **kw):
+    """One engine over ``prompts`` (with ``warm``, after serving them once
+    as a warm-up, so that the timed run replays programs captured
+    already). Returns the engine's streams, the timed run's wall, its
+    counters (``_SPEC_COUNTERS``, deltas over the run) and paged-decode
+    launches, which must be one per layer and decode step (verify rounds
+    score through the gathered view)."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import kernels
+
+    eng = ContinuousBatchingEngine(model, **engine_kw, **kw)
+    for run in (("warm", "timed") if warm else ("timed",)):
+        c0 = {k: getattr(eng, k) for k in _SPEC_COUNTERS}
+        for i, p in enumerate(prompts):
+            eng.add_request((run, i), p, max_new_tokens=new)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    c = {k: getattr(eng, k) - c0[k] for k in _SPEC_COUNTERS}
+    name = ("paged_decode_attention_int8" if kw.get("kv_dtype")
+            else "paged_decode_attention")
+    if counts[name] != model.config.num_hidden_layers * c["decode_steps"]:
+        fail(f"phase 11(b): {counts[name]} {name} launches for "
+             f"{c['decode_steps']} decode steps")
+    return dict(tokens={r[1]: list(q.out) for r, q in done.items()
+                        if r[0] == "timed"},
+                wall=wall, c=c, launches=counts[name])
+
+
+def top2_gaps(torch, model, prompt, toks):
+    """The top-2 gaps of the logits that chose each of ``toks`` after
+    ``prompt``, from one scoring forward in the model's dtype."""
+    ids = torch.tensor(list(prompt) + list(toks), dtype=torch.int64,
+                       device=model.device)[None]
+    with torch.no_grad():
+        top = model(ids)[0, len(prompt) - 1:-1].float().topk(2).values
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
+def spec_phase(torch, np, model, small_model, small, cfg, card):
+    """Phase 11 (b): speculative against plain serving, sync and overlap,
+    on bf16 and int8 pools at full width, and in f32 at phase 6's size."""
+    # f32, small: the streams equal the plain engine's exactly
+    sp = spec_prompts(np, small.vocab_size, 11, SPEC_SMALL_REQUESTS,
+                      SPEC_SMALL_SEGMENT, SPEC_SMALL_COPIES)
+    plain = spec_serve(torch, small_model, sp, SPEC_SMALL_NEW, SPEC_SMALL)
+    for overlap in (False, True):
+        r = spec_serve(torch, small_model, sp, SPEC_SMALL_NEW, SPEC_SMALL,
+                       spec_decode_k=SPEC_K, overlap=overlap)
+        c = r["c"]
+        print(f"phase 11(b) small f32 model, spec_decode_k={SPEC_K} "
+              f"{'overlap' if overlap else 'sync'}: streams equal the plain "
+              f"engine's: {r['tokens'] == plain['tokens']}; acceptance "
+              f"{c['spec_accepted'] / max(c['spec_proposed'], 1):.3f}, "
+              f"{c['spec_dispatches']} verify dispatches")
+        if r["tokens"] != plain["tokens"] or c["spec_dispatches"] == 0:
+            fail("phase 11(b): f32 speculative streams differ from plain")
+    # full width, bf16 and int8 pools; each engine warmed on the workload
+    prompts = spec_prompts(np, cfg.vocab_size, 12, SPEC_REQUESTS,
+                           SPEC_SEGMENT, SPEC_COPIES)
+    for kv in (None, "int8"):
+        name = kv or "bf16"
+        plain = spec_serve(torch, model, prompts, SPEC_NEW, SPEC_SERVE,
+                           warm=True, kv_dtype=kv)
+        streams = {}
+        for overlap in (False, True):
+            mode = "overlap" if overlap else "sync"
+            r = spec_serve(torch, model, prompts, SPEC_NEW, SPEC_SERVE,
+                           warm=True, kv_dtype=kv, spec_decode_k=SPEC_K,
+                           overlap=overlap)
+            streams[mode] = r["tokens"]
+            c, pc = r["c"], plain["c"]
+            print(f"phase 11(b) {name} KV pools, spec_decode_k={SPEC_K} "
+                  f"{mode}: {SPEC_REQUESTS} requests ({SPEC_COPIES} copies "
+                  f"of a {SPEC_SEGMENT}-token segment, {SPEC_NEW} new tokens) "
+                  f"wall {r['wall']:.3f} s against the plain engine's "
+                  f"{plain['wall']:.3f} s (both warmed on the workload); "
+                  f"acceptance "
+                  f"{c['spec_accepted'] / max(c['spec_proposed'], 1):.3f} "
+                  f"({c['spec_accepted']} of {c['spec_proposed']} drafts), "
+                  f"{c['spec_emitted'] / max(c['spec_slot_rounds'], 1):.3f} "
+                  f"tokens per slot-round, {c['n_dispatches']} dispatches "
+                  f"({c['spec_dispatches']} verify) against the plain "
+                  f"engine's {pc['n_dispatches']}; paged-decode launches "
+                  f"{r['launches']} against the plain engine's "
+                  f"{plain['launches']} [{card}]")
+            if c["spec_dispatches"] == 0:
+                fail(f"phase 11(b) {name} {mode}: no verify round ran")
+        if streams["overlap"] != streams["sync"]:
+            fail(f"phase 11(b) {name}: overlap and sync speculative streams "
+                 f"differ")
+        gaps, every = [], []
+        for rid, want in plain["tokens"].items():
+            got = streams["sync"][rid]
+            g = top2_gaps(torch, model, prompts[rid], want)
+            every += g
+            j = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                     None)
+            if j is not None:
+                gaps.append(g[j])
+        print(f"phase 11(b) {name}: {len(gaps)} of {len(prompts)} speculative "
+              f"streams differ from the plain engine's; top-2 logit gaps at "
+              f"the first differences {[round(g, 4) for g in gaps]} (bound "
+              f"{SPEC_GAP_BOUND}); over all {len(every)} plain positions the "
+              f"median gap is {statistics.median(every):.4f}, "
+              f"{sum(g < SPEC_GAP_BOUND for g in every) / len(every):.3f} of "
+              f"them below the bound")
+        if any(g >= SPEC_GAP_BOUND for g in gaps):
+            fail(f"phase 11(b) {name}: a speculative stream departs from the "
+                 f"plain one where the plain logits are not a near tie")
+
+
+def generate_phase(torch, np, model, cfg, card, seed):
+    """Phase 11 (c): ``generate`` captured against eager at B=16, greedy
+    top_k=1 sampling against argmax, and the sampler's draws."""
+    from scipy import stats
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaForCausalLM, generate
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.ops import kernels
+
+    L = cfg.num_hidden_layers
+    rng = torch.Generator().manual_seed(seed + 13)
+    ids = torch.randint(0, cfg.vocab_size, (GEN_B, GEN_PROMPT),
+                        generator=rng).to(model.device)
+    for kw in ({"block_size": 64}, {}):
+        label = "paged" if kw else "dense"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = generate(model, ids, max_new_tokens=GEN_NEW, use_jit=False,
+                         **kw)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        # the first call captures the decode step, the second the prefill
+        first = generate(model, ids, max_new_tokens=GEN_NEW, **kw)
+        second = generate(model, ids, max_new_tokens=GEN_NEW, **kw)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = generate(model, ids, max_new_tokens=GEN_NEW, **kw)
+        torch.cuda.synchronize()
+        jit_s = time.perf_counter() - t0
+        n = kernels.launch_counts()["paged_decode_attention"]
+        want_n = L * (GEN_NEW - 1) if kw else 0
+        print(f"phase 11(c) generate {label} B={GEN_B} prompt {GEN_PROMPT} "
+              f"+{GEN_NEW}: use_jit=True (three calls) bitwise equal to "
+              f"use_jit=False: {torch.equal(first, eager)} "
+              f"{torch.equal(second, eager)} {torch.equal(again, eager)}; "
+              f"{jit_s:.3f} s replayed (third call) against {eager_s:.3f} s "
+              f"eager, paged-decode launches "
+              f"{n} (want {want_n}) [{card}]")
+        if not (torch.equal(first, eager) and torch.equal(second, eager)
+                and torch.equal(again, eager) and n == want_n):
+            fail(f"phase 11(c): generate {label} use_jit=True differs from "
+                 f"use_jit=False, or launched {n} decode kernels")
+    # top_k=1 keeps every logit tied with the largest, as the reference's
+    # rule does, and the random bf16 model's logits tie at the top (phase
+    # 11(b)'s gaps of 0): so the check runs on the model in f32
+    model32 = LlamaForCausalLM(cfg, device=model.device, dtype=torch.float32,
+                               generator=torch.Generator(
+                                   device=model.device).manual_seed(seed))
+    top1 = generate(model32, ids, max_new_tokens=GEN_NEW, temperature=1.0,
+                    top_k=1, block_size=64)
+    greedy = generate(model32, ids, max_new_tokens=GEN_NEW, block_size=64)
+    del model32
+    print(f"phase 11(c) generate f32 temperature=1.0 top_k=1 bitwise equal "
+          f"to greedy: {torch.equal(top1, greedy)}")
+    if not torch.equal(top1, greedy):
+        fail("phase 11(c): top_k=1 sampling differs from greedy")
+    # the sampler, captured, on fixed logits
+    g = torch.Generator().manual_seed(seed + 14)
+    logits = (torch.round(torch.randn(SAMPLE_ROWS, cfg.vocab_size,
+                                      generator=g) * 12) / 4).to(model.device)
+    sampler = jit.to_static(
+        lambda lg: G._sample(lg, SAMPLE_T, SAMPLE_TOP_K))
+    sampler(logits)  # eager
+    sampler(logits)  # captured
+    draws = []
+    for _ in range(2):
+        pt_seed(seed + 15)
+        draws.append(torch.stack([sampler(logits)
+                                  for _ in range(SAMPLE_DRAWS)]).cpu())
+    masked = G._filter_logits(logits, SAMPLE_T, SAMPLE_TOP_K)
+    p = torch.softmax(masked, dim=-1).double().cpu().numpy()
+    kept = np.isfinite(masked.cpu().numpy())
+    d = draws[0].numpy()
+    in_set = bool(kept[np.arange(SAMPLE_ROWS)[None, :], d].all())
+    chi2, dof = 0.0, 0
+    for row in range(SAMPLE_ROWS):
+        support = np.flatnonzero(kept[row])
+        counts = np.bincount(d[:, row], minlength=p.shape[1])[support]
+        exp = p[row, support] * SAMPLE_DRAWS
+        small = exp < 5
+        obs = np.append(counts[~small], counts[small].sum())
+        e = np.append(exp[~small], exp[small].sum())
+        if e[-1] == 0:
+            obs, e = obs[:-1], e[:-1]
+        chi2 += float(((obs - e) ** 2 / e).sum())
+        dof += obs.size - 1
+    pval = float(stats.chi2.sf(chi2, dof))
+    same = torch.equal(draws[0], draws[1])
+    print(f"phase 11(c) sampler captured, [{SAMPLE_ROWS}, {cfg.vocab_size}] "
+          f"f32 logits, temperature {SAMPLE_T}, top_k {SAMPLE_TOP_K} "
+          f"({int(kept.sum(-1).min())}..{int(kept.sum(-1).max())} kept with "
+          f"ties), {SAMPLE_DRAWS} draws: all in the kept set {in_set}; "
+          f"chi-square {chi2:.1f} on {dof} dof, p={pval:.4f} (min "
+          f"{CHI2_P_MIN}); same seed, same draws bitwise: {same}; graphs "
+          f"{len(sampler._graphs)}")
+    if not (in_set and pval > CHI2_P_MIN and same
+            and len(sampler._graphs) == 1):
+        fail("phase 11(c): the captured sampler's draws fail their gates")
+
+
+def decode_loop_phase(torch, np, dev, args, card):
+    """Phase 11: the engine's decode loop at full width (module docstring
+    of ``paddle_tpu_torch/inference/serving.py``): (a) eager, captured and
+    overlapped serving in turns, (b) speculative decoding, (c) generate."""
+    import gc
+
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    pt_seed(args.seed)
+    cfg = LlamaConfig(**LLAMA_542M)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    model.eval()
+    L = cfg.num_hidden_layers
+    prompts = serving_prompts(torch, args.seed, N_REQUESTS, cfg.vocab_size)
+    # (a) in turns
+    runs = []
+    for kind in LOOP_ORDER:
+        runs.append(loop_run(torch, model, kind, prompts, L))
+        gc.collect()
+        r = runs[-1]
+        print(f"phase 11(a) {kind} serving: {N_REQUESTS} requests (phase 4's "
+              f"workload) wall {r['wall']:.3f} s, {r['decode_tokens']} decode "
+              f"tokens, {r['decode_tokens'] / r['wall']:.1f} decode tokens/s "
+              f"of wall time, {r['steps']} decode steps in "
+              f"{r['dispatches']} dispatches, TTFT p50 {r['ttft'] * 1e3:.1f} "
+              f"ms, host blocked {r['stats']['host_blocked_frac']:.3f} of "
+              f"step time, h2d decode bytes/token "
+              f"{r['stats']['h2d_decode_bytes_per_token']:.1f}, graphs "
+              f"{r['graphs']}, paged-decode launches "
+              f"{r['counts']['paged_decode_attention']} [{card}]")
+    if any(r["tokens"] != runs[0]["tokens"] for r in runs):
+        fail("phase 11(a): the eager, captured and overlap token streams "
+             "differ")
+    print(f"phase 11(a) all {len(runs)} token streams bitwise equal")
+    steady = {}
+    steady_prompts = serving_prompts(torch, args.seed + 1, SERVE["max_batch"],
+                                     cfg.vocab_size)
+    for kind in ("eager", "captured", "overlap"):
+        eng, ms = loop_steady(torch, model, kind, steady_prompts)
+        steady[kind] = (eng, ms)
+        print(f"phase 11(a) {kind} steady decode, {SERVE['max_batch']} "
+              f"slots, decode_chunk {SERVE['decode_chunk']}: {ms:.3f} ms per "
+              f"decode step (wall "
+              f"of {LOOP_STEADY_STEPS} engine steps over their forwards) "
+              f"[{card}]")
+    # (b) and (c)
+    small = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                             num_attention_heads=4, num_key_value_heads=2,
+                             vocab_size=512, max_position_embeddings=512)
+    small_model = LlamaForCausalLM(
+        small, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            args.seed))
+    spec_phase(torch, np, model, small_model, small, cfg, card)
+    generate_phase(torch, np, model, cfg, card, args.seed)
+    # the profiled steps, taken last
+    for kind, (eng, ms) in steady.items():
+        dev_ms, wall, n = loop_profile(torch, eng, kind)
+        print(f"phase 11(a) {kind} profiled: {LOOP_PROFILE_STEPS} engine "
+              f"steps ({n} decode steps) {wall:.3f} ms wall under the "
+              f"profiler, {dev_ms:.3f} ms of kernel time = {dev_ms / n:.3f} "
+              f"ms per decode step, {100 * dev_ms / n / ms:.1f}% of the "
+              f"unprofiled {ms:.3f} ms per decode step (device busy; "
+              f"{100 * dev_ms / wall:.1f}% under the profiler) [{card}]")
+    del steady, model, small_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
 def kernel_class(name: str) -> str:
     """Bucket a profiled kernel name for the training step's time split."""
     n = name.lower()
@@ -1630,12 +2112,9 @@ def main() -> int:
     # -- phase 4: serving (main path of the paged-decode kernel) -----------
     def serve(n_req, new_tokens):
         eng = ContinuousBatchingEngine(model, **SERVE)
-        rng = torch.Generator(device="cpu").manual_seed(args.seed + n_req)
-        for i in range(n_req):
-            plen = PROMPT_LENS[i % len(PROMPT_LENS)]
-            eng.add_request(i, torch.randint(0, cfg.vocab_size, (plen,),
-                                             generator=rng).numpy(),
-                            max_new_tokens=new_tokens)
+        for i, p in enumerate(serving_prompts(torch, args.seed, n_req,
+                                              cfg.vocab_size)):
+            eng.add_request(i, p, max_new_tokens=new_tokens)
         return eng
 
     serve(2, 20).run()  # warm-up: first prefill and decode launches
@@ -2017,13 +2496,16 @@ def main() -> int:
         torch, np, dev, args, card, ids, labels, phase7_profile, device_rows,
         gen)
 
+    # -- phase 11: the decode loop ---------------------------------------------
+    decode_loop_phase(torch, np, dev, args, card)
+
     # -- phase 9: the decode and AdamW kernels' device times ----------------
     # taken last: a profiler session slows the host work of the phases
     # after it (phases 4, 5 and 5b are host-bound)
     for label, r in device_rows:
-        r["ms"] = r.pop("device")()
-        print(f"phase 9 {label}: kernel ms={r['ms']:.4f} (profiler device "
-              f"time; a wrapper call {r['call_ms']:.4f} ms) bound_ms="
+        r["ms"], how = r.pop("device")()
+        print(f"phase 9 {label}: kernel ms={r['ms']:.4f} ({how}; a wrapper "
+              f"call {r['call_ms']:.4f} ms) bound_ms="
               f"{r['bound_ms']:.4f} ({r['bound_by']}), "
               f"{r['nbytes'] / r['ms'] / 1e6:.1f} GB/s, "
               f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound [{card}]")

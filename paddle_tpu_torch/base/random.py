@@ -22,11 +22,16 @@ _SR_STREAM = 0x5A17
 
 
 def seed(value: int) -> int:
-    """Set the process seed; every per-device generator restarts from it."""
+    """Set the process seed; every per-device generator restarts from it.
+    Existing generators are re-seeded in place, so a CUDA graph that
+    registered one (``jit.to_static``) draws the new stream on its next
+    replay."""
     global _seed
     _seed = int(value)
-    _generators.clear()
-    _sr_generators.clear()
+    for gen in _generators.values():
+        gen.manual_seed(_seed)
+    for gen in _sr_generators.values():
+        gen.manual_seed(_seed + _SR_STREAM)
     return _seed
 
 

@@ -646,8 +646,11 @@ _DECODE_BLOCKS_PER_SM = 16
 _MAX_SPLITS = 64
 _MAX_SPLIT_PAGES = 64
 # per device: the kernels' uint32 tickets, one per (sequence, head), zero
-# between calls (each call returns the ones it takes to zero)
+# between calls (each call returns the ones it takes to zero). A captured
+# CUDA graph holds the address it was captured with, so a buffer that is
+# outgrown is kept alive in _retired_tickets, never freed
 _tickets: Dict[torch.device, torch.Tensor] = {}
+_retired_tickets: List[torch.Tensor] = []
 
 
 def decode_splits(pages: int, batch: int, heads: int, sms: int
@@ -670,6 +673,8 @@ def decode_splits(pages: int, batch: int, heads: int, sms: int
 def _decode_tickets(device: torch.device, n: int) -> torch.Tensor:
     t = _tickets.get(device)
     if t is None or t.numel() < n:
+        if t is not None:
+            _retired_tickets.append(t)
         t = _tickets[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
                                            device=device)
     return t

@@ -23,6 +23,8 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import sys\n"
         "import paddle_tpu_torch\n"
         "import paddle_tpu_torch.inference, paddle_tpu_torch.models\n"
+        "import paddle_tpu_torch.inference.speculative\n"
+        "import paddle_tpu_torch.models.generation\n"
         "import paddle_tpu_torch.ops.flash_attention\n"
         "import paddle_tpu_torch.ops.paged_attention\n"
         "import paddle_tpu_torch.ops.fused_adamw\n"

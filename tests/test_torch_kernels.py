@@ -919,3 +919,88 @@ def test_a_state_load_between_calls_is_captured_afresh(dev):
     assert torch.equal(lc, le)
     for a, b in zip(pc, pe):
         assert torch.equal(a, b)
+
+
+def _serve_small(dev, captured, **kw):
+    """A small bf16 model's engine over six prompts (three of a repeated
+    segment); returns the streams, the engine and the launch counts."""
+    import numpy as np
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    pt_seed(3)
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_size=256,
+                           intermediate_size=512, num_attention_heads=2,
+                           num_key_value_heads=2, max_position_embeddings=512)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    rng = np.random.RandomState(4)
+    prompts = [np.tile(rng.randint(0, 512, (8,)), 4) if i % 2 else
+               rng.randint(0, 512, (int(rng.randint(5, 40)),))
+               for i in range(6)]
+    eng = ContinuousBatchingEngine(model, max_batch=3, max_len=128,
+                                   block_size=16, num_blocks=40,
+                                   prompt_pad=48, **kw)
+    for i, p in enumerate(prompts):
+        eng.add_request(i, p, max_new_tokens=24)
+    jit.enable_to_static(captured)
+    try:
+        kernels.reset_launch_counts()
+        done = eng.run()
+        torch.cuda.synchronize()
+    finally:
+        jit.enable_to_static(True)
+    return ({r: q.out for r, q in done.items()}, eng,
+            kernels.launch_counts())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(decode_chunk=4), dict(decode_chunk=4, overlap=True),
+    dict(spec_decode_k=3), dict(spec_decode_k=3, overlap=True,
+                                kv_dtype="int8"),
+], ids=["chunk", "chunk_overlap", "spec", "spec_overlap_int8"])
+def test_captured_engine_equals_the_eager_engine(dev, kw):
+    """The engine's decode programs replay as CUDA graphs (one a kind after
+    its eager first call) and give the eager engine's streams bitwise; a
+    replay's paged-decode launches are counted per dispatch."""
+    want, eager, _ = _serve_small(dev, False, **kw)
+    got, eng, counts = _serve_small(dev, True, **kw)
+    assert got == want
+    graphs = {n: len(getattr(eng, f"_{n}_fn")._graphs)
+              for n in ("decode", "chunk", "verify")}
+    assert all(n <= 1 for n in graphs.values()) and sum(graphs.values()) >= 1
+    assert not any(len(getattr(eager, f"_{n}_fn")._graphs)
+                   for n in ("decode", "chunk", "verify"))
+    name = ("paged_decode_attention_int8" if kw.get("kv_dtype")
+            else "paged_decode_attention")
+    assert counts[name] == 2 * eng.decode_steps > 0
+    if "spec_decode_k" in kw:
+        assert eng.spec_stats()["dispatches"] > 0
+
+
+def test_generate_use_jit_replays_and_equals_eager(dev):
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, generate
+
+    pt_seed(5)
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_size=256,
+                           intermediate_size=512, num_attention_heads=2,
+                           num_key_value_heads=2, max_position_embeddings=512)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    ids = torch.randint(0, 512, (4, 16),
+                        generator=torch.Generator().manual_seed(6)).to(dev)
+    for kw in (dict(block_size=16), dict(block_size=16, decode_chunk=4),
+               dict(), dict(speculative_k=3)):
+        want = generate(model, ids, max_new_tokens=20, use_jit=False, **kw)
+        for _ in range(3):  # decode captured in the first, prefill in the second
+            assert torch.equal(generate(model, ids, max_new_tokens=20, **kw),
+                               want), kw
+    pt_seed(7)
+    a = generate(model, ids, max_new_tokens=20, temperature=0.9, top_k=40,
+                 block_size=16)
+    pt_seed(7)
+    b = generate(model, ids, max_new_tokens=20, temperature=0.9, top_k=40,
+                 block_size=16)
+    assert torch.equal(a, b)

@@ -105,15 +105,16 @@ def test_generate_matches_engine(models, kw):
 def test_later_slices_refuse():
     tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     base = dict(max_batch=1, max_len=32, block_size=8, num_blocks=4)
-    for kw in ({"cache_tier": object()}, {"spec_decode_k": 2},
-               {"tenant_namespaces": True}, {"overlap": True},
-               {"role": "prefill_only"}):
+    for kw in ({"cache_tier": object()}, {"role": "prefill_only"},
+               {"fp8": True}, {"admission": object()}):
         with pytest.raises(NotImplementedError, match="later slice"):
             ContinuousBatchingEngine(tm, **base, **kw)
     eng = ContinuousBatchingEngine(tm, **base, prompt_pad=8)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        eng.add_request("x", np.arange(3), deadline=5.0)
+    for kw in ({"deadline": 5.0}, {"priority": "batch"}, {"retries": 1},
+               {"trace": {"trace_id": "t"}}):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            eng.add_request("x", np.arange(3), **kw)
     with pytest.raises(ValueError, match="prompt length"):
         eng.add_request("big", np.zeros(9, np.int32))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        generate(tm, torch.zeros(1, 3, dtype=torch.int64), temperature=0.7)
+    with pytest.raises(ValueError, match="tenant_namespaces requires"):
+        ContinuousBatchingEngine(tm, **base, tenant_namespaces=True)
