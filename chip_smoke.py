@@ -20,7 +20,11 @@ use_stochastic_rounding=True, fused=True)`` through
 fused-AdamW kernel once a step over all 75 tensors); and the engine's
 decode loop (phase 11): its decode programs eager, captured as CUDA graphs
 and pipelined with ``overlap=True``, speculative decoding on bf16 and int8
-pools, and ``generate`` captured and sampling. Each main path runs
+pools, and ``generate`` captured and sampling; and the engine's front
+door (phase 12): the prefill programs captured (whole-prompt and chunked),
+overload control at twice the calibrated capacity with deadlines and
+priorities, tracing and the resource ledger on, and the host-RAM prefix
+tier with corrupt-spill chaos. Each main path runs
 with every kernel launch count set to 0 just before it and read just
 after; a kernel
 of the path that did not launch, or launched another number of times than
@@ -1484,9 +1488,36 @@ CHI2_P_MIN = 1e-3
 
 
 def graph_counts(eng):
-    """Captured graphs of each of the engine's decode programs."""
+    """Captured graphs of each of the engine's programs."""
     return {name: len(getattr(eng, f"_{name}_fn")._graphs)
-            for name in ("decode", "chunk", "verify")}
+            for name in ("prefill", "decode", "chunk", "verify")}
+
+
+def prefill_timer(eng):
+    """Count the engine's prefill dispatches and the host seconds of its
+    admit and prefill-chunk calls (a sync engine's include the wait for
+    each prefill's first tokens; an overlap engine's do not). Returns the
+    dict the wrappers fill."""
+    acc = {"dispatches": 0, "host_s": 0.0}
+    prefill = eng._prefill
+
+    def counted(*a):
+        acc["dispatches"] += 1
+        return prefill(*a)
+
+    def timed(fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc["host_s"] += time.perf_counter() - t
+        return run
+
+    eng._prefill = counted
+    eng._admit = timed(eng._admit)
+    eng._prefill_step = timed(eng._prefill_step)
+    return acc
 
 
 @contextlib.contextmanager
@@ -1508,9 +1539,10 @@ def serving_prompts(torch, seed, n_req, vocab):
                           generator=rng).numpy() for i in range(n_req)]
 
 
-def loop_run(torch, model, kind, prompts, L):
+def loop_run(torch, model, kind, prompts, L, keep=False):
     """One engine of kind ``kind`` over phase 4's workload, after its own
-    warm-up; returns what the phase prints and gates on."""
+    warm-up; returns what the phase prints and gates on (with ``keep``,
+    the engine too, whose prefill phase 12(a) profiles)."""
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
     from paddle_tpu_torch.ops import kernels
 
@@ -1526,12 +1558,14 @@ def loop_run(torch, model, kind, prompts, L):
                                 eng.decode_tokens)
         reqs = [eng.add_request(i, p, max_new_tokens=NEW_TOKENS)
                 for i, p in enumerate(prompts)]
+        pf = prefill_timer(eng)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        warmed = eng.warmed_up
     counts = kernels.launch_counts()
     steps = eng.decode_steps - steps0
     r = dict(kind=kind, wall=wall, steps=steps,
@@ -1540,16 +1574,22 @@ def loop_run(torch, model, kind, prompts, L):
              ttft=statistics.median(q.ttft() for q in reqs),
              tokens={q.req_id: list(q.out) for q in reqs},
              graphs0=graphs0, graphs=graph_counts(eng), counts=counts,
-             stats=eng.overlap_stats())
+             stats=eng.overlap_stats(), prefill=pf,
+             prefill_pool=graph_pool_bytes(torch, eng._prefill_fn),
+             warmed_up=warmed)
     if counts["paged_decode_attention"] != L * steps or steps == 0:
         fail(f"phase 11 {kind} serving: {counts['paged_decode_attention']} "
              f"paged-decode launches for {steps} decode steps x {L} layers")
-    want = {"decode": 0, "chunk": 0, "verify": 0} if kind == "eager" else \
-        {"decode": 1, "chunk": 1, "verify": 0}
+    want = ({"prefill": 0, "decode": 0, "chunk": 0, "verify": 0}
+            if kind == "eager" else
+            {"prefill": 1, "decode": 1, "chunk": 1, "verify": 0})
     if graphs0 != want or r["graphs"] != want:
         fail(f"phase 11 {kind} serving: captured graphs {graphs0} after the "
              f"warm-up and {r['graphs']} at the end, expected {want}")
-    del eng
+    if not r["warmed_up"]:
+        fail(f"phase 11 {kind} serving: warmed_up is false after the run")
+    if keep:
+        r["prefill_engine"] = eng
     return r
 
 
@@ -1845,7 +1885,9 @@ def decode_loop_phase(torch, np, dev, args, card):
     # (a) in turns
     runs = []
     for kind in LOOP_ORDER:
-        runs.append(loop_run(torch, model, kind, prompts, L))
+        keep = kind == "captured" and not any("prefill_engine" in r
+                                              for r in runs)
+        runs.append(loop_run(torch, model, kind, prompts, L, keep))
         gc.collect()
         r = runs[-1]
         print(f"phase 11(a) {kind} serving: {N_REQUESTS} requests (phase 4's "
@@ -1891,10 +1933,755 @@ def decode_loop_phase(torch, np, dev, args, card):
               f"ms per decode step, {100 * dev_ms / n / ms:.1f}% of the "
               f"unprofiled {ms:.3f} ms per decode step (device busy; "
               f"{100 * dev_ms / wall:.1f}% under the profiler) [{card}]")
-    del steady, model, small_model
+    del steady, small_model
     gc.collect()
     torch.cuda.empty_cache()
-    return runs
+    return runs, model
+
+
+# -- phase 12: the serving engine's front door --------------------------------
+# (a) prefill capture. Phase 4's workload (whole-prompt prefill, prompt_pad
+# 512) is phase 11(a)'s turns; phase 5b's shared-prefix workload (chunked
+# prefill, prefill_chunk 256) runs here in eager, captured and overlap
+# engines in turns, on bf16 and on int8 pools. Each engine first serves one
+# unrelated prompt (its programs run eagerly once and are captured), then
+# its prefix cache is cleared.
+PREFILL_ORDER = {"bf16": LOOP_ORDER, "int8": ("eager", "captured", "overlap")}
+PREFILL_WARM_NEW = 20
+TOP_KERNELS = 6  # the kernels of a profiled prefill that phase 12(a) names
+# (b) overload control, benchmarks/serving_throughput.py:237-335 (its on-TPU
+# cell, unchanged in shape): calibrate capacity closed-loop, then offer 2x
+# capacity open-loop, one request in three interactive, per-class
+# deadlines, AdmissionConfig(max_queue=B, high_watermark=0.75,
+# target_delay_s=interactive_ddl / 2); captured, tracing on, the resource
+# ledger on. OVERLOAD_BUDGET_S bounds the open-loop run (the source's
+# budget guard)
+OVERLOAD = dict(max_batch=16, max_len=1024, block_size=64,
+                num_blocks=16 * (1024 // 64) + 2, prompt_pad=512)
+OVERLOAD_LENS, OVERLOAD_REQUESTS, OVERLOAD_NEW = (128, 256, 384), 192, 48
+OVERLOAD_BUDGET_S = 240.0
+# (c) the host-RAM tier: phase 5b's configuration with TIER_FAMILIES
+# families of 512-token prefixes, visited round-robin, so that their pinned
+# blocks cannot all stay beside the running sequences and HBM evicts. The
+# tier keys a frame by the whole block-aligned prompt (as the reference's
+# does), so each family keeps one tail (64 or 128 tokens, drawn once) and
+# its prompt recurs whole after the other families. Three engines: no tier,
+# a HostTier of TIER_CAPACITY bytes, and a pool of TIER_LARGE_BLOCKS that
+# never evicts; then the tier engine again with cache.spill corrupting a
+# frame with probability TIER_CORRUPT_P (bit TIER_CORRUPT_BIT: inside the
+# pages)
+TIER_FAMILIES, TIER_REQUESTS, TIER_NEW = 16, 64, 32
+TIER_CAPACITY, TIER_LARGE_BLOCKS = 4 << 30, 512
+TIER_CORRUPT_P, TIER_CORRUPT_BIT = 0.5, 8 * 200_000
+
+
+def graph_pool_bytes(torch, fn):
+    """Bytes of the segments in ``fn``'s CUDA-graph memory pool (None when
+    it captured nothing)."""
+    pool = getattr(fn, "_pool", None)
+    if pool is None or not fn._graphs:
+        return None
+    segs = torch.cuda.memory._snapshot()["segments"]
+    n = sum(sg["total_size"] for sg in segs
+            if tuple(sg.get("segment_pool_id", ())) == tuple(pool))
+    return n or None
+
+
+def gib(n):
+    return "not measured" if n is None else f"{n / 2**30:.2f} GiB"
+
+
+@contextlib.contextmanager
+def prefill_ranges(torch, model):
+    """Name the parts of a prefill for the profiler: the KV write and the
+    gathered view (``paged_update_kv_cache``), the masked attention and
+    softmax over it (``F.scaled_dot_product_attention`` with a mask), and
+    the lm_head."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import paged_attention as PA
+
+    saved = (F.scaled_dot_product_attention, PA.paged_update_kv_cache)
+
+    def ranged(name, fn):
+        def run(*a, **k):
+            with torch.profiler.record_function(f"prefill:{name}"):
+                return fn(*a, **k)
+        return run
+
+    F.scaled_dot_product_attention = ranged("attention", saved[0])
+    PA.paged_update_kv_cache = ranged("kv", saved[1])
+    model._head = ranged("lm_head", model._head)
+    try:
+        yield
+    finally:
+        F.scaled_dot_product_attention, PA.paged_update_kv_cache = saved
+        del model._head
+
+
+def _range_kernels(evt):
+    """(kernel name, device us) of every kernel an event's subtree ran."""
+    out = [(k.name, k.duration) for k in evt.kernels]
+    for ch in evt.cpu_children:
+        out += _range_kernels(ch)
+    return out
+
+
+def prefill_profile(torch, eng, label, card):
+    """One prefill program of a captured engine (its inputs as the run
+    left them): CUDA-event ms of a replay, the profiler's device ms of one
+    replay, and the split of one eager call of the same program (the same
+    kernels) into the KV write and gather, the masked attention and
+    softmax, the lm_head, the other GEMMs (projections, MLP) and the rest
+    (norms, RoPE, SwiGLU, residuals, argmax)."""
+    from paddle_tpu_torch.ops import kernels
+
+    fn = eng._prefill_fn
+    n0 = kernels.launch_counts()
+    replay_ms = time_ms(fn, 5, warmup=1)
+    kernels.set_launch_counts(n0)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    replay_dev = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    with static_mode(False), prefill_ranges(torch, eng.model), \
+            torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels.set_launch_counts(n0)
+    # the named ranges show up among the device events too (as GPU user
+    # annotations spanning their kernels): kernels only
+    allk = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("prefill:")]
+    total = sum(t for _, t in allk) / 1e3
+    parts, inside_gemm = {}, 0.0
+    for evt in prof.events():
+        if evt.name.startswith("prefill:"):
+            ks = _range_kernels(evt)
+            name = evt.name.split(":", 1)[1]
+            parts[name] = parts.get(name, 0.0) + sum(d for _, d in ks) / 1e3
+            inside_gemm += sum(d for k, d in ks
+                               if kernel_class(k) == "GEMMs") / 1e3
+    gemms = sum(t for k, t in allk if kernel_class(k) == "GEMMs") / 1e3 \
+        - inside_gemm
+    rest = total - sum(parts.values()) - gemms
+    top = sorted(allk, key=lambda kt: -kt[1])[:TOP_KERNELS]
+    split = dict(kv_write_gather=parts.get("kv", 0.0),
+                 masked_attention_softmax=parts.get("attention", 0.0),
+                 lm_head=parts.get("lm_head", 0.0), other_gemms=gemms,
+                 rest_and_argmax=rest)
+    print(f"phase 12(a) {label} prefill program [{eng.B}, "
+          f"{tuple(eng._pids.shape)[1]}]: a replay {replay_ms:.3f} ms "
+          f"(CUDA events), {replay_dev:.3f} ms of kernels in a profiled "
+          f"replay; an eager call's {total:.3f} ms of kernels split "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f" ms; graph pool {gib(graph_pool_bytes(torch, fn))} [{card}]")
+    print(f"phase 12(a) {label} prefill, the eager call's top kernels: "
+          + "; ".join(f"{t / 1e3:.3f} ms {kernel_class(k)}: {k[:90]}"
+                      for k, t in top))
+    return dict(replay_ms=replay_ms, replay_dev=replay_dev, total=total,
+                split=split)
+
+
+def prefix_work(np, vocab, families_n, requests, repeats=0, wave=0,
+                fixed_tails=False):
+    """Phase 5b's shared-prefix traffic: ``families_n`` 512-token prefixes
+    drawn first from seed 3, then each request's tail; request i takes
+    family i % families_n. With ``fixed_tails`` each family draws one tail
+    (so its whole prompt recurs). ``repeats`` exact repeats of the first
+    requests queue behind the first ``wave``."""
+    rng = np.random.RandomState(3)  # the source's seed and draw order
+    families = [rng.randint(0, vocab, (PREFIX_LEN,))
+                for _ in range(families_n)]
+    tails = [rng.randint(0, vocab, (PREFIX_TAILS[i % 2],))
+             for i in range(families_n if fixed_tails else requests)]
+    work = [(i, np.concatenate([families[i % families_n],
+                                tails[i % len(tails)]]))
+            for i in range(requests)]
+    if repeats:
+        work = (work[:wave] + [(f"again{i}", work[i][1].copy())
+                               for i in range(repeats)] + work[wave:])
+    return families, work
+
+
+def decode_launch_error(counts, kv, L, steps):
+    """None when a run of ``steps`` decode steps on ``kv`` pools launched
+    its paged-decode kernel ``L`` times a step and the other decode kernel
+    never; else what the counts show."""
+    name, other = ("paged_decode_attention", "paged_decode_attention_int8")
+    if kv:
+        name, other = other, name
+    got, stray = counts.get(name, 0), counts.get(other, 0)
+    if steps and got == L * steps and not stray:
+        return None
+    return (f"{got} {name} launches for {steps} decode steps x {L} layers, "
+            f"{stray} {other} launches")
+
+
+def chunked_run(torch, np, model, kind, kv, work, L):
+    """One engine of kind ``kind`` over phase 5b's workload on ``kv``
+    pools, after its own warm-up; returns what 12(a) prints and gates on."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import kernels
+
+    eng = ContinuousBatchingEngine(model, **PREFIX_SERVE, kv_dtype=kv,
+                                   overlap=kind == "overlap")
+    vocab = model.config.vocab_size
+    with static_mode(kind != "eager"):
+        warm = np.random.RandomState(99).randint(0, vocab, (PREFIX_LEN + 64,))
+        eng.add_request("warm", warm, max_new_tokens=PREFILL_WARM_NEW)
+        eng.run()
+        eng.prefix_cache.clear()
+        graphs0 = graph_counts(eng)
+        c0 = (eng.decode_steps, eng.decode_tokens, eng.prefix_hit_tokens,
+              eng.prefill_tokens)
+        reqs = [eng.add_request(rid, p, max_new_tokens=PREFIX_NEW)
+                for rid, p in work]
+        pf = prefill_timer(eng)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        warmed = eng.warmed_up
+    counts = kernels.launch_counts()
+    steps, dtok, hits, ptok = (a - b for a, b in zip(
+        (eng.decode_steps, eng.decode_tokens, eng.prefix_hit_tokens,
+         eng.prefill_tokens), c0))
+    name = ("paged_decode_attention_int8" if kv
+            else "paged_decode_attention")
+    r = dict(kind=kind, wall=wall, steps=steps, decode_tokens=dtok,
+             hit_tokens=hits, prefill_tokens=ptok,
+             ttft=statistics.median(q.ttft() for q in reqs),
+             tokens={q.req_id: list(q.out) for q in reqs}, graphs0=graphs0,
+             graphs=graph_counts(eng), launches=counts[name], prefill=pf,
+             prefill_pool=graph_pool_bytes(torch, eng._prefill_fn))
+    label = f"phase 12(a) {kind} chunked serving, {kv or 'bf16'} pools"
+    err = decode_launch_error(counts, kv, L, steps)
+    if err:
+        fail(f"{label}: {err}")
+    want = ({"prefill": 0, "decode": 0, "chunk": 0, "verify": 0}
+            if kind == "eager" else
+            {"prefill": 1, "decode": 1, "chunk": 0, "verify": 0})
+    if graphs0 != want or r["graphs"] != want or not warmed:
+        fail(f"{label}: captured graphs {graphs0} after the warm-up and "
+             f"{r['graphs']} at the end (expected {want}), warmed_up "
+             f"{warmed}")
+    if kind == "captured":
+        r["prefill_engine"] = eng
+    return r
+
+
+def show_prefill_run(label, r, card):
+    pf = r["prefill"]
+    per = pf["host_s"] / pf["dispatches"] * 1e3 if pf["dispatches"] else 0.0
+    launches = r.get("launches", r.get("counts", {}).get(
+        "paged_decode_attention"))
+    print(f"{label}: wall {r['wall']:.3f} s, TTFT p50 {r['ttft'] * 1e3:.1f} "
+          f"ms, {r['decode_tokens'] / r['wall']:.1f} decode tokens/s, "
+          f"{r['steps']} decode steps, {launches} paged-decode launches, "
+          f"{pf['dispatches']} prefill dispatches, admit+prefill host "
+          f"{pf['host_s']:.3f} s = {per:.2f} ms a dispatch, graphs "
+          f"{r['graphs']}, prefill graph pool {gib(r['prefill_pool'])} "
+          f"[{card}]")
+
+
+def prefill_phase(torch, np, model, loop_runs, card):
+    """Phase 12(a): the prefill programs captured, whole-prompt (phase
+    11(a)'s runs) and chunked (here), and one profiled prefill of each."""
+    import gc
+
+    for r in loop_runs:
+        show_prefill_run(f"phase 12(a) {r['kind']} whole-prompt serving "
+                         f"(phase 11(a)'s run)", r, card)
+    whole_eng = next(r.pop("prefill_engine") for r in loop_runs
+                     if "prefill_engine" in r)
+    for r in loop_runs:
+        r.pop("prefill_engine", None)
+    prof = {"whole": prefill_profile(torch, whole_eng, "whole-prompt", card)}
+    del whole_eng
+    gc.collect()
+    L = model.config.num_hidden_layers
+    _, work = prefix_work(np, model.config.vocab_size, PREFIX_FAMILIES,
+                          PREFIX_REQUESTS, PREFIX_REPEATS,
+                          PREFIX_SERVE["max_batch"])
+    for kv, order in PREFILL_ORDER.items():
+        runs = []
+        for kind in order:
+            runs.append(chunked_run(torch, np, model, kind,
+                                    None if kv == "bf16" else kv, work, L))
+            show_prefill_run(f"phase 12(a) {kind} chunked serving, {kv} "
+                             f"pools", runs[-1], card)
+            gc.collect()
+        if any(r["tokens"] != runs[0]["tokens"] for r in runs):
+            fail(f"phase 12(a): the {kv} chunked eager, captured and "
+                 f"overlap token streams differ")
+        print(f"phase 12(a) {kv} chunked: all {len(runs)} token streams "
+              f"bitwise equal")
+        eng = next(r.pop("prefill_engine") for r in runs
+                   if "prefill_engine" in r)
+        for r in runs:
+            r.pop("prefill_engine", None)
+        prof[f"chunked {kv}"] = prefill_profile(
+            torch, eng, f"chunked {kv} pools", card)
+        del eng, runs
+        gc.collect()
+    torch.cuda.empty_cache()
+    return prof
+
+
+def warm_engine(np, eng, n=2):
+    """Serve ``n`` one-token prompts one after another: each program runs
+    eagerly once and is captured; the warm requests leave no trace."""
+    for i in range(n):
+        eng.add_request(("warm", i), np.ones(1, np.int32), max_new_tokens=3)
+        eng.run()
+        del eng._completed[("warm", i)]
+
+
+def overlap_expiry_check(torch, np, model, prompts):
+    """A captured overlap engine at OVERLOAD's shapes: request 0's deadline
+    (on a fake clock) lapses while a dispatch that served it is still on
+    the ring. Returns (tokens it had at the expiry, tokens it ends with,
+    the other streams, the same streams from a sync engine, blocks free)."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.utils.retries import Deadline
+
+    clock = {"t": 0.0}
+    got = {}
+    for overlap in (True, False):
+        eng = ContinuousBatchingEngine(model, **OVERLOAD, overlap=overlap)
+        warm_engine(np, eng)
+        reqs = [eng.add_request(i, p, max_new_tokens=OVERLOAD_NEW,
+                                deadline=Deadline(1.0, clock=lambda: clock["t"])
+                                if overlap and i == 0 else None)
+                for i, p in enumerate(prompts)]
+        clock["t"] = 0.0
+        at_expiry = None
+        for _ in range(4 * OVERLOAD_NEW):
+            if not (eng._queue or eng.num_active):
+                break
+            eng.step()
+            if (overlap and at_expiry is None and len(reqs[0].out) >= 4
+                    and any(row[1] is reqs[0] for e in eng._ring
+                            for row in e.rows)):
+                clock["t"] = 5.0  # lapses with a dispatch of it in flight
+                eng.step()
+                at_expiry = len(reqs[0].out)
+        eng.run()
+        got[overlap] = dict(
+            expired=(reqs[0].status, at_expiry, len(reqs[0].out)),
+            tokens={q.req_id: list(q.out) for q in reqs[1:]},
+            free=eng.manager.free_blocks == eng.manager.num_blocks)
+        del eng
+    return got
+
+
+def overlap_expiry_ok(chk) -> bool:
+    """The gate over ``overlap_expiry_check``: the request expired, gained
+    no token after its expiry, the others equal the sync engine's, and
+    every block came back."""
+    status, at, final = chk[True]["expired"]
+    return (status == "expired" and at is not None and final == at
+            and chk[True]["tokens"] == chk[False]["tokens"]
+            and chk[True]["free"] and chk[False]["free"])
+
+
+def overload_phase(torch, np, model, card):
+    """Phase 12(b): the reference's overload scenario, captured, with
+    tracing and the resource ledger on."""
+    import gc
+
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.inference import (AdmissionConfig,
+                                            ContinuousBatchingEngine)
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.utils import resources
+
+    B, L = OVERLOAD["max_batch"], model.config.num_hidden_layers
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, model.config.vocab_size,
+                           (int(OVERLOAD_LENS[i % len(OVERLOAD_LENS)]),))
+               for i in range(OVERLOAD_REQUESTS)]
+    obs.set_enabled(True)
+    obs.ring().clear()
+    led = resources.instrument_resources()
+    try:
+        calib = ContinuousBatchingEngine(model, **OVERLOAD)
+        warm_engine(np, calib)
+        n_cal = min(3 * B, OVERLOAD_REQUESTS)
+        t0 = time.perf_counter()
+        for i in range(n_cal):
+            calib.add_request(i, prompts[i], max_new_tokens=OVERLOAD_NEW)
+        calib.run()
+        cal_wall = time.perf_counter() - t0
+        capacity = (calib.prefill_tokens + calib.decode_tokens) / cal_wall
+        lat_scale = cal_wall / max(n_cal / B, 1)
+        del calib
+        inter_ddl = max(8 * lat_scale, 1.0)
+        batch_ddl = max(24 * lat_scale, 3.0)
+        per_req = float(np.mean([p.size for p in prompts])) + OVERLOAD_NEW
+        arrival_dt = per_req / (2.0 * capacity)  # 2x offered load
+        eng = ContinuousBatchingEngine(model, **OVERLOAD, admission=(
+            AdmissionConfig(max_queue=B, high_watermark=0.75,
+                            target_delay_s=inter_ddl / 2)))
+        warm_engine(np, eng)
+        # the warm steps carried the captures: drop them from the EWMAs
+        eng.ewma_step_s = eng.ewma_step_tokens = None
+        expired_at = {}
+        expire = eng._expire
+
+        def recorded_expire(req):
+            expired_at[req.req_id] = len(req.out)
+            expire(req)
+
+        eng._expire = recorded_expire
+        submitted, stopped = 0, False
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        steps0 = eng.decode_steps
+        t0 = time.perf_counter()
+        while submitted < OVERLOAD_REQUESTS or eng._queue or eng.num_active:
+            now = time.perf_counter() - t0
+            if now > OVERLOAD_BUDGET_S:
+                stopped = True
+                break
+            while submitted < OVERLOAD_REQUESTS and now >= submitted * arrival_dt:
+                i = submitted
+                pri = "interactive" if i % 3 == 0 else "batch"
+                eng.add_request(i, prompts[i], max_new_tokens=OVERLOAD_NEW,
+                                priority=pri, deadline=inter_ddl
+                                if pri == "interactive" else batch_ddl)
+                submitted += 1
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        steps = eng.decode_steps - steps0
+        done = dict(eng._completed)
+        graphs = graph_counts(eng)
+        acc = eng.manager.accounting()
+        try:
+            led.verify(eng.manager)
+            leaks = led.leak_check()
+        except resources.ResourceLeakError as e:
+            leaks = str(e)
+        level, n_expired = eng.admission.level, eng.n_expired
+        n_shed = dict(eng.n_shed.items())
+        events = obs.ring().dump()
+        del eng
+        gc.collect()
+    finally:
+        resources.uninstrument_resources()
+    ok = [r for r in done.values() if r.status == "ok"]
+    ok_inter = [r for r in ok if r.priority == "interactive"]
+    ttfts = sorted(r.ttft() for r in ok_inter if r.ttft() is not None)
+    reasons = {}
+    for r in done.values():
+        if r.status == "shed":
+            key = f"{r.priority}:{r.shed_reason}"
+            reasons[key] = reasons.get(key, 0) + 1
+    goodput = sum(len(r.out) for r in ok) / wall
+    pct = lambda xs, q: (xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3  # noqa: E731
+                         if xs else float("nan"))
+    print(f"phase 12(b) overload: capacity {capacity:.1f} tokens/s "
+          f"(closed-loop calibration, {n_cal} requests, {cal_wall:.3f} s), "
+          f"offered 2x: {submitted} requests, one in {arrival_dt * 1e3:.2f} "
+          f"ms, deadlines interactive {inter_ddl * 1e3:.0f} ms / batch "
+          f"{batch_ddl * 1e3:.0f} ms; wall {wall:.3f} s, goodput "
+          f"{goodput:.1f} ok tokens/s, ok {len(ok)} ({len(ok_inter)} "
+          f"interactive), shed {n_shed} by reason {reasons}, "
+          f"accepted-then-expired {n_expired}, interactive TTFT p50 "
+          f"{pct(ttfts, 0.5):.1f} ms p99 {pct(ttfts, 0.99):.1f} ms against "
+          f"its {inter_ddl * 1e3:.0f} ms deadline, admission level {level}, "
+          f"graphs {graphs}, {steps} decode steps, paged-decode launches "
+          f"{counts.get('paged_decode_attention', 0)} bf16 / "
+          f"{counts.get('paged_decode_attention_int8', 0)} int8 [{card}]")
+    statuses = {r.status for r in done.values()}
+    if (len(done) != OVERLOAD_REQUESTS or not statuses <= {"ok", "shed",
+                                                             "expired"}
+            or stopped):
+        fail(f"phase 12(b): {len(done)} of {OVERLOAD_REQUESTS} requests "
+             f"ended ({statuses}), budget stop {stopped}")
+    if graphs != {"prefill": 1, "decode": 1, "chunk": 0, "verify": 0}:
+        fail(f"phase 12(b): captured graphs {graphs}")
+    err = decode_launch_error(counts, None, L, steps)
+    if err:
+        fail(f"phase 12(b): {err}")
+    if not (acc["free"] == acc["total"] and not acc["owned"]):
+        fail(f"phase 12(b): blocks not all free at the end: {acc}")
+    if leaks != 0:
+        fail(f"phase 12(b): the resource ledger is not clean: {leaks}")
+    late = {rid: (n, len(done[rid].out)) for rid, n in expired_at.items()
+            if len(done[rid].out) != n}
+    if late:
+        fail(f"phase 12(b): expired requests gained tokens after their "
+             f"expiry: {late}")
+    # the span tree of an admitted request that led a dispatch
+    spans = [e for e in events if e.get("ph") == "X"]
+    by_trace = {}
+    for e in spans:
+        by_trace.setdefault(e["trace_id"], []).append(e)
+    ok_traces = {r.trace_id for r in ok}
+    full = None
+    for tid in sorted(ok_traces):
+        ev = by_trace.get(tid, [])
+        names = {e["name"] for e in ev}
+        ids = {e["span_id"] for e in ev}
+        if ({"admission", "prefill", "decode", "dispatch", "harvest"} <= names
+                and all(not e.get("parent_id") or e["parent_id"] in ids
+                        for e in ev)):
+            full = (tid, sorted(names), len(ev))
+            break
+    if full is None:
+        fail("phase 12(b): no admitted request's trace holds its admission, "
+             "prefill, decode, dispatch and harvest spans")
+    print(f"phase 12(b) the span tree of one admitted request: trace "
+          f"{full[0]}, {full[2]} spans named {full[1]}, no orphans; "
+          f"{len(spans)} spans in the ring")
+    # ok streams against an unloaded engine (same shapes, no admission)
+    ref = ContinuousBatchingEngine(model, **OVERLOAD)
+    warm_engine(np, ref)
+    for r in ok:
+        ref.add_request(r.req_id, prompts[r.req_id],
+                        max_new_tokens=r.max_new_tokens)
+    want = ref.run()
+    del ref
+    bad = [r.req_id for r in ok if list(r.out) != list(want[r.req_id].out)]
+    if bad:
+        fail(f"phase 12(b): {len(bad)} of {len(ok)} ok streams differ from "
+             f"the unloaded engine's: {bad[:8]}")
+    print(f"phase 12(b) all {len(ok)} ok streams bitwise equal to the "
+          f"unloaded engine's; every block free, the ledger clean, no "
+          f"expired request gained a token after its expiry")
+    chk = overlap_expiry_check(torch, np, model, prompts[:6])
+    _, at, final = chk[True]["expired"]
+    ok_chk = overlap_expiry_ok(chk)
+    print(f"phase 12(b) deadline under overlap: request 0 expired with a "
+          f"dispatch of it in flight, {at} tokens at the expiry and {final} "
+          f"at the end; the other {len(chk[True]['tokens'])} streams "
+          f"{'equal' if chk[True]['tokens'] == chk[False]['tokens'] else 'DIFFER FROM'} "
+          f"the sync engine's -> {'pass' if ok_chk else 'FAIL'}")
+    if not ok_chk:
+        fail(f"phase 12(b): deadline under overlap: {chk}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(goodput=goodput, ok=len(ok), n_shed=n_shed,
+                expired=n_expired)
+
+
+class CrcAudit(dict):
+    """A tier backend that checks each frame a lookup fetches against its
+    own CRC, independently of the tier's decoder."""
+
+    def __init__(self):
+        super().__init__()
+        self.fetched = self.corrupt_fetched = 0
+
+    def get(self, key, default=None):
+        import struct
+        import zlib
+
+        frame = super().get(key, default)
+        if frame is not None:
+            self.fetched += 1
+            (crc,) = struct.unpack(">I", frame[-4:])
+            if zlib.crc32(frame[:-4]) & 0xFFFFFFFF != crc:
+                self.corrupt_fetched += 1
+        return frame
+
+
+def tier_run(torch, np, model, kv, work, num_blocks, tier, corrupt=False):
+    """One engine of 12(c) over ``work``: captured, sync, warmed on an
+    unrelated prompt first; ``tier`` is attached after the warm-up. Each
+    restore is checked as it lands: the pools keep their addresses, and
+    the restored blocks re-export bitwise as the frame's pages (and
+    scales)."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.testing import chaos
+
+    eng = ContinuousBatchingEngine(
+        model, **dict(PREFIX_SERVE, num_blocks=num_blocks), kv_dtype=kv)
+    vocab = model.config.vocab_size
+    warm = np.random.RandomState(98).randint(0, vocab, (PREFIX_LEN + 64,))
+    eng.add_request("warm", warm, max_new_tokens=PREFILL_WARM_NEW)
+    eng.run()
+    eng.prefix_cache.clear()
+    eng.cache_tier = tier
+    ptrs = [[t.data_ptr() for t in e] for e in eng._pools]
+    checks = []
+    mgr = eng.manager
+    real_import = mgr.import_blocks
+
+    def checked_import(seq_id, pages, scales, meta, pools):
+        out = real_import(seq_id, pages, scales, meta, pools)
+        again, sc, meta2 = mgr.export_blocks(seq_id, eng._pools)
+        same = (meta2 == dict(meta) and np.array_equal(again, pages)
+                and (scales is None or np.array_equal(sc, scales)))
+        moved = [[t.data_ptr() for t in e] for e in eng._pools] != ptrs
+        checks.append((same, moved))
+        return out
+
+    mgr.import_blocks = checked_import
+    spill_host = [0.0]
+    spill = eng._tier_spill
+
+    def timed_spill(*a):
+        t = time.perf_counter()
+        try:
+            return spill(*a)
+        finally:
+            spill_host[0] += time.perf_counter() - t
+
+    eng._tier_spill = timed_spill
+    c0 = (eng.prefix_hit_tokens, eng.decode_tokens,
+          eng.prefix_stats()["evicted_blocks"], eng.decode_steps)
+    if corrupt:
+        chaos.install(chaos.ChaosSchedule(seed=3).with_probability(
+            "cache.spill", TIER_CORRUPT_P, "corrupt", TIER_CORRUPT_BIT))
+    try:
+        reqs = [eng.add_request(rid, p, max_new_tokens=TIER_NEW)
+                for rid, p in work]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    finally:
+        if corrupt:
+            chaos.uninstall()
+    st = eng.prefix_stats()
+    steps = eng.decode_steps - c0[3]
+    r = dict(wall=wall, ttft=statistics.median(q.ttft() for q in reqs),
+             tokens={q.req_id: list(q.out) for q in reqs},
+             hit_tokens=eng.prefix_hit_tokens - c0[0],
+             decode_tokens=eng.decode_tokens - c0[1],
+             evicted=st["evicted_blocks"] - c0[2], tier=st.get("tier"),
+             checks=checks, spill_host_s=spill_host[0],
+             ptrs_kept=[[t.data_ptr() for t in e] for e in eng._pools] == ptrs,
+             graphs=graph_counts(eng), steps=steps,
+             launches=(counts.get("paged_decode_attention", 0),
+                       counts.get("paged_decode_attention_int8", 0)),
+             launch_error=decode_launch_error(
+                 counts, kv, model.config.num_hidden_layers, steps))
+    del eng, mgr
+    return r
+
+
+TIER_ENGINES = ("no tier", "tier", "large pool", "tier, corrupt spills")
+
+
+def tier_runs(torch, np, model, kv, n_requests, which=TIER_ENGINES):
+    """12(c)'s engines (``which`` of ``TIER_ENGINES``) on ``kv`` pools over
+    ``n_requests`` requests: no tier, the tier, the large pool, and the
+    tier under corrupt spills. Returns {name: run}."""
+    import gc
+
+    from paddle_tpu_torch.inference import HostTier
+
+    _, work = prefix_work(np, model.config.vocab_size, TIER_FAMILIES,
+                          n_requests, fixed_tails=True)
+    out = {}
+    for name, blocks, tier, corrupt in (
+            ("no tier", PREFIX_SERVE["num_blocks"], None, False),
+            ("tier", PREFIX_SERVE["num_blocks"],
+             HostTier(capacity_bytes=TIER_CAPACITY), False),
+            ("large pool", TIER_LARGE_BLOCKS, None, False),
+            ("tier, corrupt spills", PREFIX_SERVE["num_blocks"],
+             HostTier(capacity_bytes=TIER_CAPACITY, backend=CrcAudit()),
+             True)):
+        if name not in which:
+            continue
+        out[name] = tier_run(torch, np, model, kv, work, blocks, tier,
+                             corrupt)
+        if tier is not None:
+            out[name]["audit"] = (getattr(tier._data, "fetched", None),
+                                  getattr(tier._data, "corrupt_fetched", None))
+        del tier
+        gc.collect()
+    return out
+
+
+def tier_failures(res):
+    """12(c)'s gates over ``tier_runs``'s result: the failures, worded."""
+    bad = [f"{name}: {r['launch_error']}" for name, r in res.items()
+           if r["launch_error"]]
+    want = res["large pool"]["tokens"]
+    for name in ("tier", "tier, corrupt spills"):
+        r = res[name]
+        if r["tokens"] != want:
+            n = sum(r["tokens"][k] != want[k] for k in want)
+            bad.append(f"{name}: {n} streams differ from the large pool's")
+        if not r["tier"]["restores"]:
+            bad.append(f"{name}: no tier restore happened")
+        if not all(same for same, _ in r["checks"]):
+            bad.append(f"{name}: a restored prefix re-exports other bytes "
+                       f"than its frame's")
+        if any(moved for _, moved in r["checks"]) or not r["ptrs_kept"]:
+            bad.append(f"{name}: a restore rebound the pools")
+        if r["graphs"]["prefill"] != 1 or r["graphs"]["decode"] != 1:
+            bad.append(f"{name}: graphs {r['graphs']}")
+    c = res["tier, corrupt spills"]
+    fetched, corrupt = c["audit"]
+    if not corrupt or corrupt != c["tier"]["corrupt_rejected"]:
+        bad.append(f"tier, corrupt spills: {corrupt} corrupt frames looked "
+                   f"up, {c['tier']['corrupt_rejected']} CRC rejections")
+    return bad
+
+
+def tier_phase(torch, np, model, card):
+    """Phase 12(c): the host-RAM tier on bf16 and int8 pools."""
+    for kv in (None, "int8"):
+        res = tier_runs(torch, np, model, kv, TIER_REQUESTS)
+        for name, r in res.items():
+            t = r["tier"] or {}
+            print(f"phase 12(c) {kv or 'bf16'} pools, {name}: "
+                  f"{len(r['tokens'])} requests ({TIER_FAMILIES} families "
+                  f"of {PREFIX_LEN}-token prefixes with one tail each of "
+                  f"{PREFIX_TAILS}, round-robin, {TIER_NEW} new tokens) wall "
+                  f"{r['wall']:.3f} s, TTFT p50 {r['ttft'] * 1e3:.1f} ms, "
+                  f"HBM hit tokens {r['hit_tokens']}, evicted blocks "
+                  f"{r['evicted']}, tier restores {t.get('restores', 0)} "
+                  f"({t.get('restore_tokens', 0)} tokens), spills "
+                  f"{t.get('puts', 0)} ({t.get('spill_bytes', 0) / 2**20:.1f}"
+                  f" MiB read from the card in {t.get('spill_s', 0.0) * 1e3:.1f}"
+                  f" ms; the whole write-through {r['spill_host_s'] * 1e3:.1f}"
+                  f" ms of host), tier bytes {t.get('bytes', 0) / 2**20:.1f} "
+                  f"MiB, CRC rejections {t.get('corrupt_rejected', 0)}, "
+                  f"lookups audited {r.get('audit')}, {r['steps']} decode "
+                  f"steps, paged-decode launches {r['launches'][0]} bf16 / "
+                  f"{r['launches'][1]} int8 [{card}]")
+        want = res["large pool"]["tokens"]
+        recompute = sum(res["no tier"]["tokens"][k] != want[k] for k in want)
+        print(f"phase 12(c) {kv or 'bf16'} pools: the no-tier engine's "
+              f"streams differ from the large pool's in {recompute} of "
+              f"{len(want)} (reported, not gated: a recomputed prefix "
+              f"rounds as a prefill of its own)")
+        bad = tier_failures(res)
+        if bad:
+            fail(f"phase 12(c) {kv or 'bf16'} pools: " + "; ".join(bad))
+        print(f"phase 12(c) {kv or 'bf16'} pools: tier streams equal the "
+              f"large pool's bitwise, {sum(len(r['checks']) for r in res.values())} "
+              f"restores re-export bitwise, pools never rebound, every "
+              f"corrupt frame looked up rejected by its CRC, every engine's "
+              f"paged-decode launches = layers x decode steps")
+
+
+def front_door_phase(torch, np, model, loop_runs, card):
+    """Phase 12: (a) prefill capture, (b) overload control, (c) the
+    host-RAM tier."""
+    prof = prefill_phase(torch, np, model, loop_runs, card)
+    overload = overload_phase(torch, np, model, card)
+    tier_phase(torch, np, model, card)
+    return prof, overload
 
 
 def kernel_class(name: str) -> str:
@@ -2497,7 +3284,14 @@ def main() -> int:
         gen)
 
     # -- phase 11: the decode loop ---------------------------------------------
-    decode_loop_phase(torch, np, dev, args, card)
+    loop_runs, serve_model = decode_loop_phase(torch, np, dev, args, card)
+
+    # -- phase 12: the serving engine's front door --------------------------
+    front_door_phase(torch, np, serve_model, loop_runs, card)
+    del serve_model, loop_runs
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- phase 9: the decode and AdamW kernels' device times ----------------
     # taken last: a profiler session slows the host work of the phases

@@ -3,6 +3,7 @@
 
     cd <checkout> && python3 <path>/flash_ab.py LABEL [fwd|bwd]
     cd <checkout> && python3 <path>/flash_ab.py LABEL decode [BLOCKS_PER_SM..]
+    cd <checkout> && python3 <path>/flash_ab.py LABEL steady [TURN ..] [split]
 
 Builds that checkout's flash kernels, then times them at
 ``chip_smoke.py`` phase 2's three configurations (B=4, S=2048, H=16,
@@ -20,8 +21,23 @@ card. ``decode`` times the float and int8 paged-decode kernels at
 ``chip_smoke.py`` phase 2's B=16 and B=64 cases and its engine-like B=8
 case: the kernel's device time per launch from the profiler, three means of
 20 launches; each BLOCKS_PER_SM given (default: the wrapper's own) sets the
-wrapper's split target for one pass over the cases. Needs an NVIDIA card
-and ``nvcc``.
+wrapper's split target for one pass over the cases. ``steady`` times the
+serving engine's steady decode of that checkout (the window of its
+``chip_smoke.py`` phase 11(a) ``loop_steady``: Llama-542M, 16 slots,
+16-step chunks, LOOP_STEADY_STEPS dispatches after 3 warm ones) in a
+captured sync and an overlap engine per TURN, in the order given: per
+decode step, the wall ms and the ms the replayed chunk program held the
+device (CUDA events around each dispatch of it), whose difference is the
+host's share. A TURN is ``default`` (the only one when none is given),
+``on`` or ``off`` (tracing), ``lean`` (tracing off and the front door's
+per-step host work taken out of the engine, ``strip``), ``eagerprefill``
+(the prefill program left uncaptured), ``decodefirst`` (the chunk
+program captured before any prefill) or ``ballast`` (``eagerprefill``
+with 4 GiB held on the card). With ``split``,
+each window is followed by two profiled dispatches whose device time is
+split by kernel name (a window that follows a profiled one in the same
+process may carry the profiler's cost). Needs an NVIDIA card and
+``nvcc``.
 """
 import json
 import os
@@ -89,6 +105,150 @@ def decode(torch, targets):
     return res
 
 
+# steady turns: name -> (tracing on/off or the tree's default, strip the
+# front door's per-step host work, run the prefill program eagerly,
+# capture the chunk program before any prefill, hold 4 GiB of ballast)
+TURNS = {"default": (None, False, False, False, False),
+         "on": (True, False, False, False, False),
+         "off": (False, False, False, False, False),
+         "lean": (False, True, False, False, False),
+         "eagerprefill": (None, False, True, False, False),
+         "decodefirst": (None, False, False, True, False),
+         "ballast": (None, False, True, False, True)}
+
+
+def strip(eng):
+    """Take the front door's per-step host work out of ``eng``, where its
+    tree has it: the expiry scans, the execution lock and fence checks
+    around a dispatch, and the SLO histograms fed at each token."""
+    if not hasattr(eng, "_evict_expired"):
+        return
+
+    def append(req, tok):
+        req.out.append(tok)
+        req.times.append(time.perf_counter())
+
+    eng._expire_queued = eng._evict_expired = lambda: None
+    eng._run = lambda fn, phase: fn()
+    eng._append_token = append
+
+
+def kernel_split(torch, eng, dispatches=2):
+    """Profile ``dispatches`` more engine steps: device ms per decode step
+    by kernel name, {name: [ms, launches per step]}, largest first."""
+    s0 = eng.decode_steps
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(dispatches):
+            eng.step()
+        torch.cuda.synchronize()
+    steps = eng.decode_steps - s0
+    split = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0):
+            # names cut short may collide: sum them
+            ms, n = split.get(e.key[:120], (0.0, 0.0))
+            split[e.key[:120]] = (ms + e.self_device_time_total / 1e3 / steps,
+                                  n + e.count / steps)
+    return {k: [round(ms, 4), round(n, 2)]
+            for k, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0])}
+
+
+def steady_window(torch, cs, model, kind, prompts, lean=False,
+                  eager_prefill=False, decode_first=False, split=False):
+    """One engine's steady window: (wall ms, chunk-program device ms) per
+    decode step, and with ``split`` the ``kernel_split`` of two more
+    dispatches (else None). ``lean`` strips the engine after its warm
+    steps; ``eager_prefill`` runs its prefill program uncaptured (a tree
+    whose prefill is eager already is left as it is); ``decode_first``
+    runs the chunk program twice over the idle state (every row on the
+    trash block) before any request, so that it is captured first."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(model, **cs.SERVE,
+                                   overlap=kind == "overlap")
+    if eager_prefill and hasattr(eng, "_prefill_program"):
+        eng._prefill_fn = eng._prefill_program
+    with cs.static_mode(True):
+        if decode_first:
+            eng._chunk_fn()
+            eng._chunk_fn()
+        for i in range(cs.SERVE["max_batch"]):
+            eng.add_request(i, prompts[i][:cs.PROMPT_LENS[0]],
+                            max_new_tokens=cs.LOOP_STEADY_NEW)
+        while eng._queue or len(eng._decode_rows()) < cs.SERVE["max_batch"]:
+            eng.step()
+        for _ in range(3):
+            eng.step()
+        if lean:
+            strip(eng)
+        program, marks = eng._chunk_fn, []
+
+        def timed():
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = program()
+            e.record()
+            marks.append((s, e))
+            return out
+
+        eng._chunk_fn = timed
+        torch.cuda.synchronize()
+        s0 = eng.decode_steps
+        t0 = time.perf_counter()
+        for _ in range(cs.LOOP_STEADY_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        steps = eng.decode_steps - s0
+        dev = sum(s.elapsed_time(e) for s, e in marks)
+        kernels = kernel_split(torch, eng) if split else None
+    return wall / steps, dev / steps, kernels
+
+
+def steady(torch, turns, split: bool):
+    """The checkout's steady decode over ``turns`` (names of ``TURNS``), a
+    captured sync and an overlap engine each: {"<turn> <kind>": [[wall
+    ms, device ms] a decode step, ...]}; with ``split``, each entry also
+    holds the window's ``kernel_split``."""
+    import gc
+
+    import chip_smoke as cs
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+
+    kernels.build(["paged_decode_attention"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pt_seed(0)
+    cfg = LlamaConfig(**cs.LLAMA_542M)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
+    model.eval()
+    prompts = cs.serving_prompts(torch, 1, cs.SERVE["max_batch"],
+                                 cfg.vocab_size)
+    out = {}
+    for name in turns:
+        trace, lean, eager_prefill, decode_first, ballast = TURNS[name]
+        if trace is not None:
+            from paddle_tpu_torch import obs
+
+            obs.set_enabled(trace)
+        hold = (torch.empty(4 << 30, dtype=torch.uint8, device="cuda")
+                if ballast else None)
+        for kind in ("captured", "overlap"):
+            wall, dev, kernels = steady_window(
+                torch, cs, model, kind, prompts, lean, eager_prefill,
+                decode_first, split)
+            out.setdefault(f"{name} {kind}", []).append(
+                [round(wall, 4), round(dev, 4)]
+                + ([kernels] if split else []))
+            gc.collect()
+        del hold
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, os.getcwd())
     import torch
@@ -104,6 +264,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     mode = sys.argv[2] if len(sys.argv) > 2 else "fwd"
+    if mode == "steady":
+        turns = [a for a in sys.argv[3:] if a in TURNS] or ["default"]
+        print(json.dumps({"label": sys.argv[1], "mode": mode, "turns": turns,
+                          "ms": steady(torch, turns,
+                                       "split" in sys.argv[3:])}))
+        return 0
     lib = {"fwd": "flash_attention_fwd", "bwd": "flash_attention_bwd",
            "decode": "paged_decode_attention"}[mode]
     t0 = time.time()

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Shows that ``chip_smoke.py``'s kernel gates refuse wrong kernels.
+"""Shows that ``chip_smoke.py``'s gates refuse wrong kernels and wrong
+serving host code.
 
     python3 gate_mutants.py [--seed N]
 
@@ -63,6 +64,22 @@ of the sequences longer than one token:
   ``chip_smoke.fp16_overflow_check`` (phase 10(b)'s check, at one layer of
   full width) that must refuse it: a step overflowed by a scale of 2**40
   must leave parameters, moments and beta powers as they were.
+
+The serving engine's host code, held by ``chip_smoke.py`` phase 12's
+gates at full width (Llama-542M, random weights): each broken form is the
+function's own source with one edit, compiled into a copy of the function
+and patched in (the checkout is not touched):
+
+- ``restore rebinds the pools``: a host-tier restore imports into new pool
+  tensors, as the reference's rebinding import does; phase 12(c)'s
+  address and stream gates (``chip_smoke.tier_failures``) must refuse it;
+- ``harvest credits an expired slot's in-flight tokens``: overlap mode's
+  harvest appends a dispatch's tokens to a request that expired while the
+  dispatch was in flight; phase 12(b)'s deadline-under-overlap gate
+  (``chip_smoke.overlap_expiry_ok``) must refuse it;
+- ``frame decoder skips the CRC``: the host tier's frame decoder accepts a
+  frame whose CRC does not match; phase 12(c)'s corrupt-spill gate must
+  refuse it.
 
 Each variant runs through the kernel's own wrapper (``paged_decode`` and
 ``paged_decode_int8`` for the decode, ``fused_adamw_multi_update`` for
@@ -377,6 +394,115 @@ def adamw_mutants(torch, kernels, libs, dev, gen, card, ids):
     return ok, refused, len(MUTANTS[lib_name]) - 1
 
 
+# the serving engine's host code: variant -> (module, function's qualified
+# name, [(text found exactly once in its dedented source, replacement),
+# ...])
+HOST_MUTANTS = {
+    "as is": None,
+    "restore rebinds the pools": (
+        "paddle_tpu_torch.inference.serving",
+        "ContinuousBatchingEngine._tier_restore", [(
+            "        _, blocks = self.manager.import_blocks(",
+            "        self._pools = [tuple(t.clone() for t in e)\n"
+            "                       for e in self._pools]\n"
+            "        _, blocks = self.manager.import_blocks(")]),
+    "harvest credits an expired slot's in-flight tokens": (
+        "paddle_tpu_torch.inference.serving",
+        "ContinuousBatchingEngine._apply_decode", [(
+            "        if slot.req is not req:\n            continue",
+            "        if slot.req is not req:\n"
+            "            if req.status == \"expired\":\n"
+            "                req.out.extend(int(x) for x in toks[:, i])\n"
+            "            continue")]),
+    "frame decoder skips the CRC": (
+        "paddle_tpu_torch.inference.cache_tier", "_decode", [(
+            "    if zlib.crc32(frame[:-4]) & 0xFFFFFFFF != crc:\n"
+            "        return None\n", "")]),
+}
+
+
+def host_variant(name):
+    """Patch in the broken form ``name`` of a host function; returns the
+    callable that puts the original back."""
+    import importlib
+    import inspect
+    import textwrap
+
+    module, qual, edits = HOST_MUTANTS[name]
+    mod = importlib.import_module(module)
+    owner, attr = mod, qual
+    if "." in qual:
+        cls, attr = qual.split(".")
+        owner = getattr(mod, cls)
+    real = owner.__dict__[attr]
+    src = textwrap.dedent(inspect.getsource(real))
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise SystemExit(f"gate_mutants: {name!r}: the text to replace "
+                             f"is not in {qual} exactly once; update "
+                             f"HOST_MUTANTS")
+        src = src.replace(old, new)
+    scope = dict(vars(mod))
+    exec(compile(src, f"<{name}>", "exec"), scope)
+    setattr(owner, attr, scope[attr])
+    return lambda: setattr(owner, attr, real)
+
+
+def host_mutants(torch, np, dev, args, card):
+    """Every host variant through phase 12(b)'s deadline-under-overlap
+    check and 12(c)'s tier gates (bf16 pools, HOST_TIER_REQUESTS
+    requests), on one full-width model. Returns (ok, refused, mutants
+    counted)."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    pt_seed(args.seed)
+    model = LlamaForCausalLM(LlamaConfig(**cs.LLAMA_542M), device=dev,
+                             dtype=torch.bfloat16)
+    model.eval()
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cs.LLAMA_542M["vocab_size"],
+                           (int(cs.OVERLOAD_LENS[i % 3]),)) for i in range(6)]
+    ok, refused = True, []
+    for name in HOST_MUTANTS:
+        restore = (lambda: None) if HOST_MUTANTS[name] is None else \
+            host_variant(name)
+        try:
+            try:
+                exp_ok = cs.overlap_expiry_ok(
+                    cs.overlap_expiry_check(torch, np, model, prompts))
+            except Exception as e:  # noqa: BLE001 - a crash refuses too
+                exp_ok = False
+                print(f"host {name}: the overlap expiry check raised {e!r}")
+            try:
+                bad = cs.tier_failures(cs.tier_runs(
+                    torch, np, model, None, HOST_TIER_REQUESTS,
+                    which=cs.TIER_ENGINES[1:]))
+            except Exception as e:  # noqa: BLE001 - a crash refuses too
+                bad = [f"the tier runs raised {e!r}"]
+        finally:
+            restore()
+            torch.cuda.synchronize()
+        failed = not exp_ok or bool(bad)
+        if name == "as is":
+            ok &= not failed
+        elif failed:
+            refused.append(f"serving host code: {name}")
+        else:
+            ok = False
+        print(f"host {name}: deadline under overlap "
+              f"{'pass' if exp_ok else 'FAIL'}; tier gates "
+              f"{'; '.join(bad) if bad else 'pass'} -> "
+              f"{'FAIL' if failed else 'pass'} [{card}]")
+    del model
+    torch.cuda.empty_cache()
+    return ok, refused, len(HOST_MUTANTS) - 1
+
+
+# the tier gates' traffic in host_mutants: every family once, then again
+HOST_TIER_REQUESTS = 2 * cs.TIER_FAMILIES
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -411,6 +537,11 @@ def main() -> int:
                             generator=gen_cpu).to(dev)
         results.append(adamw_mutants(torch, kernels, libs, dev, gen, card,
                                      ids))
+        del ids
+        torch.cuda.empty_cache()
+        import numpy as np
+
+        results.append(host_mutants(torch, np, dev, args, card))
     finally:
         for lib_name in MUTANTS:
             kernels._libs.pop(lib_name, None)

@@ -4,8 +4,10 @@ The JAX package ``paddle_tpu`` is the reference; this package mirrors its
 layout module for module (``paddle_tpu/X/y.py`` -> ``paddle_tpu_torch/X/y.py``)
 and imports ``torch`` only, never ``jax`` and nothing of ``paddle_tpu``.
 
-Slices ported so far: serving (``inference``, ``models``) and training
-(``optimizer``, ``jit.to_static``, ``nn.functional.cross_entropy``).
+Slices ported so far: serving (``inference``, ``models``, with the engine's
+front door: admission, the host-RAM prefix tier, ``obs``, ``testing.chaos``
+and ``utils.resources``) and training (``optimizer``, ``amp``,
+``jit.to_static``, ``nn.functional.cross_entropy``).
 
 Entry points (model construction, cache allocation) run on the CUDA card by
 default and raise when CUDA is absent; they run on the CPU only when the

@@ -5,26 +5,27 @@ A fixed pool of device blocks, a fixed number of batch slots, requests
 admitted as slots and blocks free up, finished sequences evicted and their
 blocks recycled.
 
-- ONE decode program serves every engine iteration: tokens ``[B]``, the
-  per-layer pools, block tables ``[B, max_blocks]`` and per-sequence
-  ``cache_len`` ``[B]``. Slot membership changes only the table contents
-  and lengths, never shapes. Each decode step runs the paged-decode kernel
-  once per layer.
-- The decode-phase programs (the single step, the ``decode_chunk`` K-step
-  chunk and the speculative verify) are ``jit.to_static`` functions over
-  persistent device buffers ``(tok, tables, cache_len, finished)`` (and
-  the drafts): each reads them and writes its next ``(tok, cache_len,
-  finished)`` into them in place. On the card the first call of each runs
-  eagerly and the next captures it as a CUDA graph, which every later
-  dispatch replays (the counterpart of the reference's ``jax.jit``); a
-  program that cannot be captured raises. ``jit.enable_to_static(False)``
-  runs them eagerly. Host counters a replay cannot bump (``decode_steps``,
+- Every device program is a ``jit.to_static`` function over persistent
+  device buffers, the counterpart of the reference's ``jax.jit`` programs:
+  the prefill program (ids ``[B, W]``, block tables, ``cache_len``, the
+  last real position per row; ``W`` is ``prompt_pad``, or ``prefill_chunk``
+  in chunked mode) returns only the ``[B]`` greedy tokens at those
+  positions; the decode-phase programs (the single step, the
+  ``decode_chunk`` K-step chunk and the speculative verify) read the
+  persistent ``(tok, tables, cache_len, finished)`` (and the drafts) and
+  write their next ``(tok, cache_len, finished)`` into them in place. On
+  the card the first call of each runs eagerly and the next captures it
+  as a CUDA graph, which every later dispatch replays; a program that
+  cannot be captured raises. ``jit.enable_to_static(False)`` runs them
+  eagerly. Host counters a replay cannot bump (``decode_steps``,
   ``n_dispatches``, the kernels' launch counts) are added per dispatch.
-- Prefill admits prompt tokens into a slot (eagerly); rows not taking part
-  have their table pointed entirely at a reserved TRASH block, so their
-  writes land in a sacrificial page and live sequences are untouched. The
-  decode step writes every row too, so rows that are mid-prefill or
-  inactive are pointed at the trash block for it.
+  ``warmed_up`` says when every program this configuration dispatches has
+  been captured.
+- Prefill admits prompt tokens into a slot; rows not taking part have
+  their table pointed entirely at a reserved TRASH block, so their writes
+  land in a sacrificial page and live sequences are untouched. The decode
+  step writes every row too, so rows that are mid-prefill or inactive are
+  pointed at the trash block for it.
 - Whole-prompt prefill (default) runs one padded prefill of width
   ``prompt_pad`` per admission. Chunked prefill (``prefill_chunk=C``)
   feeds prompts C tokens at a time under ``max_num_batched_tokens`` real
@@ -32,7 +33,8 @@ blocks recycled.
 - ``decode_chunk=K`` runs K decode steps per dispatch, in one program
   with tokens, lengths and eos state kept on the device, in place of the
   reference's ``lax.scan``.
-- The pools are updated in place (the JAX engine donates them).
+- The pools are updated in place (the JAX engine donates them) and never
+  rebound: the captured graphs hold their addresses.
 - ``kv_dtype="int8"`` stores the KV pools in int8 with f32 per-token
   scale pools; each decode step then runs the int8 paged-decode kernel.
 - ``prefix_cache=True`` keeps finished prompts' full KV blocks pinned in a
@@ -40,7 +42,11 @@ blocks recycled.
   adopts them (ref-counted, copy-on-write) and prefills only the rest.
   ``tenant_namespaces=True`` keys the cache by the request's ``tenant``;
   ``shared_prefixes`` are token sequences (system prompts) every tenant
-  may adopt from a shared namespace.
+  may adopt from a shared namespace. ``cache_tier=HostTier(...)`` writes
+  each registered prefix through to host memory as a CRC-framed export
+  and, when a prompt's radix hit is shorter than a spilled prefix, imports
+  it back into fresh blocks of the same pools (in place) before the
+  reservation.
 - ``spec_decode_k=K`` turns on speculative decoding: a
   :class:`~.speculative.DraftProposer` (default n-gram prompt lookup)
   drafts up to K tokens per decode-phase slot, and one verify dispatch
@@ -54,19 +60,45 @@ blocks recycled.
   re-uploaded (the dirty rows); each dispatch's token output is copied to
   a pinned host buffer (``non_blocking``, marked by a CUDA event) and
   parked in a FIFO ring, and the host harvests entry N while the device
-  runs N+1. A slot finishing in entry N may be over-issued one dispatch:
-  the extra token is discarded at harvest and its KV write lands behind
-  the causal mask. Streams are token-identical to ``overlap=False``.
+  runs N+1. A slot finishing (or expiring) in entry N may be over-issued
+  one dispatch: the extra token is discarded at harvest and its KV write
+  lands behind the causal mask. Streams are token-identical to
+  ``overlap=False``. Blocks freed while a dispatch is in flight are safe
+  to reuse: every later use of them is a later launch on the same stream.
+
+The front door (the reference's overload control): with
+``admission=AdmissionConfig(...)`` submissions run through an
+:class:`~.admission.AdmissionController` (admit, shed, or displace a
+queued batch request), the waiting queue becomes a bounded priority queue
+(interactive ahead of batch; WFQ tag, then remaining budget within a
+class), and KV occupancy drives the degraded modes (pause new admissions,
+clamp batch token grants). ``add_request(deadline=, priority=, retries=,
+trace=)``: a request whose deadline lapses is expired in the queue, at
+admission, or evicted mid-prefill or mid-decode, and its blocks recycle.
+``load()`` is the live :class:`~.admission.EngineLoad`; ``fence()`` and
+``requeue()`` are the supervisor's recovery hooks; ``drain_shed()``
+returns the requests shed since the last drain.
+
+Observability: the engine's counters live in the ``obs`` registry
+(labels ``engine=<id>``); TTFT, inter-token latency and queue delay feed
+its SLO histograms; each request's spans (admission, prefill, decode, and
+with tracing on the dispatch and harvest spans) land in the trace ring.
+Spans are opened and closed on the host, around the programs, never
+inside a captured graph. Chaos sites: ``serving.submit`` (a ``drop``
+sheds the submission), ``serving.step`` (a ``drop`` skips the iteration,
+an ``error`` raises), and the tier's ``cache.spill``. With
+``utils.resources.instrument_resources()`` on, engine slots and blocks are
+accounted in the resource ledger.
 
 Greedy decoding only (as the reference's engine), so engine outputs are
 token-identical to isolated ``generate`` runs and to the JAX engine on the
-same weights. The reference's admission control, fp8 GEMMs, disaggregated
-roles, cache tier, deadlines, priorities, tracing spans, ``load()``, chaos
-sites and resource ledger arrive with later slices and raise
-``NotImplementedError`` here when asked for.
+same weights. The reference's fp8 GEMMs (``fp8=``) and disaggregated roles
+(``role=``) arrive with later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import itertools
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -76,30 +108,78 @@ import numpy as np
 import torch
 
 from .. import jit
-from ..ops.paged_attention import BlockManager, PagedLayerCache, PrefixCache
+from .. import obs as _obs
+from ..obs.metrics import MetricAttr, registry as _obs_registry
+from ..ops.paged_attention import (BlockImportError, BlockManager,
+                                   PagedLayerCache, PrefixCache)
+from ..testing import chaos as _chaos
+from ..utils import resources as _res
+from ..utils.retries import Deadline
+from .admission import (AdmissionConfig, AdmissionController, EngineLoad,
+                        priority_rank)
 from .speculative import DraftProposer, NgramProposer
 
-__all__ = ["GenRequest", "ContinuousBatchingEngine"]
+__all__ = ["GenRequest", "ContinuousBatchingEngine", "EngineFenced"]
+
+
+class EngineFenced(RuntimeError):
+    """The engine was retired by its supervisor: a replacement owns its
+    requests now, so this instance must not touch them again. ``step()``
+    raises it once the fence is set."""
+
+
+def _exec_lock_for(model) -> threading.Lock:
+    """One lock per model, across engines: program dispatches (and the
+    captures they may run) of engines sharing a model never overlap, and
+    a dispatch that waited on the lock while its engine was fenced raises
+    instead of running."""
+    lock = getattr(model, "__serving_exec_lock__", None)
+    if lock is None:
+        lock = threading.Lock()
+        model.__serving_exec_lock__ = lock
+    return lock
 
 
 @dataclass
 class GenRequest:
-    """One generation request: prompt ids + budget. ``times[i]`` is the
-    ``perf_counter`` stamp when ``out[i]`` was produced; with ``t_submit``
-    it gives time-to-first-token. ``tenant`` selects the prefix-cache
-    namespace when the engine keys the cache by tenant."""
+    """One generation request: prompt ids + budget. ``deadline`` is the
+    request's wall-clock budget (queue wait included): admission rejects
+    it once expired, and a slot is evicted when it expires mid-prefill or
+    mid-decode. ``status``: "ok" (finished normally), "expired" (whatever
+    tokens it produced stay in ``out``), "shed" (rejected at admission;
+    ``shed_reason`` says why). ``priority`` is the admission class
+    ("interactive" | "batch"); ``retries`` counts supervisor recoveries;
+    ``clamped`` records a degraded-mode ``max_new_tokens`` reduction.
+    ``times[i]`` is the ``perf_counter`` stamp when ``out[i]`` was
+    produced. ``tenant`` names the submitting tenant (prefix-cache
+    namespace, SLO series); ``trace_id``/``span_id`` are its trace
+    context."""
 
     req_id: object
     prompt: np.ndarray  # [s] int
     max_new_tokens: int = 32
     out: List[int] = field(default_factory=list)
+    deadline: Optional[Deadline] = None
+    status: str = "ok"
     t_submit: float = 0.0
     times: List[float] = field(default_factory=list)
+    priority: str = "interactive"
+    shed_reason: Optional[str] = None
+    retries: int = 0
+    clamped: bool = False
     tenant: str = "default"
+    trace_id: Optional[str] = None
+    span_id: Optional[str] = None
+
+    def expired(self) -> bool:
+        return self.deadline is not None and self.deadline.expired()
 
     def ttft(self) -> Optional[float]:
         """Seconds from submission to the first token (None if none)."""
         return self.times[0] - self.t_submit if self.times else None
+
+    def inter_token_latencies(self) -> List[float]:
+        return [b - a for a, b in zip(self.times, self.times[1:])]
 
 
 class _Slot:
@@ -135,36 +215,152 @@ class _RingEntry:
     pinned host copies of its outputs with the event that marks them, and
     the ``(slot, request[, real drafts])`` rows it served, taken at
     dispatch time (harvest credits the request the dispatch served, and
-    discards the tokens of a row whose slot changed hands meanwhile)."""
+    discards the tokens of a row whose slot changed hands meanwhile).
+    ``span`` is the open dispatch span (issue to harvest)."""
 
-    __slots__ = ("kind", "copies", "rows")
+    __slots__ = ("kind", "copies", "rows", "span")
 
     def __init__(self, kind, copies, rows):
         self.kind = kind  # "decode" | "spec" | "first"
         self.copies = copies  # [(host tensor, event or None)]
         self.rows = rows
+        self.span = None
+
+
+class _ShedCounts:
+    """Dict-shaped view over the per-priority ``serving_shed_total``
+    registry series: ``eng.n_shed["interactive"]``, ``.get()``,
+    ``.items()`` and dict equality behave like a plain dict, while the
+    counts live in the obs registry (labels ``engine=<id>,
+    priority=<class>``)."""
+
+    __slots__ = ("_labels", "_handles")
+
+    def __init__(self, labels: dict):
+        self._labels = dict(labels)
+        self._handles: Dict[str, object] = {}
+        for pri in ("interactive", "batch"):
+            self[pri] = 0
+
+    def _h(self, pri: str):
+        h = self._handles.get(pri)
+        if h is None:
+            h = _obs_registry().counter(
+                "serving_shed_total",
+                {**self._labels, "priority": str(pri)},
+                help="requests shed at admission, by priority class")
+            self._handles[pri] = h
+        return h
+
+    def __getitem__(self, pri) -> int:
+        return int(self._h(pri).value)
+
+    def __setitem__(self, pri, v) -> None:
+        self._h(pri).set_(float(v))
+
+    def get(self, pri, default=0):
+        h = self._handles.get(pri)
+        return int(h.value) if h is not None else default
+
+    def keys(self):
+        return self._handles.keys()
+
+    def values(self):
+        return [int(h.value) for h in self._handles.values()]
+
+    def items(self):
+        return [(k, int(h.value)) for k, h in self._handles.items()]
+
+    def __iter__(self):
+        return iter(self._handles)
+
+    def __len__(self) -> int:
+        return len(self._handles)
+
+    def __eq__(self, other):
+        if isinstance(other, _ShedCounts):
+            return dict(self.items()) == dict(other.items())
+        if isinstance(other, dict):
+            return dict(self.items()) == other
+        return NotImplemented
+
+    def __repr__(self) -> str:
+        return repr(dict(self.items()))
 
 
 # the reference's keywords whose features arrive with later slices, each
 # with the value that means "off"
-_LATER_ENGINE_ARGS = {
-    "admission": None, "fp8": False, "role": "unified", "cache_tier": None,
-}
-_LATER_REQUEST_ARGS = {
-    "deadline": None, "priority": "interactive", "retries": 0, "trace": None,
-}
+_LATER_ENGINE_ARGS = {"fp8": False, "role": "unified"}
+_ROLES = ("unified", "prefill_only", "decode_only")
 
-
-def _refuse_later(kwargs: dict, offs: dict) -> None:
-    for name, value in kwargs.items():
-        if name not in offs:
-            raise TypeError(f"unexpected keyword argument {name!r}")
-        if value != offs[name]:
-            raise NotImplementedError(
-                f"{name}={value!r} arrives with a later slice of the port")
+_ENGINE_IDS = itertools.count(1)
 
 
 class ContinuousBatchingEngine:
+    # every stats counter below is a registry-backed series (label
+    # engine=<id>): ``self.steps += 1`` and outside writes
+    # (``eng.ewma_step_s = None``) work as on plain attributes, while the
+    # numbers live in the process-global obs registry
+    prefix_hit_tokens = MetricAttr(
+        "serving_prefix_hit_tokens_total", as_int=True,
+        help="prompt tokens served from the prefix cache")
+    prefix_forks = MetricAttr(
+        "serving_prefix_forks_total", as_int=True,
+        help="copy-on-write block forks from adopted prefixes")
+    spec_proposed = MetricAttr(
+        "serving_spec_proposed_total", as_int=True,
+        help="real draft tokens sent to verify")
+    spec_accepted = MetricAttr(
+        "serving_spec_accepted_total", as_int=True,
+        help="draft tokens greedy-accepted by verify")
+    spec_emitted = MetricAttr(
+        "serving_spec_emitted_total", as_int=True,
+        help="tokens emitted by verify dispatches")
+    spec_dispatches = MetricAttr(
+        "serving_spec_dispatches_total", as_int=True,
+        help="speculative verify dispatches")
+    spec_slot_rounds = MetricAttr(
+        "serving_spec_slot_rounds_total", as_int=True,
+        help="slot participations in verify dispatches")
+    n_dispatches = MetricAttr(
+        "serving_dispatches_total", as_int=True,
+        help="decode-phase device dispatches")
+    host_blocked_s = MetricAttr(
+        "serving_host_blocked_seconds_total",
+        help="cumulative seconds the host blocked on D2H fetches")
+    busy_s = MetricAttr(
+        "serving_busy_seconds_total",
+        help="cumulative step() wall seconds")
+    h2d_bytes = MetricAttr(
+        "serving_h2d_bytes_total", as_int=True,
+        help="host->device upload bytes")
+    h2d_decode_bytes = MetricAttr(
+        "serving_h2d_decode_bytes_total", as_int=True,
+        help="host->device bytes on the decode-phase critical path")
+    d2h_bytes = MetricAttr(
+        "serving_d2h_bytes_total", as_int=True,
+        help="device->host fetch bytes")
+    steps = MetricAttr(
+        "serving_steps_total", as_int=True, help="engine iterations")
+    decode_tokens = MetricAttr(
+        "serving_decode_tokens_total", as_int=True,
+        help="decode-phase tokens emitted")
+    prefill_tokens = MetricAttr(
+        "serving_prefill_tokens_total", as_int=True,
+        help="prompt tokens prefilled (cache hits excluded)")
+    n_expired = MetricAttr(
+        "serving_expired_total", as_int=True,
+        help="accepted-then-expired requests (queue or in-flight)")
+    ewma_blocked_frac = MetricAttr(
+        "serving_host_blocked_frac", kind="gauge",
+        help="EWMA of the per-step host-blocked fraction")
+    ewma_step_s = MetricAttr(
+        "serving_ewma_step_seconds", kind="gauge",
+        help="EWMA of non-idle step wall time")
+    ewma_step_tokens = MetricAttr(
+        "serving_ewma_step_tokens", kind="gauge",
+        help="EWMA of real tokens drained per non-idle step")
+
     def __init__(self, model, *, max_batch: int, max_len: int,
                  block_size: int = 64, num_blocks: int,
                  prompt_pad: Optional[int] = None,
@@ -172,14 +368,17 @@ class ContinuousBatchingEngine:
                  decode_chunk: int = 1,
                  prefill_chunk: Optional[int] = None,
                  max_num_batched_tokens: Optional[int] = None,
+                 admission: Optional[AdmissionConfig] = None,
                  prefix_cache: bool = False,
                  spec_decode_k: Optional[int] = None,
                  draft_proposer: Optional[DraftProposer] = None,
                  kv_dtype: Optional[str] = None,
+                 fp8: bool = False,
+                 role: str = "unified",
                  overlap: bool = False,
+                 cache_tier=None,
                  tenant_namespaces: bool = False,
-                 shared_prefixes=None,
-                 **later):
+                 shared_prefixes=None):
         """``num_blocks`` fixes the KV budget (the pool allocates one extra
         trash block); ``max_len`` bounds any sequence's positions;
         ``prompt_pad`` is the whole-prompt prefill width (default one
@@ -188,13 +387,36 @@ class ContinuousBatchingEngine:
         token budget, no slot is mid-prefill and active*K fits).
         ``prefill_chunk=C`` turns on chunked prefill with at most
         ``max_num_batched_tokens`` (default ``max_batch + C``) real tokens
-        per step. ``prefix_cache=True`` turns on prefix KV reuse, keyed by
-        tenant with ``tenant_namespaces=True`` (``shared_prefixes``: token
-        sequences every tenant may adopt); ``kv_dtype="int8"`` quantizes
-        the KV pools; ``spec_decode_k=K`` turns on speculative decoding
-        with ``draft_proposer`` (default :class:`NgramProposer`);
-        ``overlap=True`` pipelines host and device (module docstring)."""
-        _refuse_later(later, _LATER_ENGINE_ARGS)
+        per step. ``admission=AdmissionConfig(...)`` turns on overload
+        control (module docstring). ``prefix_cache=True`` turns on prefix
+        KV reuse, keyed by tenant with ``tenant_namespaces=True``
+        (``shared_prefixes``: token sequences every tenant may adopt), with
+        a host-RAM spill tier under it given ``cache_tier``;
+        ``kv_dtype="int8"`` quantizes the KV pools; ``spec_decode_k=K``
+        turns on speculative decoding with ``draft_proposer`` (default
+        :class:`NgramProposer`); ``overlap=True`` pipelines host and device
+        (module docstring). ``fp8`` and any ``role`` but ``"unified"``
+        arrive with later slices."""
+        if role not in _ROLES:
+            raise ValueError(
+                f"role must be 'unified', 'prefill_only' or "
+                f"'decode_only', got {role!r}")
+        for name, value in (("fp8", fp8), ("role", role)):
+            if value != _LATER_ENGINE_ARGS[name]:
+                raise NotImplementedError(
+                    f"{name}={value!r} arrives with a later slice of the "
+                    "port")
+        self.role = role
+        # obs identity first: every MetricAttr write below routes into
+        # registry series labeled engine=<id>
+        self._obs_id = f"eng{next(_ENGINE_IDS)}"
+        self._obs_labels = {"engine": self._obs_id}
+        self._slo_hists: Dict[str, tuple] = {}
+        self._c_tenant_req: Dict[str, object] = {}
+        self._slo_handles("default")
+        self._c_requests = _obs_registry().counter(
+            "serving_requests_total", self._obs_labels,
+            help="requests submitted (shed ones included)")
         self.model = model
         self.device = next(model.parameters()).device
         self.B = int(max_batch)
@@ -211,13 +433,23 @@ class ContinuousBatchingEngine:
                 f"max_position_embeddings ({limit})")
         self.eos_token_id = eos_token_id
         self.manager = BlockManager(num_blocks, block_size)
+        # the resource ledger when instrument_resources() is on, else None
+        self._graft_ledger = _res.current()
         self.prefix_cache = (PrefixCache(block_size, manager=self.manager)
                              if prefix_cache else None)
+        if cache_tier is not None and self.prefix_cache is None:
+            raise ValueError("cache_tier requires prefix_cache=True")
         if tenant_namespaces and self.prefix_cache is None:
             raise ValueError("tenant_namespaces requires prefix_cache=True")
+        self.cache_tier = cache_tier
         self._tenant_ns = bool(tenant_namespaces)
         self._shared_prefixes = [np.asarray(p, np.int32).reshape(-1)
                                  for p in (shared_prefixes or ())]
+        self._tier_seq = 0
+        self.tier_restores = 0
+        self.tier_restore_tokens = 0
+        self.tier_spill_bytes = 0  # bytes read from the device to spill
+        self.tier_spill_s = 0.0  # host seconds those reads took
         self.prefix_hit_tokens = 0
         self.prefix_forks = 0
         self._trash = num_blocks  # reserved sacrificial pool row
@@ -276,23 +508,31 @@ class ContinuousBatchingEngine:
         self.decode_chunk = max(1, int(decode_chunk))
         self._rr = 0  # round-robin start for chunk scheduling fairness
 
-        # the decode-phase programs' persistent device state: every
-        # program reads these buffers and writes its next (tok, cache_len,
-        # finished) into them in place, so their addresses never change
-        dev, B = self.device, self.B
+        # the programs' persistent device inputs: each program reads these
+        # buffers (and the decode-phase ones write their next (tok,
+        # cache_len, finished) into them in place), so their addresses
+        # never change
+        dev, B, mb = self.device, self.B, self.max_blocks_per_seq
+        width = self.prefill_chunk if self.chunked else self.prompt_pad
+        self._pids = torch.zeros((B, width), dtype=torch.int32, device=dev)
+        self._ptab = torch.full((B, mb), self._trash, dtype=torch.int32,
+                                device=dev)
+        self._pcl = torch.zeros(B, dtype=torch.int32, device=dev)
+        self._plast = torch.zeros(B, dtype=torch.int32, device=dev)
         self._dtok = torch.zeros(B, dtype=torch.int32, device=dev)
-        self._dtab = torch.full((B, self.max_blocks_per_seq), self._trash,
-                                dtype=torch.int32, device=dev)
+        self._dtab = torch.full((B, mb), self._trash, dtype=torch.int32,
+                                device=dev)
         self._dcl = torch.zeros(B, dtype=torch.int32, device=dev)
         self._dfin = torch.ones(B, dtype=torch.bool, device=dev)
         self._ddrafts = (None if self.spec_k is None else
                          torch.zeros((B, self.spec_k), dtype=torch.int32,
                                      device=dev))
         # full_graph=True: a program that cannot be captured raises
-        self._decode_fn, self._chunk_fn, self._verify_fn = (
+        (self._prefill_fn, self._decode_fn, self._chunk_fn,
+         self._verify_fn) = (
             jit.to_static(fn, layers=[model], full_graph=True)
-            for fn in (self._decode_program, self._chunk_program,
-                       self._verify_program))
+            for fn in (self._prefill_program, self._decode_program,
+                       self._chunk_program, self._verify_program))
 
         # host/device pipelining (overlap mode)
         self.overlap = bool(overlap)
@@ -306,9 +546,7 @@ class ContinuousBatchingEngine:
         self.decode_steps = 0  # model forward passes at width 1
         self.host_blocked_s = 0.0  # seconds blocked on device->host reads
         self.busy_s = 0.0  # seconds inside step()
-        self.ewma_blocked_frac: Optional[float] = None
-        self.ewma_step_s: Optional[float] = None
-        self.ewma_step_tokens: Optional[float] = None
+        self.ewma_blocked_frac = None
         self.h2d_bytes = 0  # host->device upload bytes
         self.h2d_decode_bytes = 0  # ...on the decode-phase path
         self.d2h_bytes = 0  # device->host read bytes
@@ -317,9 +555,21 @@ class ContinuousBatchingEngine:
         self.decode_tokens = 0
         self.prefill_tokens = 0
         self.last_step_tokens = 0
-        self.last_step_s = 0.0
         self.max_step_tokens = 0
         self._step_spec_overcharge = 0
+        # overload control and the supervision surface
+        self.admission = (None if admission is None
+                          else AdmissionController(admission))
+        self.n_shed = _ShedCounts(self._obs_labels)
+        self._pending_shed: List[GenRequest] = []  # sheds since the drain
+        self.n_expired = 0  # accepted-then-expired (queue or in-flight)
+        self.prefill_paused = False  # degraded mode: KV blocks scarce
+        self.ewma_step_s = None
+        self.ewma_step_tokens = None
+        self.last_step_s = 0.0
+        self._fenced = False
+        self._exec_lock = _exec_lock_for(model)
+        self._phases_run: set = set()  # programs dispatched so far
 
     # -- host <-> device transfers ----------------------------------------
     def _staged(self, x, decode: bool) -> torch.Tensor:
@@ -373,6 +623,22 @@ class ContinuousBatchingEngine:
         return [PagedLayerCache(e[0], e[1], tables, False, *e[2:])
                 for e in self._pools]
 
+    def _run(self, fn, phase: str):
+        """Dispatch one program under the model's execution lock, honoring
+        the fence before and after (a dispatch that outlived its engine's
+        retirement must not apply its results)."""
+        with self._exec_lock:
+            if self._fenced:
+                raise EngineFenced(
+                    "engine was retired by its supervisor while waiting "
+                    "for the execution lock")
+            out = fn()
+        self._phases_run.add(phase)
+        if self._fenced:
+            raise EngineFenced(
+                "engine was retired by its supervisor mid-dispatch")
+        return out
+
     def _copy_block(self, src: int, dst: int) -> None:
         """Copy one physical block's KV, in place, in every layer's pools
         (scale rows included: a forked block's scales travel with its
@@ -382,13 +648,25 @@ class ContinuousBatchingEngine:
                 pool[:, dst] = pool[:, src]
 
     @torch.no_grad()
+    def _prefill_program(self) -> torch.Tensor:
+        """One prefill over the persistent inputs (ids ``[B, W]``, tables,
+        ``cache_len``, last real position per row); returns the greedy
+        token at the last position per row ``[B]``: the one int per row
+        the host reads from a prefill."""
+        logits, _ = self.model.forward_with_cache(
+            self._pids, self._caches(self._ptab), self._pcl)
+        rows = torch.arange(self.B, device=logits.device)
+        return torch.argmax(logits[rows, self._plast.long()],
+                            dim=-1).to(torch.int32)
+
     def _prefill(self, ids, tables, cache_len, last_idx) -> torch.Tensor:
-        """Returns the greedy token at ``last_idx`` per row ``[B]``: the
-        one int per row the host reads from a prefill."""
-        logits, _ = self.model.forward_with_cache(ids, self._caches(tables),
-                                                  cache_len)
-        rows = torch.arange(ids.shape[0], device=ids.device)
-        return torch.argmax(logits[rows, last_idx.long()], dim=-1).to(torch.int32)
+        """Upload one prefill's inputs into the persistent buffers and
+        dispatch the prefill program; returns its ``[B]`` tokens on the
+        device."""
+        for dst, x in ((self._pids, ids), (self._ptab, tables),
+                       (self._pcl, cache_len), (self._plast, last_idx)):
+            self._h2d_into(dst, x)
+        return self._run(self._prefill_fn, "prefill")
 
     def _step_lanes(self, tok, tables, cache_len, finished):
         """One decode step for every row; returns the next ``(tok,
@@ -457,18 +735,78 @@ class ContinuousBatchingEngine:
         self._set_state(nxt, cl2, fin)
         return torch.cat([toks, acc.to(torch.int32)[:, None]], dim=1)
 
+    def _program_ready(self, fn) -> bool:
+        """No first-call work is left for ``fn``: it has been captured, or
+        it never will be (CPU tensors, ``enable_to_static(False)``)."""
+        return (bool(fn._graphs) or self.device.type != "cuda"
+                or fn._eager())
+
     # -- public API ------------------------------------------------------
     @property
     def chunked(self) -> bool:
         return self.prefill_chunk is not None
 
+    @property
+    def warmed_up(self) -> bool:
+        """True once every program this configuration can dispatch (the
+        prefill and decode programs, and the K-step chunk when
+        ``decode_chunk > 1``) has been dispatched and, on the card,
+        captured: no first-call work remains. A supervisor keeps a step
+        under its roomy warm-up budget until then."""
+        need = {"prefill": self._prefill_fn, "decode": self._decode_fn}
+        if self.decode_chunk > 1:
+            need["decode_chunk"] = self._chunk_fn
+        return all(name in self._phases_run and self._program_ready(fn)
+                   for name, fn in need.items())
+
+    def _slo_handles(self, tenant: str):
+        """(ttft, itl, queue-delay) histogram handles for one tenant's
+        series (labels ``engine=<id>, tenant=<t>``), cached so the
+        per-token path pays one dict hit."""
+        hs = self._slo_hists.get(tenant)
+        if hs is None:
+            reg = _obs_registry()
+            lab = {**self._obs_labels, "tenant": str(tenant)}
+            hs = (
+                reg.histogram("serving_ttft_seconds", lab,
+                              help="seconds from submission to first token"),
+                reg.histogram("serving_itl_seconds", lab,
+                              help="inter-token latency seconds"),
+                reg.histogram("serving_queue_delay_seconds", lab,
+                              help="seconds from submission to slot binding"),
+            )
+            self._slo_hists[tenant] = hs
+        return hs
+
+    def _tenant_requests(self, tenant: str):
+        """Per-tenant submission counter handle
+        (``serving_tenant_requests_total``)."""
+        h = self._c_tenant_req.get(tenant)
+        if h is None:
+            h = _obs_registry().counter(
+                "serving_tenant_requests_total",
+                {**self._obs_labels, "tenant": str(tenant)},
+                help="requests submitted, by tenant")
+            self._c_tenant_req[tenant] = h
+        return h
+
     def add_request(self, req_id, prompt, max_new_tokens: int = 32,
-                    tenant: str = "default", **later) -> GenRequest:
-        """Queue one prompt for ``max_new_tokens`` greedy tokens;
+                    deadline=None, priority: str = "interactive",
+                    retries: int = 0, trace=None,
+                    tenant: str = "default") -> GenRequest:
+        """Queue one prompt for ``max_new_tokens`` greedy tokens.
+        ``deadline``: seconds or a ``Deadline``, the request's whole
+        budget (queue wait included); None = no deadline. ``priority``:
+        the admission class ("interactive" | "batch"), always recorded.
+        ``retries`` seeds the recovery counter. ``trace``: an upstream
+        trace context (a Span, a ``{"trace_id", "span_id"}`` dict, or an
+        object carrying those); otherwise a fresh trace is minted.
         ``tenant`` names the prefix-cache namespace (with
-        ``tenant_namespaces=True``)."""
-        _refuse_later(later, _LATER_REQUEST_ARGS)
+        ``tenant_namespaces=True``) and labels the SLO series. With
+        admission control a shed submission comes back with ``status ==
+        "shed"`` (it also lands in the completed map)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
+        priority_rank(priority)  # validate before accepting anything
         if prompt.size == 0:
             raise ValueError("prompt length 0 not in [1, ...]")
         if not self.chunked and prompt.size > self.prompt_pad:
@@ -478,15 +816,181 @@ class ContinuousBatchingEngine:
                 "prompts beyond the whole-prompt pad)")
         if prompt.size + max_new_tokens > self.max_len:
             raise ValueError("prompt + max_new_tokens exceeds max_len")
-        req = GenRequest(req_id, prompt, max_new_tokens,
-                         t_submit=time.perf_counter(), tenant=str(tenant))
+        dl = None if deadline is None else Deadline.coerce(deadline)
+        req = GenRequest(req_id, prompt, max_new_tokens, deadline=dl,
+                         t_submit=time.perf_counter(), priority=priority,
+                         retries=int(retries), tenant=str(tenant))
         if self._blocks_needed(req) > self.manager.num_blocks:
             raise ValueError(
                 f"request needs {self._blocks_needed(req)} blocks but the "
                 f"pool only has {self.manager.num_blocks} — it could never "
                 "be admitted")
-        self._queue.append(req)
+        ctx = _obs.trace_ctx(trace)
+        req.trace_id = (ctx or {}).get("trace_id") or _obs.new_trace_id()
+        self._c_requests.inc()
+        self._tenant_requests(req.tenant).inc()
+        with _obs.span("admission", trace_id=req.trace_id, parent=ctx,
+                       tid="serve", req=str(req_id),
+                       priority=priority, tenant=req.tenant) as sp:
+            req.span_id = sp.span_id
+            out = self._decide_admission(req)
+            sp.args["verdict"] = ("shed" if out.status == "shed"
+                                  else "admit")
+        return out
+
+    def _decide_admission(self, req: GenRequest) -> GenRequest:
+        """The admission verdict (chaos gate + overload control), the body
+        the request's root ``admission`` span wraps."""
+        # chaos site: the front door (drop = the submission is shed)
+        if not _chaos.inject("serving.submit"):
+            return self._shed(req, "chaos-drop")
+        if self.admission is None:
+            self._queue.append(req)
+            return req
+        # expired queue entries must not count against the arrival
+        self._expire_queued()
+        # decide() reads a fresh load snapshot; tightening observations
+        # run only from step() (the level hold is counted in engine
+        # steps), but a drained engine never steps, so it relaxes here
+        load = self.load()
+        if load.active_slots == 0 and load.queue_depth == 0:
+            self.admission.observe(load, allow_tighten=False)
+        verdict, reason = self.admission.decide(req, load)
+        if verdict == "shed":
+            return self._shed(req, reason)
+        if verdict == "displace":
+            # queue full, arrival interactive: the worst queued batch
+            # request (last in queue order) absorbs the shed
+            victim = next((r for r in reversed(self._queue)
+                           if priority_rank(r.priority) >= 1), None)
+            if victim is not None:
+                try:
+                    self._queue.remove(victim)
+                except ValueError:
+                    victim = None
+            if victim is not None:
+                self._shed(victim, "displaced")
+            elif len(self._queue) >= self.admission.config.max_queue:
+                return self._shed(req, "queue-full")
+        self._enqueue(req)
         return req
+
+    def _shed(self, req: GenRequest, reason: str) -> GenRequest:
+        req.status = "shed"
+        req.shed_reason = reason
+        self.n_shed[req.priority] = self.n_shed.get(req.priority, 0) + 1
+        self._completed[req.req_id] = req
+        self._pending_shed.append(req)
+        return req
+
+    def drain_shed(self) -> List[GenRequest]:
+        """Return (and clear) the requests shed since the last drain.
+        Sheds happen between steps, so no ``step()`` returns them."""
+        out, self._pending_shed = self._pending_shed, []
+        return out
+
+    def _enqueue(self, req: GenRequest) -> None:
+        """Priority insert: interactive ahead of batch; within a class the
+        WFQ finish tag first (0.0 for every request when WFQ is off), then
+        the tighter deadline (unbounded last, arrival order kept: the key
+        is fixed at insert time)."""
+        rem = (float("inf") if req.deadline is None
+               else req.deadline.remaining())
+        tag = 0.0
+        if self.admission is not None and self.admission.wfq_enabled:
+            start, tag = self.admission.wfq_tag(
+                req.tenant, self.admission._cost(req))
+            req._wfq_start = start
+        req._okey = (priority_rank(req.priority), tag, rem)
+        lo = 0
+        while lo < len(self._queue) and self._queue[lo]._okey <= req._okey:
+            lo += 1
+        self._queue.insert(lo, req)
+
+    def requeue(self, req: GenRequest) -> None:
+        """Re-enter an already-accepted request (the supervisor's recovery
+        path): no admission control, progress reset so this engine
+        reproduces the whole output. A request this engine can never serve
+        is shed instead of queued (it would block the queue forever)."""
+        req.out, req.times, req.status = [], [], "ok"
+        if not req.t_submit:
+            req.t_submit = time.perf_counter()
+        self._completed.pop(req.req_id, None)
+        if (int(req.prompt.size) + req.max_new_tokens > self.max_len
+                or self._blocks_needed(req) > self.manager.num_blocks
+                or (not self.chunked
+                    and int(req.prompt.size) > self.prompt_pad)):
+            self._shed(req, "unservable-on-this-engine")
+            return
+        if self.admission is not None:
+            self._enqueue(req)
+        else:
+            self._queue.append(req)
+
+    def fence(self) -> None:
+        """Retire this engine: every later ``step()`` raises
+        :class:`EngineFenced`."""
+        self._fenced = True
+
+    def _kv_occupancy(self) -> float:
+        """Allocated fraction of the KV block pool — the one definition the
+        load signal and both degraded-mode watermarks share."""
+        return 1.0 - self.manager.free_blocks / max(self.manager.num_blocks,
+                                                    1)
+
+    def load(self) -> EngineLoad:
+        """Live load snapshot (the admission controller's input): queue
+        depth and class mix, KV occupancy, committed-token backlog, and the
+        measured service rate."""
+        queue = list(self._queue)
+        backlog = sum(int(r.prompt.size) + r.max_new_tokens for r in queue)
+        backlog_inter = sum(int(r.prompt.size) + r.max_new_tokens
+                            for r in queue
+                            if priority_rank(r.priority) == 0)
+        for slot in self._slots:
+            req = slot.req
+            if req is not None:
+                ahead = (int(req.prompt.size) - slot.prefill_pos
+                         + slot.remaining)
+                backlog += ahead
+                backlog_inter += ahead  # in-flight work delays everyone
+        tps = self.ewma_step_tokens or float(
+            self.max_num_batched_tokens or self.B)
+        delay = (backlog / max(tps, 1e-9)) * (self.ewma_step_s or 0.0)
+        cfg = self.admission.config if self.admission is not None else None
+        reg = _obs_registry()
+        qf = (len(queue) / cfg.max_queue
+              if cfg is not None and cfg.max_queue else 0.0)
+        reg.gauge("serving_queue_frac", self._obs_labels).set(qf)
+        reg.gauge("serving_kv_occupancy", self._obs_labels).set(
+            self._kv_occupancy())
+        reg.gauge("serving_est_queue_delay_s", self._obs_labels).set(delay)
+        return EngineLoad(
+            queue_depth=len(queue),
+            queue_limit=None if cfg is None else cfg.max_queue,
+            queued_interactive=sum(
+                priority_rank(r.priority) == 0 for r in queue),
+            queued_batch=sum(priority_rank(r.priority) >= 1 for r in queue),
+            token_backlog_interactive=backlog_inter,
+            active_slots=self.num_active,
+            max_batch=self.B,
+            prefilling=self.num_prefilling,
+            kv_free_blocks=self.manager.free_blocks,
+            kv_total_blocks=self.manager.num_blocks,
+            kv_occupancy=self._kv_occupancy(),
+            token_backlog=backlog,
+            tokens_per_step=tps,
+            ewma_step_s=self.ewma_step_s,
+            est_queue_delay_s=delay,
+            admission_level=0 if self.admission is None
+            else self.admission.level,
+            prefill_paused=self.prefill_paused,
+            n_shed_interactive=self.n_shed.get("interactive", 0),
+            n_shed_batch=self.n_shed.get("batch", 0),
+            n_expired=self.n_expired,
+            host_blocked_frac=self.ewma_blocked_frac or 0.0,
+            dispatch_depth=len(self._ring),
+        )
 
     @property
     def num_active(self):
@@ -496,24 +1000,83 @@ class ContinuousBatchingEngine:
     def num_prefilling(self):
         return sum(s.prefilling for s in self._slots)
 
-    def _blocks_needed(self, req) -> int:
+    def _blocks_needed(self, req, max_new_tokens: Optional[int] = None) -> int:
+        new = (req.max_new_tokens if max_new_tokens is None
+               else int(max_new_tokens))
         if self.chunked:
-            total = int(req.prompt.size) + req.max_new_tokens
+            total = int(req.prompt.size) + new
         else:
-            total = max(int(req.prompt.size) + req.max_new_tokens,
-                        self.prompt_pad)
+            total = max(int(req.prompt.size) + new, self.prompt_pad)
         return self.manager.blocks_for(total)
 
     def _append_token(self, req: GenRequest, tok: int):
         req.out.append(tok)
-        req.times.append(time.perf_counter())
+        now = time.perf_counter()
+        req.times.append(now)
+        # the one token-emission point feeds TTFT and inter-token latency
+        # on the request's tenant series
+        h_ttft, h_itl, _ = self._slo_handles(req.tenant)
+        if len(req.times) == 1:
+            h_ttft.observe(now - req.t_submit)
+        else:
+            h_itl.observe(now - req.times[-2])
+
+    @staticmethod
+    def _finish_req_spans(req: GenRequest, **args) -> None:
+        """Close the request's open prefill/decode spans (completion,
+        expiry)."""
+        for attr in ("_sp_prefill", "_sp_decode"):
+            sp = getattr(req, attr, None)
+            if sp is not None:
+                _obs.finish_span(sp, **args)
+                setattr(req, attr, None)
+
+    def _expire(self, req: GenRequest) -> None:
+        req.status = "expired"
+        self.n_expired += 1
+        self._finish_req_spans(req, error="expired")
+        self._completed[req.req_id] = req
+
+    def _expire_queued(self) -> None:
+        """Every queued request whose deadline lapsed before its first
+        prefill chunk finishes as ``expired`` here, at no token cost."""
+        live = []
+        for r in self._queue:
+            if r.expired():
+                self._expire(r)
+            else:
+                live.append(r)
+        if len(live) != len(self._queue):
+            self._queue[:] = live
+
+    def _evict_expired(self) -> None:
+        """Reclaim slots whose request's deadline passed, mid-prefill or
+        mid-decode: free the blocks, point the row at the trash block, mark
+        it dirty (overlap mode re-uploads it as trash at the next flush),
+        and complete the request as expired. A ring entry still in flight
+        for the row is discarded at harvest (its request no longer owns
+        the slot); its device writes precede, on the same stream, every
+        later launch that could touch the freed blocks."""
+        for slot_idx, slot in enumerate(self._slots):
+            if slot.active and slot.req.expired():
+                self.manager.free_sequence(slot.req.req_id)
+                self._tables[slot_idx] = self._trash
+                self._expire(slot.req)
+                if self._graft_ledger is not None:
+                    self._graft_ledger.release("engine.slot",
+                                               slot.req.req_id)
+                slot.req = None
+                slot.pending_first = False
+                self._mark_dirty(slot_idx)
 
     def prefix_stats(self) -> dict:
         """Prefix-cache counters (zeros when the cache is off).
         ``hit_rate`` is cached tokens over prompt tokens that entered a
         slot: the share of prefill work the cache saved. The tree's own
         lookup tallies count head-of-line re-probes, so only its shape
-        keys are reported beside the engine's adopted-token count."""
+        keys are reported beside the engine's adopted-token count. With a
+        host tier, ``tier`` holds its counters, the restores, and the
+        spills' device-read bytes and seconds."""
         total = self.prefill_tokens + self.prefix_hit_tokens
         base = {
             "enabled": self.prefix_cache is not None,
@@ -526,6 +1089,12 @@ class ContinuousBatchingEngine:
             tree = self.prefix_cache.stats()
             base.update({k: tree[k] for k in
                          ("nodes", "lookups", "evicted_blocks")})
+        if self.cache_tier is not None:
+            base["tier"] = dict(self.cache_tier.stats(),
+                                restores=self.tier_restores,
+                                restore_tokens=self.tier_restore_tokens,
+                                spill_bytes=self.tier_spill_bytes,
+                                spill_s=self.tier_spill_s)
         return base
 
     def spec_stats(self) -> dict:
@@ -573,7 +1142,7 @@ class ContinuousBatchingEngine:
             "d2h_bytes": self.d2h_bytes,
         }
 
-    # -- prefix namespaces ---------------------------------------------------
+    # -- prefix namespaces and the host tier ----------------------------------
     def _shared_prefix_len(self, prompt) -> int:
         """Longest registered shared prefix that prefixes ``prompt``,
         rounded down to full blocks (only full blocks enter the tree)."""
@@ -598,7 +1167,8 @@ class ContinuousBatchingEngine:
         """Register a prefilled prompt's blocks under the tenant's
         namespace (or the default tree), and its registered shared prefix
         under the shared namespace: the same physical blocks, pinned once
-        per tree, copy-on-write for every adopter."""
+        per tree, copy-on-write for every adopter. Then spill the
+        full-block prefix to the host tier."""
         ns = req.tenant if self._tenant_ns else None
         self.prefix_cache.insert(req.prompt, blocks, ns=ns)
         if self._tenant_ns:
@@ -607,13 +1177,86 @@ class ContinuousBatchingEngine:
                 self.prefix_cache.insert(req.prompt[:sh],
                                          blocks[:sh // self.block_size],
                                          ns="*")
+        self._tier_spill(req, ns)
 
-    def _reserve_blocks(self, req):
+    def _tier_spill(self, req, ns) -> None:
+        """Write-through: export the prompt's full blocks (a device read
+        behind the prefill that wrote them, counted as host-blocked time
+        and in ``tier_spill_bytes``/``tier_spill_s``) and store the frame;
+        a registered shared prefix is stored under the shared namespace
+        too. Best effort: a failed spill is a later miss, never an
+        error."""
+        if self.cache_tier is None:
+            return
+        full = (int(req.prompt.size) // self.block_size) * self.block_size
+        if not full:
+            return
+        try:
+            t0 = time.perf_counter()
+            pages, scales, meta = self.manager.export_blocks(
+                req.req_id, self._pools, num_tokens=full)
+            dt = time.perf_counter() - t0
+            self.tier_spill_s += dt
+            self.host_blocked_s += dt
+            self.tier_spill_bytes += int(pages.nbytes) + (
+                0 if scales is None else int(scales.nbytes))
+            self.cache_tier.put(ns, req.prompt[:full], pages, scales, meta)
+            if self._tenant_ns:
+                sh = self._shared_prefix_len(req.prompt)
+                if sh:
+                    k = sh // self.block_size
+                    self.cache_tier.put(
+                        "*", req.prompt[:sh], pages[:, :, :, :k],
+                        None if scales is None else scales[:, :, :, :k],
+                        dict(meta, num_blocks=k))
+        except Exception:  # noqa: BLE001 - a failed spill is a miss
+            pass
+
+    def _tier_restore(self, req) -> None:
+        """Read-through: when the host tier holds a longer prefix than the
+        radix tree, import it into fresh blocks of the existing pools (in
+        place, on the stream the programs run on) and pin it, so the
+        adoption path treats it as an ordinary hit. Any failure (a
+        CRC-rejected frame, a pool too full even after eviction) is a
+        miss."""
+        if self.cache_tier is None:
+            return
+        cached_len, _ = self._prefix_lookup(req)
+        ns = req.tenant if self._tenant_ns else None
+        hit = self.cache_tier.lookup(ns, req.prompt,
+                                     block_size=self.block_size,
+                                     min_tokens=cached_len)
+        if hit is None and self._tenant_ns:
+            hit = self.cache_tier.lookup("*", req.prompt,
+                                         block_size=self.block_size,
+                                         min_tokens=cached_len)
+        if hit is None:
+            return
+        n_tokens, pages, scales, meta = hit
+        need = int(meta["num_blocks"])
+        if need > self.manager.free_blocks:
+            self.prefix_cache.evict(need - self.manager.free_blocks)
+        sid = ("__tier__", self._tier_seq)
+        self._tier_seq += 1
+        try:
+            _, blocks = self.manager.import_blocks(sid, pages, scales, meta,
+                                                   self._pools)
+        except (BlockImportError, ValueError):
+            return  # pool genuinely full, or a configuration drift: a miss
+        # pin under the tree first (new nodes take their own refs), then
+        # drop the import's ownership: the cache pins alone remain
+        self.prefix_cache.insert(req.prompt[:n_tokens], blocks, ns=ns)
+        self.manager.free_sequence(sid)
+        self.tier_restores += 1
+        self.tier_restore_tokens += int(n_tokens)
+
+    def _reserve_blocks(self, req, eff_new: int):
         """Block-availability half of slot binding, prefix-cache aware:
-        look up the prompt's cached prefix, ADOPT those blocks, and check
-        the shortfall against the free list, evicting LRU cache entries
-        when it runs short. Returns ``(ok, cached_len, will_fork)``; on
-        ``ok=False`` the adoption is undone (head-of-line wait).
+        restore a longer prefix from the host tier, look up the prompt's
+        cached prefix, ADOPT those blocks, and check the shortfall against
+        the free list, evicting LRU cache entries when it runs short.
+        Returns ``(ok, cached_len, will_fork)``; on ``ok=False`` the
+        adoption is undone (head-of-line wait).
 
         ``cached_len`` is capped at ``prompt.size - 1``: the first token
         comes from the last prompt position's logits, which only a real
@@ -623,10 +1266,11 @@ class ContinuousBatchingEngine:
         psize = int(req.prompt.size)
         cached_len, cached_blocks = 0, []
         if self.prefix_cache is not None:
+            self._tier_restore(req)
             cached_len, cached_blocks = self._prefix_lookup(req)
             cached_len = min(cached_len, psize - 1)
         will_fork = bool(cached_len % self.block_size)
-        need = (self._blocks_needed(req) - len(cached_blocks)
+        need = (self._blocks_needed(req, eff_new) - len(cached_blocks)
                 + (1 if will_fork else 0))
         if cached_blocks:
             self.manager.adopt(req.req_id, cached_blocks)
@@ -639,20 +1283,55 @@ class ContinuousBatchingEngine:
         return True, cached_len, will_fork
 
     def _admit(self) -> int:
-        """Fill free slots from the queue while blocks last (FIFO,
+        """Fill free slots from the queue while blocks last (queue order,
         head-of-line). Whole-prompt mode runs one padded prefill per
         admission, of the prompt's un-cached remainder at offset
         ``cached_len``; chunked mode only binds the slot, reserves its
         full block budget and starts its chunks at ``cached_len``.
-        Returns real tokens processed."""
+        Returns real tokens processed.
+
+        Degraded modes (admission control only): at KV occupancy above
+        ``kv_pause_watermark`` new admissions pause (reclaimable cached
+        prefixes are evicted first), and above ``kv_clamp_watermark``
+        batch-class token grants are clamped to ``batch_clamp_tokens`` at
+        slot binding."""
+        cfg = self.admission.config if self.admission is not None else None
+        if cfg is not None:
+            if self._kv_occupancy() >= cfg.kv_pause_watermark:
+                if self.prefix_cache is not None:
+                    want = int(np.ceil(
+                        (1.0 - cfg.kv_pause_watermark)
+                        * self.manager.num_blocks)) + 1
+                    self.prefix_cache.evict(
+                        max(want - self.manager.free_blocks, 0))
+                if self._kv_occupancy() >= cfg.kv_pause_watermark:
+                    self.prefill_paused = True
+                    return 0
+            self.prefill_paused = False
         used = 0
         for slot_idx, slot in enumerate(self._slots):
+            # a request expired while queued is not prefilled; each
+            # request stays visible in the queue, a slot or the completed
+            # map at every instant (expired or bound before it leaves)
+            while self._queue and self._queue[0].expired():
+                self._expire(self._queue[0])
+                self._queue.pop(0)
             if not self._queue or slot.active:
                 continue
             req = self._queue[0]
-            ok, cached_len, will_fork = self._reserve_blocks(req)
+            # decide the clamp before the block check (under scarcity the
+            # clamped footprint is what fits), apply it only once admitted
+            clamp = (cfg is not None and cfg.batch_clamp_tokens is not None
+                     and priority_rank(req.priority) >= 1
+                     and req.max_new_tokens > cfg.batch_clamp_tokens
+                     and self._kv_occupancy() >= cfg.kv_clamp_watermark)
+            eff_new = cfg.batch_clamp_tokens if clamp else req.max_new_tokens
+            ok, cached_len, will_fork = self._reserve_blocks(req, eff_new)
             if not ok:
-                break  # head-of-line; keep FIFO fairness
+                break  # head-of-line: keep the queue's order
+            if clamp:
+                req.max_new_tokens = int(cfg.batch_clamp_tokens)
+                req.clamped = True
             self.manager.allocate(req.req_id,
                                   self._blocks_needed(req) * self.block_size)
             if will_fork:
@@ -669,10 +1348,22 @@ class ContinuousBatchingEngine:
                                          fill=self._trash)
             self._tables[slot_idx] = row
             slot.req = req
+            if self._graft_ledger is not None:
+                self._graft_ledger.acquire("engine.slot", req.req_id)
             slot.remaining = req.max_new_tokens
             slot.pending_first = False
             self._mark_dirty(slot_idx)
-            self._queue.pop(0)
+            self._slo_handles(req.tenant)[2].observe(
+                time.perf_counter() - req.t_submit)
+            req._sp_prefill = _obs.start_span(
+                "prefill", parent=req, tid="serve",
+                prompt_tokens=int(req.prompt.size),
+                cached_tokens=int(cached_len))
+            self._queue.pop(0)  # bound above: it leaves the queue last
+            if self.admission is not None:
+                # WFQ service feedback: virtual time advances to the start
+                # tag of the request entering service
+                self.admission.wfq_served(getattr(req, "_wfq_start", None))
             if self.chunked:
                 slot.prefill_pos = cached_len
                 slot.cache_len = cached_len
@@ -692,8 +1383,7 @@ class ContinuousBatchingEngine:
             cl[slot_idx] = cached_len
             last_idx = np.zeros((self.B,), np.int32)
             last_idx[slot_idx] = rem - 1
-            firsts = self._prefill(self._h2d(ids), self._h2d(iso),
-                                   self._h2d(cl), self._h2d(last_idx))
+            firsts = self._prefill(ids, iso, cl, last_idx)
             used += rem
             self.prefill_tokens += rem
             if self.prefix_cache is not None:
@@ -718,8 +1408,11 @@ class ContinuousBatchingEngine:
         if done:
             self.manager.free_sequence(req.req_id)
             self._tables[slot_idx] = self._trash
+            self._finish_req_spans(req, tokens=len(req.out))
             self._completed[req.req_id] = req
             slot.req = None
+            if self._graft_ledger is not None:
+                self._graft_ledger.release("engine.slot", req.req_id)
             slot.pending_first = False
             self._mark_dirty(slot_idx)
         return done
@@ -728,21 +1421,28 @@ class ContinuousBatchingEngine:
                            first: int) -> int:
         """Host bookkeeping of a finished prefill's first token (inline in
         sync mode, at harvest in overlap mode). Returns tokens emitted: 0
-        when the slot changed hands while the token was in flight."""
+        when the slot changed hands (or its request expired) while the
+        token was in flight."""
         slot = self._slots[slot_idx]
         if slot.req is not req:
             return 0
         slot.pending_first = False
+        sp = getattr(req, "_sp_prefill", None)
+        if sp is not None:
+            _obs.finish_span(sp)
+            req._sp_prefill = None
         self._append_token(req, first)
         slot.remaining -= 1
         self._mark_dirty(slot_idx)
+        req._sp_decode = _obs.start_span("decode", parent=req, tid="serve")
         self._finish_if_done(slot_idx, first)
         return 1
 
     def _apply_decode(self, toks: np.ndarray, rows) -> int:
         """Credit one decode dispatch's tokens ``[K, B]`` to its rows; a
-        row whose request no longer owns its slot (finished or replaced
-        after the dispatch: the over-issue of overlap mode) is skipped."""
+        row whose request no longer owns its slot (finished, expired or
+        replaced after the dispatch: overlap mode's over-issue) is
+        skipped."""
         n = 0
         for i, req in rows:
             slot = self._slots[i]
@@ -753,10 +1453,10 @@ class ContinuousBatchingEngine:
                 self._append_token(req, t)
                 slot.cache_len += 1
                 slot.remaining -= 1
-                self.decode_tokens += 1
                 n += 1
                 if self._finish_if_done(i, t):
                     break
+        self.decode_tokens += n  # one registry write a dispatch
         return n
 
     def _apply_spec(self, toks: np.ndarray, acc: np.ndarray, rows) -> int:
@@ -781,11 +1481,11 @@ class ContinuousBatchingEngine:
                 self._append_token(req, t)
                 slot.cache_len += 1
                 slot.remaining -= 1
-                self.decode_tokens += 1
-                self.spec_emitted += 1
                 emitted += 1
                 if self._finish_if_done(i, t):
                     break
+        self.decode_tokens += emitted
+        self.spec_emitted += emitted
         self._step_spec_overcharge += charged - emitted
         return emitted
 
@@ -840,8 +1540,7 @@ class ContinuousBatchingEngine:
                 sched[i] -= real
                 if sched[i] <= 0:
                     del sched[i]
-            firsts = self._prefill(self._h2d(ids), self._h2d(iso),
-                                   self._h2d(cl), self._h2d(last_idx))
+            firsts = self._prefill(ids, iso, cl, last_idx)
             done_rows = []
             for i, start, real in round_rows:
                 slot = self._slots[i]
@@ -896,16 +1595,31 @@ class ContinuousBatchingEngine:
     def _spec_rows(self, active, n_real):
         return [(i, self._slots[i].req, n_real.get(i, 0)) for i in active]
 
+    def _dispatch_span(self, active, kind: str):
+        """The sync dispatch span of a decode-phase round (tracing on)."""
+        if not _obs.enabled():
+            return None
+        return _obs.start_span("dispatch", parent=self._slots[active[0]].req,
+                               tid="device", kind=kind, rows=len(active))
+
+    def _harvest_span(self, sp_d, kind: str):
+        return (_obs.start_span("harvest", parent=sp_d, tid="serve",
+                                kind=kind) if sp_d is not None else None)
+
     def _spec_step(self, active, drafts, n_real) -> int:
         """One sync speculative round: the verify dispatch over the
         uploaded state, then the host's accept walk (1..k+1 tokens a
         slot). Returns the k+1 positions a slot the dispatch charged."""
+        sp_d = self._dispatch_span(active, "spec")
         self._h2d_into(self._ddrafts, drafts, decode=True)
-        out = self._verify_fn()
+        out = self._run(self._verify_fn, "spec_verify")
         self.n_dispatches += 1
         res = self._fetch(out)  # [B, k+2]: k+1 tokens, then acc
+        _obs.finish_span(sp_d)
+        hsp = self._harvest_span(sp_d, "spec")
         self._apply_spec(res[:, :-1], res[:, -1],
                          self._spec_rows(active, n_real))
+        _obs.finish_span(hsp)
         return len(active) * (self.spec_k + 1)
 
     # -- decode rounds -----------------------------------------------------
@@ -932,9 +1646,10 @@ class ContinuousBatchingEngine:
         """Launch the single step or the K-step chunk over the persistent
         state; returns ``(tokens [B] or [K, B] on the device, K)``."""
         if self._scan_gate(active, budget_left):
-            out, k = self._chunk_fn(), self.decode_chunk
+            out = self._run(self._chunk_fn, "decode_chunk")
+            k = self.decode_chunk
         else:
-            out, k = self._decode_fn(), 1
+            out, k = self._run(self._decode_fn, "decode"), 1
         self.n_dispatches += 1
         self.decode_steps += k
         return out, k
@@ -971,9 +1686,13 @@ class ContinuousBatchingEngine:
             proposed = self._propose_drafts(active)
             if proposed is not None:
                 return self._spec_step(active, *proposed)
+        sp_d = self._dispatch_span(active, "decode")
         out, k = self._run_decode(active, budget_left)
         toks = self._fetch(out).reshape(k, self.B)
+        _obs.finish_span(sp_d)
+        hsp = self._harvest_span(sp_d, "decode")
         self._apply_decode(toks, [(i, self._slots[i].req) for i in active])
+        _obs.finish_span(hsp)
         return len(active) * k
 
     # -- overlap mode: persistent device state and the copy ring ------------
@@ -1036,9 +1755,14 @@ class ContinuousBatchingEngine:
         host memory start now, behind the dispatch on the same stream and
         before any later dispatch, so a replay that reuses the program's
         output memory cannot overwrite them; the host reads them a step
-        later."""
-        self._ring.append(_RingEntry(
-            kind, [self._start_d2h(t) for t in outs], rows))
+        later. With tracing on, a dispatch span opens here (issue) and
+        closes at harvest."""
+        e = _RingEntry(kind, [self._start_d2h(t) for t in outs], rows)
+        if _obs.enabled():
+            e.span = _obs.start_span(
+                "dispatch", parent=(rows[0][1] if rows else None),
+                tid="device", kind=kind, rows=len(rows))
+        self._ring.append(e)
 
     def _harvest(self, *, drain: bool = False) -> int:
         """Process ring entries down to ``pipeline_depth`` (all with
@@ -1049,6 +1773,10 @@ class ContinuousBatchingEngine:
         real = 0
         while len(self._ring) > target:
             e = self._ring.popleft()
+            _obs.finish_span(e.span)  # issue -> harvest pickup
+            hsp = (self._harvest_span(e.span, e.kind)
+                   if _obs.enabled() else None)
+            got0 = real
             vals = [self._finish_d2h(c) for c in e.copies]
             if e.kind == "spec":
                 real += self._apply_spec(vals[0][:, :-1], vals[0][:, -1],
@@ -1059,6 +1787,8 @@ class ContinuousBatchingEngine:
             else:  # "first": a prefill round's completing rows
                 for i, req in e.rows:
                     real += self._apply_first_token(i, req, int(vals[0][i]))
+            if hsp is not None:
+                _obs.finish_span(hsp, tokens=real - got0)
         self._harvested_step += real
         return real
 
@@ -1085,7 +1815,7 @@ class ContinuousBatchingEngine:
             if proposed is not None:
                 drafts, n_real = proposed
                 self._h2d_into(self._ddrafts, drafts, decode=True)
-                out = self._verify_fn()
+                out = self._run(self._verify_fn, "spec_verify")
                 self.n_dispatches += 1
                 self._push_entry("spec", (out,),
                                  self._spec_rows(active, n_real))
@@ -1097,18 +1827,27 @@ class ContinuousBatchingEngine:
 
     # -- the engine loop -----------------------------------------------------
     def step(self) -> List[GenRequest]:
-        """One engine iteration. Sync mode: admit, then the token-budgeted
-        work — the decode round first, leftover budget spent on prefill
-        chunks (whole-prompt mode prefills inside admission). Overlap mode
-        (lag-1): flush the dirty rows, dispatch this step's decode from
-        the device state, then harvest the previous step's tokens and do
-        the host's scheduling while the device runs. Returns the requests
-        completed this iteration."""
+        """One engine iteration. Sync mode: expire and evict lapsed
+        requests, admit, then the token-budgeted work — the decode round
+        first, leftover budget spent on prefill chunks (whole-prompt mode
+        prefills inside admission). Overlap mode (lag-1): flush the dirty
+        rows, dispatch this step's decode from the device state, then
+        harvest the previous step's tokens and do the host's scheduling
+        while the device runs. Returns the requests completed this
+        iteration (expired ones included)."""
+        if not _chaos.inject("serving.step"):
+            return []  # a dropped iteration: no work this tick
+        if self._fenced:
+            raise EngineFenced(
+                "engine was retired by its supervisor; a replacement "
+                "already owns the requests")
         if self.overlap:
             return self._step_overlap()
         t0 = time.perf_counter()
         blocked0 = self.host_blocked_s
         before = set(self._completed)
+        self._expire_queued()
+        self._evict_expired()
         self._step_spec_overcharge = 0
         used = self._admit()
         budget = self.max_num_batched_tokens
@@ -1117,13 +1856,15 @@ class ContinuousBatchingEngine:
             used += self._prefill_step(budget - used)
         self._finish_step(t0, blocked0, used,
                           used - self._step_spec_overcharge)
+        if self.admission is not None:
+            self.admission.observe(self.load())
         return [self._completed[r] for r in set(self._completed) - before]
 
     def _step_overlap(self) -> List[GenRequest]:
         """The lag-1 iteration: step N+1's decode is issued before step
         N's tokens are processed. Membership changes (admissions, prefill
-        completions, finishes) land in the dirty set and reach the device
-        at the next step's flush, a dispatch boundary."""
+        completions, finishes, evictions) land in the dirty set and reach
+        the device at the next step's flush, a dispatch boundary."""
         t0 = time.perf_counter()
         blocked0 = self.host_blocked_s
         before = set(self._completed)
@@ -1135,6 +1876,8 @@ class ContinuousBatchingEngine:
         # nothing dispatched: no compute to overlap with, so drain (a
         # pending-first token would otherwise wait behind a long prefill)
         self._harvest(drain=used == 0)
+        self._expire_queued()
+        self._evict_expired()
         a_used = self._admit()
         used += a_used
         pf = 0
@@ -1146,6 +1889,8 @@ class ContinuousBatchingEngine:
             self._harvest(drain=True)
         self._finish_step(t0, blocked0, used,
                           self._harvested_step + a_used + pf)
+        if self.admission is not None:
+            self.admission.observe(self.load())
         return [self._completed[r] for r in set(self._completed) - before]
 
     def _finish_step(self, t0: float, blocked0: float, used: int,
@@ -1159,8 +1904,11 @@ class ContinuousBatchingEngine:
         self.max_step_tokens = max(self.max_step_tokens, used)
         self.last_step_s = time.perf_counter() - t0
         self.busy_s += self.last_step_s
+        a = (self.admission.config.ewma_alpha
+             if self.admission is not None else 0.3)
         if used > 0 or real > 0:
-            a = 0.3
+            # idle ticks are left out so a quiet engine does not decay its
+            # measured capacity toward zero
             self.ewma_step_s = (self.last_step_s if self.ewma_step_s is None
                                 else a * self.last_step_s
                                 + (1 - a) * self.ewma_step_s)

@@ -39,6 +39,7 @@ runs every function eagerly; ``not_to_static(fn)`` marks a function that
 from __future__ import annotations
 
 import dis
+import gc
 import types
 import warnings
 from typing import Any, Dict, List, Optional, Sequence
@@ -244,6 +245,12 @@ class StaticFunction:
         for o, buf in zip(self._optimizers, lr_bufs):
             o._lr_override = buf
         err = inner = None
+        # a CUDA graph freed while another is being captured breaks that
+        # capture: the cyclic collector, which may free graphs left in
+        # unreachable reference cycles (a dropped engine and its programs),
+        # waits until the capture ends
+        gc_was_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.device(dev), torch.cuda.graph(graph, pool=self._pool):
                 # a host read during the capture raises here, with its place
@@ -258,6 +265,8 @@ class StaticFunction:
         except Exception as e:  # noqa: BLE001 - reported or re-raised below
             err = inner if inner is not None else e
         finally:
+            if gc_was_on:
+                gc.enable()
             for o in self._optimizers:
                 o._lr_override = None
         step_delta = [o._global_step - s for o, s in zip(self._optimizers, steps0)]

@@ -44,8 +44,8 @@ from ..base.dtype import to_torch_dtype
 from . import kernels
 
 __all__ = [
-    "PagedLayerCache", "BlockManager", "PrefixCache", "contiguous_tables",
-    "alloc_paged_kv_caches", "paged_update_kv_cache", "paged_gather_kv",
+    "PagedLayerCache", "BlockManager", "BlockImportError", "PrefixCache",
+    "contiguous_tables", "alloc_paged_kv_caches", "paged_update_kv_cache", "paged_gather_kv",
     "paged_write_kv", "paged_attention_step", "paged_decode_attention",
     "paged_decode", "paged_decode_plain", "paged_decode_int8",
     "paged_decode_int8_plain", "decode_splits",
@@ -77,6 +77,51 @@ def contiguous_tables(batch: int, max_len: int, block_size: int) -> np.ndarray:
     """Dense layout: sequence b owns blocks [b*n, (b+1)*n)."""
     per_seq = -(-max_len // block_size)
     return np.arange(batch * per_seq, dtype=np.int32).reshape(batch, per_seq)
+
+
+class BlockImportError(RuntimeError):
+    """A KV-block import could not be placed right now (the destination
+    pool is too full): transient, as in the reference — retry once decode
+    has freed blocks."""
+
+
+def _host_pages(t: torch.Tensor) -> np.ndarray:
+    """A device gather as host numpy; bfloat16 as its raw 16-bit patterns
+    (``uint16``: numpy has no bfloat16, and the bytes are what a frame
+    carries). From the card the copy lands in pinned memory: one blocking
+    copy behind the work that wrote the blocks, at the link's rate."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    if t.device.type == "cuda":
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+    else:
+        host = t.clone()
+    out = host.numpy()
+    return out.view(np.uint16) if out.dtype == np.int16 else out
+
+
+def _device_pages(arr, dtype, device) -> torch.Tensor:
+    """Exported pages (numpy; bfloat16 as raw ``uint16`` patterns or an
+    ``ml_dtypes`` array) as a tensor of the pool's ``dtype`` on
+    ``device``; to the card through pinned memory."""
+    arr = np.ascontiguousarray(arr)
+    raw16 = arr.dtype.name == "bfloat16" or (
+        dtype == torch.bfloat16 and arr.dtype == np.uint16)
+    if raw16:
+        arr = arr.view(np.int16)
+    if device.type == "cuda":
+        host = torch.empty(arr.shape, dtype=_TORCH_OF[arr.dtype.name],
+                           pin_memory=True)
+        host.numpy()[...] = arr
+        t = host.to(device, non_blocking=True)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return (t.view(torch.bfloat16) if raw16 else t).to(dtype)
+
+
+_TORCH_OF = {"int16": torch.int16, "int8": torch.int8,
+             "float32": torch.float32, "float16": torch.float16}
 
 
 class BlockManager:
@@ -208,6 +253,98 @@ class BlockManager:
         owned = self._owned.get(seq_id, [])
         row[: len(owned)] = owned
         return row
+
+    # -- KV-block export/import (host tier, disaggregated handoff) ------
+    def export_blocks(self, seq_id, pools, num_tokens: Optional[int] = None):
+        """Gather ``seq_id``'s KV blocks out of the pools into host arrays.
+        ``pools`` is the engine's per-layer list of ``(k, v)`` pools
+        ``[kvh, blocks, bs, D]``, or ``(k, v, k_scale, v_scale)`` for int8
+        pools (the scale rows travel with their blocks).
+
+        Returns ``(pages, scales, meta)``: ``pages`` ``[layers, 2, kvh, n,
+        bs, D]`` (k then v), byte-exact (bfloat16 as raw ``uint16``
+        patterns, ``meta["dtype"] == "bfloat16"``); ``scales`` ``[layers,
+        2, kvh, n, bs]`` f32 or None; ``meta`` the reference's
+        ``{num_blocks, block_size, layers, dtype, quantized}``.
+        ``num_tokens`` limits the export to the blocks holding them.
+
+        A device read: the gather runs on the current stream, behind the
+        work that wrote the blocks, and the host waits for its copy.
+        Read-only: no reference count moves."""
+        owned = self._owned.get(seq_id)
+        if not owned:
+            raise KeyError(f"export_blocks: unknown sequence {seq_id!r}")
+        n = len(owned)
+        if num_tokens is not None:
+            n = min(self.blocks_for(num_tokens), n)
+        dev = pools[0][0].device
+        idx = torch.as_tensor(owned[:n], dtype=torch.long, device=dev)
+        pages = _host_pages(torch.stack([
+            torch.stack([entry[0][:, idx], entry[1][:, idx]])
+            for entry in pools]))
+        scales = None
+        if len(pools[0]) >= 4:
+            scales = _host_pages(torch.stack([
+                torch.stack([entry[2][:, idx], entry[3][:, idx]])
+                for entry in pools]))
+        dtype = pools[0][0].dtype
+        meta = {
+            "num_blocks": int(n),
+            "block_size": int(self.block_size),
+            "layers": int(pages.shape[0]),
+            "dtype": ("bfloat16" if dtype == torch.bfloat16
+                      else str(dtype).replace("torch.", "")),
+            "quantized": scales is not None,
+        }
+        return pages, scales, meta
+
+    def import_blocks(self, seq_id, pages, scales, meta, pools):
+        """Inverse of :meth:`export_blocks`: allocate fresh private blocks
+        for ``seq_id`` and write the exported rows into the pools IN PLACE
+        (on the current stream; the pool tensors keep their addresses, so
+        captured CUDA graphs that read them stay valid). Returns ``(pools,
+        blocks)`` — the same pool list, in the reference's return shape.
+
+        Raises :class:`BlockImportError` (transient) when the pool is too
+        full; ``ValueError`` on a configuration mismatch (block size,
+        layers, quantization). On any failure nothing stays allocated."""
+        n = int(meta["num_blocks"])
+        if int(meta["block_size"]) != self.block_size:
+            raise ValueError(
+                f"import_blocks: exporter block_size "
+                f"{meta['block_size']} != local {self.block_size}")
+        if int(meta["layers"]) != len(pools):
+            raise ValueError(
+                f"import_blocks: exporter has {meta['layers']} layers, "
+                f"local pools {len(pools)}")
+        if bool(meta.get("quantized")) != (len(pools[0]) >= 4):
+            raise ValueError(
+                "import_blocks: quantized/float pool mismatch between "
+                "exporter and importer")
+        if self._owned.get(seq_id):
+            raise ValueError(
+                f"import_blocks: sequence {seq_id!r} already owns blocks")
+        if n > self.num_blocks:
+            raise ValueError(  # permanent: can never fit in this pool
+                f"import_blocks: {n} blocks exceed the pool's total "
+                f"size {self.num_blocks}")
+        if n > len(self._free):
+            raise BlockImportError(
+                f"paged KV pool too full to import {n} blocks "
+                f"({len(self._free)} free of {self.num_blocks})")
+        blocks = self.allocate(seq_id, n * self.block_size)
+        dev = pools[0][0].device
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=dev)
+        # one upload of each array, then the in-place writes
+        pages_d = _device_pages(pages, pools[0][0].dtype, dev)
+        scales_d = (None if len(pools[0]) < 4 else
+                    _device_pages(scales, pools[0][2].dtype, dev))
+        for li, entry in enumerate(pools):
+            for j in range(2):
+                entry[j][:, idx] = pages_d[li, j]
+                if scales_d is not None:
+                    entry[2 + j][:, idx] = scales_d[li, j]
+        return pools, blocks
 
 
 class _PrefixNode:

@@ -31,6 +31,16 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import paddle_tpu_torch.optimizer, paddle_tpu_torch.optimizer.lr\n"
         "import paddle_tpu_torch.jit, paddle_tpu_torch.nn.functional.loss\n"
         "import paddle_tpu_torch.utils\n"
+        "import paddle_tpu_torch.inference.admission\n"
+        "import paddle_tpu_torch.inference.cache_tier\n"
+        "import paddle_tpu_torch.obs, paddle_tpu_torch.obs.trace\n"
+        "import paddle_tpu_torch.obs.metrics, paddle_tpu_torch.testing\n"
+        "import paddle_tpu_torch.testing.chaos\n"
+        "import paddle_tpu_torch.utils.resources\n"
+        "import paddle_tpu_torch.utils.retries\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
+        "assert not bad, bad\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu')]\n"
         "print(','.join(bad))\n")

@@ -980,6 +980,63 @@ def test_captured_engine_equals_the_eager_engine(dev, kw):
         assert eng.spec_stats()["dispatches"] > 0
 
 
+@pytest.mark.parametrize("kw", [
+    dict(decode_chunk=4), dict(decode_chunk=4, overlap=True),
+    dict(prefill_chunk=16, max_num_batched_tokens=24),
+    dict(prefill_chunk=16, max_num_batched_tokens=24, overlap=True,
+         kv_dtype="int8"),
+], ids=["whole", "whole_overlap", "chunked", "chunked_overlap_int8"])
+def test_captured_prefill_equals_the_eager_engine(dev, kw):
+    """The prefill program replays as one CUDA graph after its eager first
+    call, whole-prompt and chunked, and the streams equal the eager
+    engine's bitwise; ``warmed_up`` holds once every program is captured."""
+    want, eager, _ = _serve_small(dev, False, **kw)
+    got, eng, _ = _serve_small(dev, True, **kw)
+    assert got == want
+    assert len(eng._prefill_fn._graphs) == 1
+    assert not eager._prefill_fn._graphs and eng.warmed_up
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["bf16", "int8"])
+def test_tier_restores_keep_the_captured_pools(dev, kv_dtype):
+    """A host-tier restore writes into the pool tensors the captured graphs
+    read: their addresses never change, and the streams equal an engine
+    whose pool is large enough never to evict."""
+    import numpy as np
+
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine, HostTier
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    pt_seed(3)
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_size=256,
+                           intermediate_size=512, num_attention_heads=2,
+                           num_key_value_heads=2, max_position_embeddings=512)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, 512, (33,)) for _ in range(6)]
+
+    def serve(num_blocks, tier):
+        eng = ContinuousBatchingEngine(
+            model, max_batch=1, max_len=64, block_size=16,
+            num_blocks=num_blocks, prefill_chunk=16, prefix_cache=True,
+            kv_dtype=kv_dtype, cache_tier=tier)
+        ptrs = [[x.data_ptr() for x in e] for e in eng._pools]
+        out = []
+        for rnd in range(3):
+            for i, p in enumerate(prompts):
+                eng.add_request((rnd, i), p, max_new_tokens=6)
+                eng.run()
+                out.append(eng._completed[(rnd, i)].out)
+        assert [[x.data_ptr() for x in e] for e in eng._pools] == ptrs
+        return out, eng
+
+    want, _ = serve(64, None)
+    got, eng = serve(8, HostTier())
+    assert got == want
+    assert eng.tier_restores > 0 and len(eng._prefill_fn._graphs) == 1
+
+
 def test_generate_use_jit_replays_and_equals_eager(dev):
     from paddle_tpu_torch import seed as pt_seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, generate
