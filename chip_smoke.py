@@ -10,9 +10,10 @@ ffn 5632, 8 layers, 16 heads, 16 kv heads, bf16) with random weights made
 from ``--seed``: the serving slice's cache-less scoring
 ``LlamaForCausalLM.forward`` (flash-forward kernel) and
 ``ContinuousBatchingEngine`` (paged-decode kernel), as
-``benchmarks/serving_throughput.py`` configures them; the engine with the
-prefix cache on the shared-prefix workload of that script's router mode,
-over int8 KV pools (int8 paged-decode kernel) and over bf16 pools; and the
+``benchmarks/serving_throughput.py`` configures them; the shared-prefix
+workload of that script's router mode on two engines with the prefix cache
+behind a ``ClusterRouter``, over int8 KV pools (int8 paged-decode kernel)
+and over bf16 pools; and the
 training slice's flagship step of ``bench.py:main()`` (B=4, S=2048,
 masterless bf16 ``AdamW(lr=1e-4, moment_dtype="bfloat16",
 use_stochastic_rounding=True, fused=True)`` through
@@ -24,7 +25,12 @@ pools, and ``generate`` captured and sampling; and the engine's front
 door (phase 12): the prefill programs captured (whole-prompt and chunked),
 overload control at twice the calibrated capacity with deadlines and
 priorities, tracing and the resource ledger on, and the host-RAM prefix
-tier with corrupt-spill chaos. Each main path runs
+tier with corrupt-spill chaos; and disaggregated serving (phase 13), that
+script's Part 5: a ``prefill_only`` and a ``decode_only`` engine handing
+KV blocks over through a store, in one process against the unified
+engine's streams (bf16, then int8 pools in overlap mode), then as two
+worker processes over a ``TCPKVStore`` in turns with the unified engine,
+and a prefill worker killed in the middle of a handoff. Each main path runs
 with every kernel launch count set to 0 just before it and read just
 after; a kernel
 of the path that did not launch, or launched another number of times than
@@ -65,11 +71,11 @@ SERVE = dict(max_batch=16, max_len=2048, block_size=64,
              decode_chunk=16)
 PROMPT_LENS = (256, 384, 512)
 N_REQUESTS, NEW_TOKENS = 32, 32
-# benchmarks/serving_throughput.py:346-370 (router mode, on-TPU numbers):
-# one engine where the source runs two replicas behind a ClusterRouter (the
-# router is a later slice), no priorities (admission control is a later
-# slice); plus 4 exact repeats of earlier prompts, so that fully cached
-# prompts fork their last block on the card
+# benchmarks/serving_throughput.py:341-380 (router mode, on-TPU numbers):
+# two replicas behind a ClusterRouter, every third request interactive and
+# the rest batch; then 4 exact repeats of its first prompts, each in its
+# original's session, so that fully cached prompts fork their last block
+# on the card
 PREFIX_SERVE = dict(max_batch=8, max_len=1024, block_size=64,
                     prefill_chunk=256, num_blocks=8 * 16 + 8,
                     prefix_cache=True)
@@ -85,6 +91,9 @@ ADAMW_GROUPS = 1
 # phase 2's engine-like decode: phase 5b's batch and table width
 # (max_len 1024), every row between one and two thirds of the way in
 ENGINE_DECODE = dict(B=8, pages=1024 // 64, lo=512, hi=704)
+# phase 13's decode: B=8 rows of a 4096-token prompt and its growth over
+# 8-token blocks and 544-page tables (max_len 4352)
+DISAGG_DECODE = dict(B=8, pages=4352 // 8, lo=4096, hi=4352, bs=8)
 GRAD_DEPTH = 2  # phase 8's layers: the plain attention path holds
                 # [4, 16, 2048, 2048] f32 scores per layer for backward
 
@@ -444,13 +453,13 @@ def decode_gate(got, want, want_f32, int8: bool = False):
 
 # -- phase 2: kernels against their plain versions ----------------------
 def paged_inputs(torch, dev, gen, gen_cpu, B, pages=2048 // 64, lo=1,
-                 hi=2048):
-    """Phase 2's paged-decode inputs: bf16 pools [16, B*pages + 1, 64, 128]
+                 hi=2048, bs=64):
+    """Phase 2's paged-decode inputs: bf16 pools [16, B*pages + 1, bs, 128]
     behind shuffled tables (pages past the live ones hold the trash block),
     lengths drawn from lo..hi with the spread's two ends, bf16 q. Returns
     ``(q, k_pool, v_pool, tables, cache_len, lengths)``."""
     H = KVH = 16
-    D, BS, P = 128, 64, pages
+    D, BS, P = 128, bs, pages
     nb = B * P + 1
     trash = nb - 1
     lengths = torch.randint(lo, hi + 1, (B,), generator=gen_cpu)
@@ -518,7 +527,7 @@ def paged_case(torch, dev, gen, gen_cpu, B, int8=False, **shape):
     splits = decode_splits(tables.shape[1], B, H, sms)
     row = dict(gate, B=B, rel_err=rel, call_ms=call_ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-               live_tokens=live, nbytes=nbytes, splits=splits,
+               live_tokens=live, nbytes=nbytes, splits=splits, bs=BS,
                device=lambda: device(False))
     if not int8:
         return row, None
@@ -540,7 +549,7 @@ def paged_case(torch, dev, gen, gen_cpu, B, int8=False, **shape):
     return row, dict(gate, B=B, rel_err=rel, call_ms=call_ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                      library_ms=None, live_tokens=live, nbytes=nbytes,
-                     splits=splits, device=lambda: device(True))
+                     splits=splits, bs=BS, device=lambda: device(True))
 
 
 def flash_inputs(torch, dev, gen, hkv, dtype=None):
@@ -874,11 +883,14 @@ def bench_step(model, opt):
 
 
 def prefix_serving_phase(torch, np, model, cfg, card):
-    """Phase 5b: the engine with the prefix cache on the shared-prefix
-    workload, over int8 and over bf16 pools, each run with the launch
-    counts set to 0 just before it; then int8 against bf16 pools. Returns
-    the int8 run's launch counts."""
+    """Phase 5b: the shared-prefix workload served as its source serves it,
+    by two engines with the prefix cache on behind a ``ClusterRouter``
+    (``InProcessReplica``: one supervised engine each), over int8 and over
+    bf16 pools, each run with the launch counts set to 0 just before it;
+    then int8 against bf16 pools. Returns the int8 run's launch counts."""
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.cluster import (ClusterRouter,
+                                                    InProcessReplica)
     from paddle_tpu_torch.ops import kernels
 
     rng = np.random.RandomState(3)  # the source's seed and draw order
@@ -886,72 +898,102 @@ def prefix_serving_phase(torch, np, model, cfg, card):
                 for _ in range(PREFIX_FAMILIES)]
     work = [(i, np.concatenate([
         families[i % PREFIX_FAMILIES],
-        rng.randint(0, cfg.vocab_size, (PREFIX_TAILS[i % 2],))]))
+        rng.randint(0, cfg.vocab_size, (PREFIX_TAILS[i % 2],))]),
+        "interactive" if i % 3 == 0 else "batch",
+        f"r{i}" if i < PREFIX_REPEATS else None)
         for i in range(PREFIX_REQUESTS)]
-    # the repeats queue behind the first wave of max_batch requests, so
-    # their originals' blocks are in the cache when they are admitted
-    wave = PREFIX_SERVE["max_batch"]
-    work = (work[:wave] + [(f"again{i}", work[i][1].copy())
-                           for i in range(PREFIX_REPEATS)] + work[wave:])
+    # the repeats follow once the workload is served: their originals'
+    # blocks are then in the cache of the replica their session pins
+    again = [(f"again{i}", work[i][1].copy(), work[i][2], work[i][3])
+             for i in range(PREFIX_REPEATS)]
     L = cfg.num_hidden_layers
 
-    def serve_prefix(kv_dtype, requests):
-        eng = ContinuousBatchingEngine(model, **PREFIX_SERVE, kv_dtype=kv_dtype)
-        for rid, p in requests:
-            eng.add_request(rid, p, max_new_tokens=PREFIX_NEW)
+    def serve_prefix(kv_dtype):
+        def factory():
+            return ContinuousBatchingEngine(model, **PREFIX_SERVE,
+                                            kv_dtype=kv_dtype)
+
+        reps = [InProcessReplica(f"r{i}", factory) for i in range(2)]
+        for rep in reps:  # the source's warm-up, outside the counted run
+            rep.supervisor.submit(f"warm-{rep.replica_id}",
+                                  np.ones(1, np.int32), max_new_tokens=2)
+            while rep.supervisor.pending:
+                rep.supervisor.step()
+        engines = [rep.supervisor.engine for rep in reps]
+        router = ClusterRouter(reps, block_size=PREFIX_SERVE["block_size"])
+        steps0 = sum(e.decode_steps for e in engines)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        done = eng.run()
+        for wave in (work, again):
+            for rid, p, pri, session in wave:
+                router.submit(rid, p, max_new_tokens=PREFIX_NEW, priority=pri,
+                              session=session)
+            res = router.run(deadline=600)
         torch.cuda.synchronize()
-        return eng, done, time.perf_counter() - t0, kernels.launch_counts()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        # the router also harvests the replicas' warm-up results
+        res = {rid: res.get(rid, {}) for rid, _, _, _ in work + again}
+        done = {rid: r for rep in reps
+                for rid, r in rep.supervisor.results.items()
+                if not str(rid).startswith("warm")}
+        return (router, reps, engines, res, done, wall, counts,
+                sum(e.decode_steps for e in engines) - steps0)
 
     runs = {}
     for kv in ("int8", None):
-        serve_prefix(kv, work[:2])  # warm-up outside the counted run
-        eng, done, wall, counts = serve_prefix(kv, work)
+        router, reps, engines, res, done, wall, counts, steps = \
+            serve_prefix(kv)
         name = kv or "bf16"
-        runs[name] = (eng, done, counts)
-        st = eng.prefix_stats()
-        acc = eng.manager.accounting()
+        runs[name] = (res, counts)
+        stats = [e.prefix_stats() for e in engines]
+        forks = sum(st["forks"] for st in stats)
+        hits = sum(st["hit_tokens"] for st in stats)
         ttft = statistics.median(r.ttft() for r in done.values())
-        print(f"phase 5b shared-prefix serving, {name} KV pools: "
-              f"{len(done)} requests ({PREFIX_FAMILIES} families of "
-              f"{PREFIX_LEN}-token prefixes, tails {PREFIX_TAILS}, "
-              f"{PREFIX_REPEATS} exact repeats, {PREFIX_NEW} new tokens each) "
-              f"B={PREFIX_SERVE['max_batch']} chunk "
+        decode_tokens = sum(len(r.out) - 1 for r in done.values())
+        print(f"phase 5b shared-prefix serving, {name} KV pools, two "
+              f"replicas behind a ClusterRouter: {len(done)} requests "
+              f"({PREFIX_FAMILIES} families of {PREFIX_LEN}-token prefixes, "
+              f"tails {PREFIX_TAILS}, every third interactive, then "
+              f"{PREFIX_REPEATS} exact repeats; {PREFIX_NEW} new tokens each) "
+              f"B={PREFIX_SERVE['max_batch']} per replica, chunk "
               f"{PREFIX_SERVE['prefill_chunk']}: wall {wall:.3f} s, "
-              f"{eng.decode_tokens / wall:.1f} decode tokens/s of wall time, "
-              f"TTFT p50 {ttft * 1e3:.1f} ms (all submitted at t=0), "
-              f"{eng.decode_steps} decode steps, prefix hit tokens "
-              f"{st['hit_tokens']}, hit rate {st['hit_rate']:.4f}, forks "
-              f"{st['forks']}, evicted blocks {st['evicted_blocks']}, "
-              f"counts {json.dumps(counts)} [{card}]")
-        want_int8 = L * eng.decode_steps if kv else 0
-        if (eng.decode_steps == 0
-                or counts["paged_decode_attention_int8"] != want_int8
-                or counts["paged_decode_attention"] != L * eng.decode_steps
-                - want_int8):
+              f"{decode_tokens / wall:.1f} decode tokens/s of wall time, "
+              f"TTFT p50 {ttft * 1e3:.1f} ms (all submitted at t=0), routed "
+              f"{router.n_routed}, router prefix hit rate "
+              f"{router.prefix_hit_rate():.4f}, {steps} decode steps, prefix "
+              f"hit tokens {[st['hit_tokens'] for st in stats]}, forks "
+              f"{[st['forks'] for st in stats]}, evicted blocks "
+              f"{[st['evicted_blocks'] for st in stats]}, counts "
+              f"{json.dumps(counts)} [{card}]")
+        want_int8 = L * steps if kv else 0
+        if (steps == 0 or counts["paged_decode_attention_int8"] != want_int8
+                or counts["paged_decode_attention"] != L * steps - want_int8):
             fail(f"{name} prefix serving: launch counts {counts} for "
-                 f"{eng.decode_steps} decode steps x {L} layers")
-        if not (st["forks"] >= PREFIX_REPEATS and st["hit_tokens"] > 0):
-            fail(f"{name} prefix serving: forks {st['forks']}, hit tokens "
-                 f"{st['hit_tokens']}")
-        if not (acc["free"] + len(acc["refs"]) == acc["total"]
-                and not acc["owned"] and set(acc["refs"].values()) <= {1}):
-            fail(f"{name} prefix serving: blocks neither free nor pinned by "
-                 f"the cache alone at the end: {acc}")
-        if len(done) != len(work) or any(
-                len(r.out) != PREFIX_NEW
-                or not all(0 <= t < cfg.vocab_size for t in r.out)
-                for r in done.values()):
+                 f"{steps} decode steps x {L} layers")
+        if not (forks >= PREFIX_REPEATS and hits > 0):
+            fail(f"{name} prefix serving: forks {forks}, hit tokens {hits}")
+        for e in engines:
+            acc = e.manager.accounting()
+            if not (acc["free"] + len(acc["refs"]) == acc["total"]
+                    and not acc["owned"]
+                    and set(acc["refs"].values()) <= {1}):
+                fail(f"{name} prefix serving: blocks neither free nor pinned "
+                     f"by the cache alone at the end: {acc}")
+        if any(rep.supervisor.restarts for rep in reps) or router.dead:
+            fail(f"{name} prefix serving: a replica restarted or died")
+        if any(r.get("status") != "ok" or len(r["out"]) != PREFIX_NEW
+                or not all(0 <= t < cfg.vocab_size for t in r["out"])
+                for r in res.values()):
             fail(f"{name} prefix serving: a request did not complete with "
                  f"in-range tokens")
+        del router, reps, engines, done
     # one decode step of each engine, profiled: all 8 slots decoding (the
     # first wave, prefilled, with room for more tokens than the run gives)
     for kv in ("int8", None):
         eng = ContinuousBatchingEngine(model, **PREFIX_SERVE, kv_dtype=kv)
-        for rid, p in work[:wave]:
+        for rid, p, _, _ in work[:PREFIX_SERVE["max_batch"]]:
             eng.add_request(rid, p, max_new_tokens=4 * PREFIX_NEW)
         while eng._queue or eng.num_prefilling:
             eng.step()
@@ -990,14 +1032,15 @@ def prefix_serving_phase(torch, np, model, cfg, card):
             fail(f"phase 5b: one {kv or 'bf16'} decode step launched "
                  f"{counts[name]} decode kernels, not {L}")
         del eng, prof
-    toks8, toks16 = ({rid: r.out for rid, r in runs[n][1].items()}
+    toks8, toks16 = ({rid: r["out"] for rid, r in runs[n][0].items()}
                      for n in ("int8", "bf16"))
     agree = float(np.mean([a == b for rid in toks16
                            for a, b in zip(toks8[rid], toks16[rid])]))
     # int8_decode_bench.py:179-202: last prefill logits, int8 against bf16
     # pools, on the 576-token prompts of the first wave
-    ids5 = torch.from_numpy(np.stack([p for rid, p in work[:wave]
-                                      if p.size == work[0][1].size]))
+    ids5 = torch.from_numpy(np.stack([
+        p for _, p, _, _ in work[:PREFIX_SERVE["max_batch"]]
+        if p.size == work[0][1].size]))
     ids5 = ids5.to(model.device)
     lasts = {}
     with torch.no_grad():
@@ -1019,7 +1062,7 @@ def prefix_serving_phase(torch, np, model, cfg, card):
           f"{ids5.shape[1]} tokens)")
     if not (np.isfinite(kv_rel) and kv_rel <= KV_REL_TOL):
         fail(f"int8 KV pools: last-logit rel err {kv_rel} beyond {KV_REL_TOL}")
-    return runs["int8"][2]
+    return runs["int8"][1]
 
 
 # -- phase 10: the training recipe ------------------------------------------
@@ -2684,6 +2727,572 @@ def front_door_phase(torch, np, model, loop_runs, card):
     return prof, overload
 
 
+# -- phase 13: disaggregated serving ---------------------------------------
+# benchmarks/serving_throughput.py:455-461 (Part 5, on-TPU numbers): one
+# prefill_only and one decode_only engine against the unified chunked
+# engine, 12 prompts of 128 tokens (48 new each) and 4 of 4096 (16 new);
+# block_size 8 is the worker processes' (testing/disagg_worker.py)
+DISAGG = dict(max_batch=8, max_len=4352, block_size=8, prefill_chunk=512,
+              num_blocks=8 * (-(-4352 // 8)) + 8)
+DISAGG_SHORT = (12, 128, 48)  # requests, prompt tokens, new tokens
+DISAGG_LONG = (4, 4096, 16)
+DISAGG_STEPS_PER_PUMP = 8  # the source's decode worker (:522)
+# the warm-up prompt spans two chunks, so that each program is called twice
+# (eager, then captured) before a counted or timed run
+DISAGG_WARM = (600, 4)
+# 13(c)'s kill: 4 parts and a commit a transfer, so the fault at leg 7 ends
+# the prefill worker on the second part of its second transfer
+DISAGG_KILL_PARTS, DISAGG_KILL = 4, "handoff.transfer@7=kill"
+DISAGG_KILL_REQUESTS, DISAGG_FALLBACK_REQUESTS, DISAGG_KILL_NEW = 5, 3, 8
+# 13(c)'s store moves ~40 MB/s each way, so a 4096-token handoff (268 MB of
+# pages) takes seconds, and a pump that settles several of them outlasts the
+# reference's 15 s heartbeat and 30 s handoff budget: the router reads
+# liveness from the process handles, and a handoff gets DISAGG_BUDGET_S
+DISAGG_BUDGET_S = 300.0
+
+
+def disagg_work(np, vocab, seed, n_long=DISAGG_LONG[0]):
+    """Phase 13's traffic: ``[(req_id, prompt, new tokens)]``, the short
+    prompts then the long ones, drawn in the source's order (its
+    ``RandomState(4)`` at ``--seed 0``)."""
+    rng = np.random.RandomState(seed + 4)
+    (ns, ls, gs), (nl, ll, gl) = DISAGG_SHORT, DISAGG_LONG
+    shorts = [(f"s{i}", rng.randint(0, vocab, (ls,)), gs) for i in range(ns)]
+    longs = [(f"l{i}", rng.randint(0, vocab, (ll,)), gl) for i in range(nl)]
+    return shorts + longs[:n_long]
+
+
+def itl_ms(times_by_rid):
+    """p50 and p99 of the inter-token latencies (ms) of some streams'
+    per-token ``perf_counter`` stamps."""
+    import numpy as np
+
+    xs = [b - a for ts in times_by_rid for a, b in zip(ts, ts[1:])]
+    if not xs:
+        return float("nan"), float("nan")
+    return (float(np.percentile(xs, 50)) * 1e3,
+            float(np.percentile(xs, 99)) * 1e3)
+
+
+def warm_prompt(np, vocab):
+    return np.random.RandomState(97).randint(0, vocab, (DISAGG_WARM[0],))
+
+
+def unified_engine(np, model, kv=None, overlap=False):
+    """The unified chunked engine of phase 13, warmed: its programs are
+    captured."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(model, **DISAGG, kv_dtype=kv,
+                                   overlap=overlap)
+    eng.add_request("warm", warm_prompt(np, model.config.vocab_size),
+                    max_new_tokens=DISAGG_WARM[1])
+    eng.run()
+    return eng
+
+
+def unified_run(torch, eng, work, tag):
+    """``work`` on the unified engine: its streams (keyed by the work's
+    ids), the short requests' ITL p50/p99 and the wall."""
+    for rid, p, n in work:
+        eng.add_request(tag + rid, p, max_new_tokens=n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    short = {f"s{i}" for i in range(DISAGG_SHORT[0])}
+    return dict(tokens={rid: list(done[tag + rid].out) for rid, _, _ in work},
+                itl=itl_ms([done[tag + rid].times for rid, _, _ in work
+                            if rid in short]), wall=wall,
+                ok=all(done[tag + rid].status == "ok" for rid, _, _ in work))
+
+
+def stream_departures(torch, model, work, got, want):
+    """``(departures, worst gap)``: the requests whose stream departs from
+    ``want``, each with the top-2 logit gap of ``want``'s logits at the
+    first differing position (a near tie when below ``SPEC_GAP_BOUND``)."""
+    out = []
+    prompts = {rid: p for rid, p, _ in work}
+    for rid, w in want.items():
+        g = got.get(rid)
+        if g is None or len(g) != len(w):
+            out.append((rid, float("inf")))
+            continue
+        j = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is not None:
+            out.append((rid, top2_gaps(torch, model, prompts[rid], w)[j]))
+    return out, max((gap for _, gap in out), default=0.0)
+
+
+def _expected_body(blocks, cfg, kv, itemsize=2):
+    """The bytes a payload's pages and scale rows take: blocks x layers x
+    2 (K, V) x KVH x block_size x D x the element size (1 for int8 pools,
+    else the model's: 2 in bf16), plus the f32 scale rows of int8 pools."""
+    kvh, bs = cfg.num_key_value_heads, DISAGG["block_size"]
+    d = cfg.hidden_size // cfg.num_attention_heads
+    n = blocks * cfg.num_hidden_layers * 2 * kvh * bs
+    return n * d * (1 if kv else itemsize) + (n * 4 if kv else 0)
+
+
+def disagg_inprocess(torch, np, model, work, kv=None, overlap=False,
+                     uni=None):
+    """One ``prefill_only`` and one ``decode_only`` engine behind a
+    ``DisaggRouter`` over a ``MemKVStore``, in this process, on ``work``,
+    held against the unified engine's streams ``uni``. Counts each worker's
+    kernel launches around its pumps, times each handoff's legs, and
+    checks a partial transfer is never imported. Returns a dict with
+    ``failures`` (empty when every gate holds)."""
+    from paddle_tpu_torch.distributed.store import MemKVStore
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.disagg import (DecodeWorker, DisaggRouter,
+                                                   HandoffPayload,
+                                                   KVHandoffSender,
+                                                   PrefillWorker)
+    from paddle_tpu_torch.ops import kernels
+
+    L = model.config.num_hidden_layers
+    engines = {"pf": [], "dx": []}
+    hand = {}  # req_id -> the handoff's legs and bytes
+
+    def factory(role):
+        def make():
+            eng = ContinuousBatchingEngine(
+                model, **DISAGG, kv_dtype=kv, overlap=overlap,
+                role="prefill_only" if role == "pf" else "decode_only")
+            if role == "pf":
+                export = eng.export_kv
+
+                def export_kv(req_id, kv_len=None):
+                    h = hand.setdefault(req_id, {})
+                    h["owned"] = len(eng.manager.owned_blocks(req_id))
+                    t0 = time.perf_counter()
+                    out = export(req_id, kv_len=kv_len)
+                    h["export_s"] = time.perf_counter() - t0
+                    h["blocks"] = out[2]["num_blocks"]
+                    h["scales"] = out[1] is not None
+                    return out
+                eng.export_kv = export_kv
+            else:
+                imp = eng.import_kv
+
+                def import_kv(req, first, pages, scales, meta):
+                    t0 = time.perf_counter()
+                    imp(req, first, pages, scales, meta)
+                    torch.cuda.synchronize()  # the upload, timed whole
+                    hand.setdefault(req.req_id, {})["import_s"] = \
+                        time.perf_counter() - t0
+                eng.import_kv = import_kv
+            engines[role].append(eng)
+            return eng
+        return make
+
+    store = MemKVStore()
+    pf = PrefillWorker("pf0", factory("pf"), store, ["dx0"],
+                       handoff_budget=DISAGG_BUDGET_S)
+    dx = DecodeWorker("dx0", factory("dx"), store,
+                      steps_per_pump=DISAGG_STEPS_PER_PUMP)
+    sender, receiver = pf.senders[0], dx.receiver
+    send, put, settle = (sender.send_handoff, sender._put_transfer,
+                         receiver._settle)
+
+    def send_handoff(payload, deadline=None):
+        t0 = time.perf_counter()
+        seq = send(payload, deadline=deadline)
+        h = hand.setdefault(payload.req_id, {})
+        h["send_s"] = h.get("send_s", 0.0) + time.perf_counter() - t0
+        return seq
+
+    def put_transfer(seq, req_id, data, dl):
+        h = hand.setdefault(req_id, {})
+        h["bytes"] = len(data)
+        h["header"] = 4 + int.from_bytes(data[:4], "big")
+        return put(seq, req_id, data, dl)
+
+    def settle_(seq, key):
+        t0 = time.perf_counter()
+        p = settle(seq, key)
+        if p is not None:
+            hand.setdefault(p.req_id, {})["recv_s"] = time.perf_counter() - t0
+        return p
+
+    sender.send_handoff, sender._put_transfer = send_handoff, put_transfer
+    receiver._settle = settle_
+    counts = {}
+
+    def counted(name, pump):
+        def run(deadline=None):
+            c0 = kernels.launch_counts()
+            pump(deadline)
+            d = kernels.count_delta(c0, kernels.launch_counts())
+            counts[name] = {k: counts.get(name, {}).get(k, 0) + v
+                            for k, v in d.items()}
+        return run
+
+    pf.pump, dx.pump = counted("pf", pf.pump), counted("dx", dx.pump)
+    router = DisaggRouter([pf], [dx])
+    router.submit("warm", warm_prompt(np, model.config.vocab_size),
+                  max_new_tokens=DISAGG_WARM[1])
+    router.run(deadline=DISAGG_BUDGET_S)
+    dx_eng = dx.supervisor.engine
+    ptrs = [t.data_ptr() for e in dx_eng._pools for t in e]
+    counts.clear()
+    hand.clear()
+    steps0 = {r: sum(e.decode_steps for e in engines[r]) for r in engines}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rid, p, n in work:
+        router.submit(rid, p, max_new_tokens=n)
+    res = router.run(deadline=DISAGG_BUDGET_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = {r: sum(e.decode_steps for e in engines[r]) - steps0[r]
+             for r in engines}
+    failures = []
+    tokens = {rid: res.get(rid, {}).get("out") for rid, _, _ in work}
+    if any(res.get(rid, {}).get("status") != "ok" for rid, _, _ in work):
+        failures.append(f"statuses {[res.get(r, {}).get('status') for r, _, _ in work]}")
+    if (router.n_fallback or router.n_handoff_failed or sender.n_nacked
+            or receiver.n_nacked or dx_eng.n_imported < len(work)):
+        failures.append(
+            f"every request must hand off once, cleanly: fallback "
+            f"{router.n_fallback}, failed {router.n_handoff_failed}, nacked "
+            f"{sender.n_nacked}/{receiver.n_nacked}, imported "
+            f"{dx_eng.n_imported}")
+    deps, worst = [], 0.0
+    if uni is not None:
+        deps, worst = stream_departures(torch, model, work, tokens, uni)
+        if worst >= SPEC_GAP_BOUND:
+            failures.append(f"streams depart from the unified engine's where "
+                            f"its logits are not a near tie: {deps}")
+    name, other = (("paged_decode_attention_int8", "paged_decode_attention")
+                   if kv else ("paged_decode_attention",
+                               "paged_decode_attention_int8"))
+    pfc, dxc = counts.get("pf", {}), counts.get("dx", {})
+    if steps["pf"] or pfc.get(name, 0) or pfc.get(other, 0):
+        failures.append(f"the prefill engine decoded: {steps['pf']} steps, "
+                        f"counts {pfc}")
+    err = decode_launch_error(dxc, kv, L, steps["dx"])
+    if err:
+        failures.append(f"the decode engine: {err}")
+    if [t.data_ptr() for e in dx_eng._pools for t in e] != ptrs:
+        failures.append("an import rebound the decode engine's pools")
+    prompts = {rid: p for rid, p, _ in work}
+    itemsize = torch.empty((), dtype=model.dtype).element_size()
+    for rid, h in hand.items():
+        want = -(-prompts[rid].size // DISAGG["block_size"])
+        body = h.get("bytes", 0) - h.get("header", 0)
+        expect = _expected_body(want, model.config, kv, itemsize)
+        if (h.get("owned") != want or h.get("blocks") != want
+                or body != expect or h.get("scales") != bool(kv)):
+            failures.append(f"handoff {rid}: {h}, want {want} blocks held "
+                            f"and sent, body {expect}")
+    # a transfer whose sender died between its parts: never imported,
+    # never acked
+    n_recv, n_imp = receiver.n_received, dx_eng.n_imported
+    data = HandoffPayload(
+        req_id="dead", prompt=np.arange(4, dtype=np.int32), first_token=1,
+        max_new_tokens=4, priority="interactive", deadline_unix=None,
+        retries=0, pages=np.zeros((L, 2, 16, 1, 8, 128), np.float32),
+        scales=None, meta={"num_blocks": 1, "block_size": 8, "layers": L,
+                           "dtype": "float32", "quantized": False,
+                           "kv_len": 4}).pack()
+    parts = KVHandoffSender(store, "dx0", n_parts=4)._split(data)
+    for i in (0, 1):
+        store.put_bytes(f"disagg/dx0/xfer/dead-00000001/part/{i:04d}",
+                        parts[i])
+    for _ in range(3):
+        dx.pump()
+    if (receiver.n_received != n_recv or dx_eng.n_imported != n_imp
+            or store.get("disagg/dx0/ack/dead-00000001") is not None):
+        failures.append("a partial transfer (parts without a commit) was "
+                        "taken up")
+    return dict(failures=failures, tokens=tokens, wall=wall, steps=steps,
+                counts=counts, hand=hand, departures=deps, worst=worst,
+                itl=itl_ms([res.get(rid, {}).get("times", [])
+                            for rid, _, _ in work if rid.startswith("s")]),
+                router=router)
+
+
+def show_handoffs(label, r, card):
+    """One line of handoff bytes and legs per request kind."""
+    for kind, pre in (("128-token", "s"), ("4096-token", "l")):
+        hs = [h for rid, h in r["hand"].items() if rid.startswith(pre)]
+        if not hs:
+            continue
+        ms = [1e3 * (h["export_s"] + h["send_s"] + h["recv_s"] + h["import_s"])
+              for h in hs]
+        body = [h["bytes"] - h["header"] for h in hs]
+        print(f"phase 13{label} handoff of a {kind} prompt ({len(hs)} "
+              f"requests): {hs[0]['bytes']} bytes = header {hs[0]['header']} "
+              f"+ {body[0]} of pages{' and scale rows' if hs[0]['scales'] else ''} "
+              f"({hs[0]['blocks']} blocks), mean {statistics.mean(ms):.1f} ms a "
+              f"handoff (export {1e3 * statistics.mean(h['export_s'] for h in hs):.1f}"
+              f" + pack and put {1e3 * statistics.mean(h['send_s'] for h in hs):.1f}"
+              f" + assemble, verify and unpack "
+              f"{1e3 * statistics.mean(h['recv_s'] for h in hs):.1f} + import "
+              f"{1e3 * statistics.mean(h['import_s'] for h in hs):.1f}), "
+              f"{statistics.mean(body) / (statistics.mean(ms) / 1e3) / 1e9:.3f} "
+              f"GB/s of pages [{card}]")
+
+
+def disagg_processes(torch, np, model, args, card, uni_eng, work):
+    """Phase 13(c): a prefill and a decode worker process on this card over
+    a ``TCPKVStore`` (``python -m paddle_tpu_torch.testing.disagg_worker``),
+    the source's Part 5: decode ITL against the unified engine in turns,
+    then a second pair whose prefill worker dies to a ``kill`` in the middle
+    of a handoff. Each worker publishes its own launch counts."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from paddle_tpu_torch.distributed.store import TCPKVStore, TCPStoreServer
+    from paddle_tpu_torch.inference.cluster import ProcessReplica
+    from paddle_tpu_torch.inference.disagg import DisaggRouter
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.utils.retries import Deadline
+
+    L = model.config.num_hidden_layers
+    repo = str(Path(__file__).resolve().parent)
+    tmp = tempfile.mkdtemp(prefix="disagg_")
+    server = TCPStoreServer("127.0.0.1", 0)
+    store = TCPKVStore("127.0.0.1", server.port)
+    procs = []
+
+    def start(pf_id, dx_id, chaos=None, n_parts=None):
+        reps, mine = [], []
+        for wid, role in ((pf_id, "prefill"), (dx_id, "decode")):
+            env = dict(os.environ)
+            env.pop("PADDLE_CHAOS", None)
+            env.update(
+                DISAGG_DEVICE=model.device.type, DISAGG_ROLE=role,
+                DISAGG_STORE_PORT=str(server.port), DISAGG_WORKER_ID=wid,
+                DISAGG_JOURNAL_DIR=f"{tmp}/{wid}", DISAGG_DECODE_IDS=dx_id,
+                DISAGG_BUDGET="900", DISAGG_CHUNK=str(DISAGG["prefill_chunk"]),
+                DISAGG_MAX_LEN=str(DISAGG["max_len"]),
+                DISAGG_BLOCKS=str(DISAGG["num_blocks"]),
+                DISAGG_BATCH=str(DISAGG["max_batch"]),
+                DISAGG_STEPS_PER_PUMP=str(DISAGG_STEPS_PER_PUMP),
+                DISAGG_MODEL_JSON=json.dumps(dataclasses.asdict(model.config)),
+                DISAGG_SEED=str(args.seed),
+                DISAGG_BF16="1" if model.dtype == torch.bfloat16 else "",
+                PYTHONPATH=repo + os.pathsep + env.get("PYTHONPATH", ""))
+            if role == "prefill" and chaos:
+                env["PADDLE_CHAOS"] = chaos
+            if role == "prefill" and n_parts:
+                env["DISAGG_N_PARTS"] = str(n_parts)
+            if role == "prefill":
+                env["DISAGG_HANDOFF_BUDGET"] = str(DISAGG_BUDGET_S)
+            log = open(f"{tmp}/{wid}.log", "w")
+            p = subprocess.Popen(
+                [sys.executable, "-m", "paddle_tpu_torch.testing.disagg_worker"],
+                env=env, cwd=repo, stdout=log, stderr=subprocess.STDOUT)
+            procs.append((p, log, wid))
+            mine.append(p)
+            reps.append(ProcessReplica(TCPKVStore("127.0.0.1", server.port),
+                                       wid, journal_dir=f"{tmp}/{wid}",
+                                       proc=p,
+                                       heartbeat_timeout=DISAGG_BUDGET_S))
+        dl = Deadline(300)
+        while not all(store.get(f"cluster/{w}/hb") for w in (pf_id, dx_id)):
+            if dl.expired() or any(p.poll() is not None for p in mine):
+                logs = {w: Path(f"{tmp}/{w}.log").read_text()[-3000:]
+                        for w in (pf_id, dx_id)}
+                fail(f"phase 13(c): the workers did not come up: {logs}")
+            time.sleep(0.25)
+        return DisaggRouter([reps[0]], [reps[1]])
+
+    def worker_logs():
+        return {w: Path(f"{tmp}/{w}.log").read_text()[-2000:]
+                for _, _, w in procs}
+
+    def launches(wid):
+        raw = store.get(f"cluster/{wid}/launches")
+        return json.loads(raw) if raw else {"counts": {}, "decode_steps": 0}
+
+    def delta(after, before):
+        return (kernels.count_delta(before["counts"], after["counts"]),
+                after["decode_steps"] - before["decode_steps"])
+
+    def check_counts(label, pf_id, dx_id, before):
+        time.sleep(0.5)  # the workers publish their counts every poll
+        pc, ps = delta(launches(pf_id), before[pf_id])
+        dc, ds = delta(launches(dx_id), before[dx_id])
+        err = decode_launch_error(dc, None, L, ds)
+        if ps or pc.get("paged_decode_attention") or \
+                pc.get("paged_decode_attention_int8"):
+            err = (err or "") + f"; the prefill worker decoded: {ps}, {pc}"
+        print(f"phase 13(c) {label}: the prefill worker's paged-decode "
+              f"launches {pc.get('paged_decode_attention', 0)}/"
+              f"{pc.get('paged_decode_attention_int8', 0)} (float/int8) over "
+              f"{ps} decode steps; the decode worker's "
+              f"{dc.get('paged_decode_attention', 0)}/"
+              f"{dc.get('paged_decode_attention_int8', 0)} over {ds} decode "
+              f"steps x {L} layers")
+        if err:
+            fail(f"phase 13(c) {label}: {err}")
+
+    def disagg_turn(router, tag, pf_id, dx_id):
+        before = {w: launches(w) for w in (pf_id, dx_id)}
+        for rid, p, n in work:
+            router.submit(tag + rid, p, max_new_tokens=n)
+        t0 = time.perf_counter()
+        res = router.run(deadline=DISAGG_BUDGET_S)
+        wall = time.perf_counter() - t0
+        short = [tag + f"s{i}" for i in range(DISAGG_SHORT[0])]
+        toks = {rid: res.get(tag + rid, {}).get("out") for rid, _, _ in work}
+        missing = [rid for rid, _, _ in work
+                   if res.get(tag + rid, {}).get("status") != "ok"]
+        if missing:
+            fail(f"phase 13(c) turn {tag[:-1]}: {missing} did not finish "
+                 f"(router: inflight {router.inflight}, dead prefill "
+                 f"{router.dead_prefill}, dead decode {router.dead_decode}, "
+                 f"events {router.events}); {worker_logs()}")
+        check_counts(f"turn {tag[:-1]}", pf_id, dx_id, before)
+        return dict(tokens=toks, ok=True, wall=wall,
+                    itl=itl_ms([res[r]["times"] for r in short if r in res]),
+                    fallback=router.n_fallback)
+
+    try:
+        router = start("pf0", "dx0")
+        router.submit("warm", warm_prompt(np, model.config.vocab_size),
+                      max_new_tokens=DISAGG_WARM[1])
+        router.run(deadline=DISAGG_BUDGET_S)
+        turns = []
+        for kind, tag in (("unified", "A1-"), ("disagg", "B1-"),
+                          ("disagg", "B2-"), ("unified", "A2-")):
+            r = (unified_run(torch, uni_eng, work, tag) if kind == "unified"
+                 else disagg_turn(router, tag, "pf0", "dx0"))
+            turns.append((kind, tag[:-1], r))
+            print(f"phase 13(c) turn {tag[:-1]} {kind}: decode ITL p50 "
+                  f"{r['itl'][0]:.3f} ms, p99 {r['itl'][1]:.3f} ms over the "
+                  f"{DISAGG_SHORT[0]} short requests, wall {r['wall']:.3f} s "
+                  f"[{card}]")
+            if not r["ok"]:
+                fail(f"phase 13(c) turn {tag[:-1]}: a request did not finish")
+        want = turns[0][2]["tokens"]
+        for kind, name, r in turns[1:]:
+            deps, worst = stream_departures(torch, model, work, r["tokens"],
+                                            want)
+            if deps:
+                print(f"phase 13(c) turn {name}: {len(deps)} streams depart "
+                      f"from turn A1's, top-2 gaps {deps} (bound "
+                      f"{SPEC_GAP_BOUND})")
+            if worst >= SPEC_GAP_BOUND or (kind == "disagg" and r["fallback"]):
+                fail(f"phase 13(c) turn {name}: streams depart where the "
+                     f"logits are not a near tie, or fell back: {deps}")
+        router.stop(deadline=60)
+        for p, log, _ in procs:
+            p.wait(timeout=60)
+
+        # the kill: new prompts, and their unified streams first
+        rng = np.random.RandomState(args.seed + 13)
+        vocab = model.config.vocab_size
+        kill_work = [(f"k{i}", rng.randint(0, vocab, (DISAGG_SHORT[1],)),
+                      DISAGG_KILL_NEW) for i in range(DISAGG_KILL_REQUESTS)]
+        fb_work = [(f"f{i}", rng.randint(0, vocab, (DISAGG_SHORT[1],)),
+                    DISAGG_KILL_NEW) for i in range(DISAGG_FALLBACK_REQUESTS)]
+        want = unified_run(torch, uni_eng, kill_work + fb_work, "U-")["tokens"]
+        router = start("pf1", "dx1", chaos=DISAGG_KILL,
+                       n_parts=DISAGG_KILL_PARTS)
+        before = {w: launches(w) for w in ("pf1", "dx1")}
+        for rid, p, n in kill_work:
+            router.submit(rid, p, max_new_tokens=n)
+        res = router.run(deadline=DISAGG_BUDGET_S)
+        pf_rc = procs[-2][0].wait(timeout=60)
+        xfer = store.keys("disagg/dx1/xfer/")
+        parts = {k.split("/xfer/")[1].split("/part/")[0] for k in xfer
+                 if "/part/" in k}
+        commits = {k.split("/xfer/")[1].rsplit("/", 1)[0] for k in xfer
+                   if k.endswith("/commit")}
+        partial = sorted(parts - commits)
+        acked = [s for s in partial if store.get(f"disagg/dx1/ack/{s}")]
+        pools = [router.submit(rid, p, max_new_tokens=n)[0]
+                 for rid, p, n in fb_work]
+        res.update(router.run(deadline=DISAGG_BUDGET_S))
+        got = {rid: res.get(rid, {}).get("out")
+               for rid, _, _ in kill_work + fb_work}
+        lost = [rid for rid, _, _ in kill_work + fb_work
+                if res.get(rid, {}).get("status") != "ok"]
+        deps, worst = stream_departures(torch, model, kill_work + fb_work,
+                                        got, want)
+        print(f"phase 13(c) kill at {DISAGG_KILL} ({DISAGG_KILL_PARTS} parts a "
+              f"transfer): prefill worker exit {pf_rc}, dead prefill "
+              f"{sorted(router.dead_prefill)}, {len(lost)} of "
+              f"{len(kill_work) + len(fb_work)} requests lost, partial "
+              f"transfers {partial} ({len(acked)} acked), recovery events "
+              f"{router.events}, fallback placements {router.n_fallback} "
+              f"(the {len(fb_work)} new prompts went to {pools}), streams "
+              f"departing from the unified engine's {deps} [{card}]")
+        check_counts("kill", "pf1", "dx1", before)
+        if (router.dead_prefill != {0} or lost or not partial or acked
+                or set(pools) != {"decode"} or worst >= SPEC_GAP_BOUND
+                or router.n_fallback < len(fb_work)):
+            fail(f"phase 13(c): the mid-handoff kill lost work, imported a "
+                 f"partial transfer, or the fallback did not serve; "
+                 f"{worker_logs()}")
+        router.stop(deadline=60)
+        return turns
+    finally:
+        for p, log, _ in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+            log.close()
+        server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def disagg_phase(torch, np, dev, args, card):
+    """Phase 13: disaggregated prefill/decode serving on Llama-542M in bf16,
+    Part 5's settings: (a) in process, against the unified chunked engine;
+    (b) the same over int8 pools in overlap mode; (c) two worker
+    processes."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    pt_seed(args.seed)
+    cfg = LlamaConfig(**LLAMA_542M)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    model.eval()
+    work = disagg_work(np, cfg.vocab_size, args.seed)
+    for part, kv, overlap, n in (("(a)", None, False, len(work)),
+                                 ("(b)", "int8", True, DISAGG_SHORT[0] + 1)):
+        w = work[:n]
+        t0 = time.perf_counter()
+        uni_eng = unified_engine(np, model, kv, overlap)
+        uni = unified_run(torch, uni_eng, w, "u-")
+        del uni_eng
+        r = disagg_inprocess(torch, np, model, w, kv, overlap, uni["tokens"])
+        name = ("paged_decode_attention_int8" if kv
+                else "paged_decode_attention")
+        print(f"phase 13{part} in process, {kv or 'bf16'} KV pools"
+              f"{', overlap' if overlap else ''}: {len(w)} requests "
+              f"(prompts {sorted({p.size for _, p, _ in w})}), unified wall "
+              f"{uni['wall']:.3f} s (decode ITL p50/p99 "
+              f"{uni['itl'][0]:.3f}/{uni['itl'][1]:.3f} ms), disaggregated "
+              f"wall {r['wall']:.3f} s (ITL {r['itl'][0]:.3f}/"
+              f"{r['itl'][1]:.3f} ms); {len(r['departures'])} streams depart "
+              f"from the unified engine's {r['departures']} (bound "
+              f"{SPEC_GAP_BOUND}); decode steps prefill/decode engine "
+              f"{r['steps']['pf']}/{r['steps']['dx']}, the decode engine's "
+              f"{name} launches {r['counts'].get('dx', {}).get(name, 0)}, "
+              f"the prefill "
+              f"engine's {r['counts'].get('pf', {}).get(name, 0)}; "
+              f"{time.perf_counter() - t0:.1f} s in all [{card}]")
+        show_handoffs(part, r, card)
+        if r["failures"]:
+            fail(f"phase 13{part}: " + "; ".join(r["failures"]))
+        del r
+        torch.cuda.empty_cache()
+    uni_eng = unified_engine(np, model)
+    disagg_processes(torch, np, model, args, card, uni_eng, work)
+    del uni_eng, model
+    torch.cuda.empty_cache()
+
+
 def kernel_class(name: str) -> str:
     """Bucket a profiled kernel name for the training step's time split."""
     n = name.lower()
@@ -2745,7 +3354,7 @@ def main() -> int:
 
     # -- phase 2 ---------------------------------------------------------
     def show_paged(label, r, r8):
-        print(f"phase 2 paged_decode {label} H=KVH=16 D=128 bs=64 "
+        print(f"phase 2 paged_decode {label} H=KVH=16 D=128 bs={r['bs']} "
               f"live_tokens={r['live_tokens']} splits x pages={r['splits']}: "
               f"max_abs_err={r['max_abs_err']:.3g} "
               f"rel_err={r['rel_err']:.3g} worst row rel_err="
@@ -2758,7 +3367,8 @@ def main() -> int:
               f"{r['call_ms']:.4f} ms, plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
         if r8 is not None:
-            print(f"phase 2 paged_decode_int8 {label} H=KVH=16 D=128 bs=64 "
+            print(f"phase 2 paged_decode_int8 {label} H=KVH=16 D=128 "
+                  f"bs={r8['bs']} "
                   f"int8 pools, f32 scales, bf16 q, same tables: "
                   f"max_abs_err={r8['max_abs_err']:.3g} "
                   f"rel_err={r8['rel_err']:.3g} worst row rel_err="
@@ -2856,6 +3466,18 @@ def main() -> int:
     r, r8 = paged_case(torch, dev, gen, gen_cpu, eng["B"], int8=True,
                        pages=eng["pages"], lo=eng["lo"], hi=eng["hi"])
     label = (f"engine-like B={eng['B']}, lengths {eng['lo']}..{eng['hi']}, "
+             f"{eng['pages']}-page tables")
+    device_rows += [(f"paged_decode {label}", r),
+                    (f"paged_decode_int8 {label}", r8)]
+    show_paged(label, r, r8)
+    torch.cuda.empty_cache()
+    # phase 13's disaggregated decode: 8-token blocks, 544-page tables,
+    # rows of a 4096-token prompt and its growth
+    eng = DISAGG_DECODE
+    r, r8 = paged_case(torch, dev, gen, gen_cpu, eng["B"], int8=True,
+                       pages=eng["pages"], lo=eng["lo"], hi=eng["hi"],
+                       bs=eng["bs"])
+    label = (f"disaggregated B={eng['B']}, lengths {eng['lo']}..{eng['hi']}, "
              f"{eng['pages']}-page tables")
     device_rows += [(f"paged_decode {label}", r),
                     (f"paged_decode_int8 {label}", r8)]
@@ -3290,6 +3912,11 @@ def main() -> int:
     front_door_phase(torch, np, serve_model, loop_runs, card)
     del serve_model, loop_runs
     import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 13: disaggregated serving -----------------------------------------
+    disagg_phase(torch, np, dev, args, card)
     gc.collect()
     torch.cuda.empty_cache()
 

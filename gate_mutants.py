@@ -81,6 +81,24 @@ and patched in (the checkout is not touched):
   frame whose CRC does not match; phase 12(c)'s corrupt-spill gate must
   refuse it.
 
+The disaggregated serving host code, the same way, held by
+``chip_smoke.disagg_inprocess`` (phase 13(a)'s in-process gates: a
+``prefill_only`` and a ``decode_only`` engine behind a ``DisaggRouter``,
+Llama-542M at Part 5's settings, four 128-token prompts and one of 4096
+tokens against the unified engine's streams):
+
+- ``receiver takes up a transfer without its commit``: the receiver
+  settles every transfer it sees parts of, so a sender killed between its
+  parts leaves an acked (nacked) partial transfer; the partial-transfer
+  gate must refuse it;
+- ``prefill-only engine reserves decode blocks``: the prefill engine
+  budgets a request's decode growth too; the held-blocks gate must refuse
+  it;
+- ``import rebinds the pools``: the decode engine's import writes into new
+  pool tensors; the pool-address and stream gates must refuse it;
+- ``sender skips the CRC``: the commit record carries no whole-payload
+  CRC; the clean-handoff gate (no nack, no fallback) must refuse it.
+
 Each variant runs through the kernel's own wrapper (``paged_decode`` and
 ``paged_decode_int8`` for the decode, ``fused_adamw_multi_update`` for
 AdamW). It also prints the verdict of the
@@ -421,14 +439,40 @@ HOST_MUTANTS = {
 }
 
 
-def host_variant(name):
-    """Patch in the broken form ``name`` of a host function; returns the
-    callable that puts the original back."""
+# the disaggregated serving host code, in HOST_MUTANTS' form
+DISAGG_MUTANTS = {
+    "as is": None,
+    "receiver takes up a transfer without its commit": (
+        "paddle_tpu_torch.inference.disagg",
+        "KVHandoffReceiver.recv_handoff", [(
+            "for seq in sorted(committed):", "for seq in sorted(seqs):")]),
+    "prefill-only engine reserves decode blocks": (
+        "paddle_tpu_torch.inference.serving",
+        "ContinuousBatchingEngine._blocks_needed", [(
+            "new = 0", "new = new")]),
+    "import rebinds the pools": (
+        "paddle_tpu_torch.inference.serving",
+        "ContinuousBatchingEngine.import_kv", [(
+            "self.manager.import_blocks(req.req_id, pages, scales, meta,",
+            "self._pools = [tuple(t.clone() for t in e) "
+            "for e in self._pools]; "
+            "self.manager.import_blocks(req.req_id, pages, scales, meta,")]),
+    "sender skips the CRC": (
+        "paddle_tpu_torch.inference.disagg",
+        "KVHandoffSender._put_transfer", [(
+            '"crc": zlib.crc32(data) & 0xFFFFFFFF,', '"crc": 0,')]),
+}
+
+
+def host_variant(name, table=None):
+    """Patch in the broken form ``name`` of a host function (from
+    ``table``, default ``HOST_MUTANTS``); returns the callable that puts
+    the original back."""
     import importlib
     import inspect
     import textwrap
 
-    module, qual, edits = HOST_MUTANTS[name]
+    module, qual, edits = (HOST_MUTANTS if table is None else table)[name]
     mod = importlib.import_module(module)
     owner, attr = mod, qual
     if "." in qual:
@@ -501,6 +545,53 @@ def host_mutants(torch, np, dev, args, card):
 
 # the tier gates' traffic in host_mutants: every family once, then again
 HOST_TIER_REQUESTS = 2 * cs.TIER_FAMILIES
+# disagg_mutants' traffic: phase 13's first short prompts and a long one
+DISAGG_MUTANT_SHORT = 4
+
+
+def disagg_mutants(torch, np, dev, args, card):
+    """Every disaggregated-serving variant through phase 13(a)'s
+    in-process gates (``chip_smoke.disagg_inprocess``) on one full-width
+    model, against the unified engine's streams. Returns (ok, refused,
+    mutants counted)."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    pt_seed(args.seed)
+    model = LlamaForCausalLM(LlamaConfig(**cs.LLAMA_542M), device=dev,
+                             dtype=torch.bfloat16)
+    model.eval()
+    work = cs.disagg_work(np, model.config.vocab_size, args.seed)
+    work = work[:DISAGG_MUTANT_SHORT] + work[-1:]
+    uni_eng = cs.unified_engine(np, model)
+    uni = cs.unified_run(torch, uni_eng, work, "u-")["tokens"]
+    del uni_eng
+    ok, refused = True, []
+    for name in DISAGG_MUTANTS:
+        restore = (lambda: None) if DISAGG_MUTANTS[name] is None else \
+            host_variant(name, DISAGG_MUTANTS)
+        try:
+            try:
+                bad = cs.disagg_inprocess(torch, np, model, work,
+                                          uni=uni)["failures"]
+            except Exception as e:  # noqa: BLE001 - a crash refuses too
+                bad = [f"the disaggregated run raised {e!r}"]
+        finally:
+            restore()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        if name == "as is":
+            ok &= not bad
+        elif bad:
+            refused.append(f"disaggregated serving: {name}")
+        else:
+            ok = False
+        print(f"disagg {name}: "
+              f"{'; '.join(b[:300] for b in bad) if bad else 'pass'} -> "
+              f"{'FAIL' if bad else 'pass'} [{card}]")
+    del model
+    torch.cuda.empty_cache()
+    return ok, refused, len(DISAGG_MUTANTS) - 1
 
 
 def main() -> int:
@@ -542,6 +633,7 @@ def main() -> int:
         import numpy as np
 
         results.append(host_mutants(torch, np, dev, args, card))
+        results.append(disagg_mutants(torch, np, dev, args, card))
     finally:
         for lib_name in MUTANTS:
             kernels._libs.pop(lib_name, None)

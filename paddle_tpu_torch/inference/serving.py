@@ -90,10 +90,24 @@ an ``error`` raises), and the tier's ``cache.spill``. With
 ``utils.resources.instrument_resources()`` on, engine slots and blocks are
 accounted in the resource ledger.
 
+Disaggregated prefill/decode (``role=``): ``role="prefill_only"`` makes a
+prefill worker. Prompts admit and prefill as before, reserving blocks for
+the prompt alone, but when a prompt's last chunk lands the slot is
+released and the request parks handoff-ready (its first token attached,
+its blocks still owned) until ``drain_prefilled()`` + ``export_kv()`` +
+``release_handoff()`` (``inference/disagg.py``) or its deadline; the
+engine never dispatches a decode program and captures only the prefill
+one. ``role="decode_only"`` makes a decode worker: ``import_kv()`` writes
+an exported prompt's pages into fresh blocks of its pools (in place),
+binds a free slot and resumes decode at the cached offset; the row
+reaches the persistent device state through the ordinary dirty-row
+upload. A decode worker keeps the whole prefill path, so a router can
+fall back to serving a prompt on it colocated.
+
 Greedy decoding only (as the reference's engine), so engine outputs are
 token-identical to isolated ``generate`` runs and to the JAX engine on the
-same weights. The reference's fp8 GEMMs (``fp8=``) and disaggregated roles
-(``role=``) arrive with later slices and raise ``NotImplementedError``.
+same weights. The reference's fp8 GEMMs (``fp8=``) arrive with a later
+slice and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -290,7 +304,7 @@ class _ShedCounts:
 
 # the reference's keywords whose features arrive with later slices, each
 # with the value that means "off"
-_LATER_ENGINE_ARGS = {"fp8": False, "role": "unified"}
+_LATER_ENGINE_ARGS = {"fp8": False}
 _ROLES = ("unified", "prefill_only", "decode_only")
 
 _ENGINE_IDS = itertools.count(1)
@@ -301,6 +315,12 @@ class ContinuousBatchingEngine:
     # engine=<id>): ``self.steps += 1`` and outside writes
     # (``eng.ewma_step_s = None``) work as on plain attributes, while the
     # numbers live in the process-global obs registry
+    n_imported = MetricAttr(
+        "serving_kv_imported_total", as_int=True,
+        help="decode side: requests entered via KV import")
+    n_handed_off = MetricAttr(
+        "serving_kv_handed_off_total", as_int=True,
+        help="prefill side: KV exports released after ack")
     prefix_hit_tokens = MetricAttr(
         "serving_prefix_hit_tokens_total", as_int=True,
         help="prompt tokens served from the prefix cache")
@@ -395,17 +415,18 @@ class ContinuousBatchingEngine:
         ``kv_dtype="int8"`` quantizes the KV pools; ``spec_decode_k=K``
         turns on speculative decoding with ``draft_proposer`` (default
         :class:`NgramProposer`); ``overlap=True`` pipelines host and device
-        (module docstring). ``fp8`` and any ``role`` but ``"unified"``
-        arrive with later slices."""
+        (module docstring). ``role`` places the engine in a disaggregated
+        deployment: "unified" (everything), "prefill_only" (no decode
+        dispatches; finished prefills park handoff-ready) or "decode_only"
+        (takes ``import_kv`` handoffs; otherwise a unified engine, the
+        colocated fallback). ``fp8`` arrives with a later slice."""
         if role not in _ROLES:
             raise ValueError(
                 f"role must be 'unified', 'prefill_only' or "
                 f"'decode_only', got {role!r}")
-        for name, value in (("fp8", fp8), ("role", role)):
-            if value != _LATER_ENGINE_ARGS[name]:
-                raise NotImplementedError(
-                    f"{name}={value!r} arrives with a later slice of the "
-                    "port")
+        if fp8 != _LATER_ENGINE_ARGS["fp8"]:
+            raise NotImplementedError(
+                f"fp8={fp8!r} arrives with a later slice of the port")
         self.role = role
         # obs identity first: every MetricAttr write below routes into
         # registry series labeled engine=<id>
@@ -417,6 +438,12 @@ class ContinuousBatchingEngine:
         self._c_requests = _obs_registry().counter(
             "serving_requests_total", self._obs_labels,
             help="requests submitted (shed ones included)")
+        # finished prefills awaiting export (prefill_only): req_id ->
+        # GenRequest; the blocks stay owned under the req_id until
+        # export_kv + release_handoff (or expiry)
+        self._handoff_ready: Dict[object, GenRequest] = {}
+        self.n_imported = 0  # decode side: requests entered via import
+        self.n_handed_off = 0  # prefill side: exports released
         self.model = model
         self.device = next(model.parameters()).device
         self.B = int(max_batch)
@@ -752,10 +779,13 @@ class ContinuousBatchingEngine:
         prefill and decode programs, and the K-step chunk when
         ``decode_chunk > 1``) has been dispatched and, on the card,
         captured: no first-call work remains. A supervisor keeps a step
-        under its roomy warm-up budget until then."""
-        need = {"prefill": self._prefill_fn, "decode": self._decode_fn}
-        if self.decode_chunk > 1:
-            need["decode_chunk"] = self._chunk_fn
+        under its roomy warm-up budget until then. A prefill-only engine
+        needs only the prefill program: it never dispatches decode."""
+        need = {"prefill": self._prefill_fn}
+        if self.role != "prefill_only":
+            need["decode"] = self._decode_fn
+            if self.decode_chunk > 1:
+                need["decode_chunk"] = self._chunk_fn
         return all(name in self._phases_run and self._program_ready(fn)
                    for name, fn in need.items())
 
@@ -1003,6 +1033,10 @@ class ContinuousBatchingEngine:
     def _blocks_needed(self, req, max_new_tokens: Optional[int] = None) -> int:
         new = (req.max_new_tokens if max_new_tokens is None
                else int(max_new_tokens))
+        if self.role == "prefill_only":
+            # no decode happens here: the budget is the prompt alone (the
+            # padded lanes past the owned blocks write into the trash row)
+            new = 0
         if self.chunked:
             total = int(req.prompt.size) + new
         else:
@@ -1068,6 +1102,15 @@ class ContinuousBatchingEngine:
                 slot.req = None
                 slot.pending_first = False
                 self._mark_dirty(slot_idx)
+        # handoff-ready work whose budget lapsed before its export: the
+        # blocks recycle and the request closes here
+        for rid in [r for r, q in self._handoff_ready.items()
+                    if q.expired()]:
+            req = self._handoff_ready.pop(rid)
+            self.manager.free_sequence(rid)
+            if self._graft_ledger is not None:
+                self._graft_ledger.release("handoff.hold", rid)
+            self._expire(req)
 
     def prefix_stats(self) -> dict:
         """Prefix-cache counters (zeros when the cache is off).
@@ -1434,8 +1477,14 @@ class ContinuousBatchingEngine:
         self._append_token(req, first)
         slot.remaining -= 1
         self._mark_dirty(slot_idx)
-        req._sp_decode = _obs.start_span("decode", parent=req, tid="serve")
-        self._finish_if_done(slot_idx, first)
+        if self.role != "prefill_only":
+            # a prefill-only engine never decodes: the decode span opens on
+            # the decode worker at the import
+            req._sp_decode = _obs.start_span("decode", parent=req,
+                                             tid="serve")
+        if (not self._finish_if_done(slot_idx, first)
+                and self.role == "prefill_only"):
+            self._to_handoff(slot_idx)
         return 1
 
     def _apply_decode(self, toks: np.ndarray, rows) -> int:
@@ -1488,6 +1537,143 @@ class ContinuousBatchingEngine:
         self.spec_emitted += emitted
         self._step_spec_overcharge += charged - emitted
         return emitted
+
+    # -- disaggregated prefill/decode handoff -----------------------------
+    def _to_handoff(self, slot_idx: int) -> None:
+        """Prefill-role slot release: the prompt's KV is complete and its
+        first token attached, so the slot frees for the next prompt while
+        the blocks stay owned under the req_id until ``export_kv`` +
+        ``release_handoff`` (or the deadline). The row is trashed: no
+        later dispatch touches the blocks being exported."""
+        slot = self._slots[slot_idx]
+        req = slot.req
+        self._handoff_ready[req.req_id] = req
+        self._tables[slot_idx] = self._trash
+        slot.req = None
+        if self._graft_ledger is not None:
+            # the slot frees; the hold on the exported blocks begins
+            self._graft_ledger.release("engine.slot", req.req_id)
+            self._graft_ledger.acquire("handoff.hold", req.req_id)
+        slot.pending_first = False
+        self._mark_dirty(slot_idx)
+
+    def drain_prefilled(self) -> List[GenRequest]:
+        """Return (and claim) the requests whose prefill finished since the
+        last drain. Each still owns its blocks: the caller calls
+        ``export_kv`` then ``release_handoff`` (a transfer), or
+        ``release_handoff`` alone (abandon: the blocks recycle, the caller
+        re-routes the request)."""
+        out = list(self._handoff_ready.values())
+        self._handoff_ready.clear()
+        return out
+
+    def export_kv(self, req_id, kv_len: Optional[int] = None):
+        """Gather a handoff-ready request's blocks into host arrays:
+        ``(pages, scales, meta)`` as
+        :meth:`~..ops.paged_attention.BlockManager.export_blocks` gives
+        them, with ``meta["kv_len"]`` the positions written (``kv_len``,
+        normally the prompt length). Idempotent: the blocks stay owned, so
+        a failed transfer re-exports the same bytes; ``release_handoff``
+        only once the transfer is acked. On the card the gather runs under
+        the model's execution lock, so it never lands inside another
+        engine's capture."""
+        if not _chaos.inject("handoff.export"):
+            raise ConnectionResetError(
+                "chaos: KV export dropped (lost message)")
+        if kv_len is None:
+            kv_len = (len(self.manager.owned_blocks(req_id))
+                      * self.block_size)
+        with self._exec_lock:
+            pages, scales, meta = self.manager.export_blocks(
+                req_id, self._pools, num_tokens=int(kv_len))
+        meta["kv_len"] = int(min(int(kv_len),
+                                 meta["num_blocks"] * self.block_size))
+        return pages, scales, meta
+
+    def release_handoff(self, req_id) -> None:
+        """Drop an exported request's blocks (transfer acked, or the
+        handoff abandoned): they recycle through the ref-counted free, so
+        prefix-cache pins survive."""
+        self.manager.free_sequence(req_id)
+        if self._graft_ledger is not None:
+            self._graft_ledger.release("handoff.hold", req_id)
+        self.n_handed_off += 1
+
+    def import_kv(self, req: GenRequest, first_token: int,
+                  pages, scales, meta) -> None:
+        """Decode-side entry of a transferred prompt: write the exported
+        pages into fresh blocks of this engine's pools (in place: the
+        captured programs keep their addresses), bind a free slot, and
+        resume decode at the cached offset with ``first_token`` already
+        emitted (it came from the prefill engine's logits; the next decode
+        dispatch writes its KV at position ``kv_len``, as a local
+        prefill's first decode would).
+
+        Raises :class:`~..ops.paged_attention.BlockImportError` (transient:
+        retry under the request's deadline) when no slot or not enough
+        free blocks are available now; ``ValueError`` for a configuration
+        mismatch no retry can fix. A failed import leaves nothing
+        behind."""
+        if self._fenced:
+            raise EngineFenced(
+                "engine was retired by its supervisor; a replacement "
+                "already owns the requests")
+        psize = int(req.prompt.size)
+        kv_len = int(meta.get("kv_len", meta["num_blocks"]
+                              * self.block_size))
+        if kv_len != psize:
+            raise ValueError(
+                f"import_kv: transferred kv_len {kv_len} != prompt "
+                f"length {psize}")
+        if psize + req.max_new_tokens > self.max_len:
+            raise ValueError(
+                "import_kv: prompt + max_new_tokens exceeds max_len")
+        slot_idx = next(
+            (i for i, s in enumerate(self._slots) if not s.active), None)
+        if slot_idx is None:
+            raise BlockImportError(
+                "no free decode slot for the imported request")
+        total = self.manager.blocks_for(psize + req.max_new_tokens)
+        if total > self.manager.num_blocks:
+            # permanent: this pool can never hold the request, so the
+            # caller falls back to colocated serving instead of retrying
+            raise ValueError(
+                f"import_kv: needs {total} blocks to import + decode, "
+                f"pool has {self.manager.num_blocks} TOTAL")
+        if total > self.manager.free_blocks:
+            raise BlockImportError(
+                f"need {total} free blocks to import + decode, "
+                f"{self.manager.free_blocks} free")
+        with self._exec_lock:
+            self.manager.import_blocks(req.req_id, pages, scales, meta,
+                                       self._pools)
+        try:
+            self.manager.allocate(req.req_id, psize + req.max_new_tokens)
+        except RuntimeError as e:  # raced another import on the tail
+            self.manager.free_sequence(req.req_id)
+            raise BlockImportError(str(e)) from None
+        self._tables[slot_idx] = self.manager.table_row(
+            req.req_id, self.max_blocks_per_seq, fill=self._trash)
+        slot = self._slots[slot_idx]
+        req.out, req.times, req.status = [], [], "ok"
+        if not req.t_submit:
+            req.t_submit = time.perf_counter()
+        slot.req = req
+        if self._graft_ledger is not None:
+            self._graft_ledger.acquire("engine.slot", req.req_id)
+        slot.prefill_pos = psize
+        slot.cache_len = psize
+        slot.remaining = req.max_new_tokens
+        slot.pending_first = False
+        self._append_token(req, int(first_token))
+        slot.remaining -= 1
+        self.n_imported += 1
+        self._mark_dirty(slot_idx)
+        # the decode leg parents under the context the handoff header
+        # carried (set by the caller on req)
+        req._sp_decode = _obs.start_span("decode", parent=req,
+                                         tid="serve", imported=True)
+        self._finish_if_done(slot_idx, int(first_token))
 
     def _schedule_prefill(self, budget_left: int) -> Dict[int, int]:
         """Round-robin chunk scheduler: starting at the fairness pointer,
@@ -1659,6 +1845,8 @@ class ContinuousBatchingEngine:
         speculative verify, a single step or a ``decode_chunk`` chunk):
         the state is uploaded whole, the tokens read back. Returns the
         real tokens scheduled."""
+        if self.role == "prefill_only":
+            return 0  # decode belongs to the other pool
         active = self._decode_rows()
         if not active:
             return 0
@@ -1797,6 +1985,8 @@ class ContinuousBatchingEngine:
         — no host reads, no per-step uploads of tables or lengths — and
         park its tokens on the ring. Mid-prefill and pending-first rows
         are already trash on the device. Returns the budget charged."""
+        if self.role == "prefill_only":
+            return 0
         active = self._decode_rows()
         if not active:
             return 0

@@ -252,7 +252,13 @@ class StaticFunction:
         gc_was_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.device(dev), torch.cuda.graph(graph, pool=self._pool):
+            # thread_local: a CUDA call another thread makes meanwhile (a
+            # router, a second engine's supervisor thread) cannot
+            # invalidate this capture; the capturing thread's own
+            # unsafe calls still raise
+            with torch.cuda.device(dev), torch.cuda.graph(
+                    graph, pool=self._pool,
+                    capture_error_mode="thread_local"):
                 # a host read during the capture raises here, with its place
                 torch.cuda.set_sync_debug_mode("error")
                 try:

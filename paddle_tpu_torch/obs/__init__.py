@@ -16,9 +16,16 @@ The engine records spans on the host, around its dispatches and
 harvests: a captured CUDA graph records nothing, and turning tracing on
 adds no graph and changes no stream.
 
+- **Fleet aggregation** (:mod:`.agg`): each serve loop publishes its
+  registry and trace ring into the deployment's KV store; ``collect`` /
+  ``fleet_summary`` / ``fleet_trace`` merge them.
+- **Health envelope** (:func:`health_envelope`): the shared top-level keys
+  every ``health()`` surface (supervisor, routers) carries.
+
 Not ported yet (the control-plane slice): the reference's ``alerts``,
-``slo``, ``regress``, ``agg`` and ``compile`` modules, the ``health()``
-envelope and the ``python -m paddle_tpu.obs`` CLI.
+``slo``, ``regress`` and ``compile`` modules and the ``python -m
+paddle_tpu.obs`` CLI. Without ``alerts`` no rule exists, so the envelope's
+``alerts`` key is the summary the reference gives when no rule is defined.
 """
 from .metrics import (
     Counter,
@@ -52,7 +59,8 @@ __all__ = [
     "Span", "TraceRing", "new_trace_id", "span", "start_span",
     "finish_span", "instant", "trace_ctx", "ring", "set_enabled",
     "enabled", "set_process_label", "export_chrome_trace",
-    "stitch_traces", "SLO_HISTOGRAMS", "slo_summary",
+    "stitch_traces", "SLO_HISTOGRAMS", "slo_summary", "tenant_slo_table",
+    "HEALTH_SCHEMA_VERSION", "HEALTH_COMMON_KEYS", "health_envelope",
 ]
 
 # SLO histograms the serving engine feeds (seconds)
@@ -97,4 +105,59 @@ def slo_summary(*, by_tenant: bool = False) -> dict:
             t: {name: h.to_dict() for name, h in sorted(per.items())}
             for t, per in sorted(tenants.items())
         }
+    return out
+
+
+def tenant_slo_table() -> dict:
+    """Compact per-tenant SLO view for the health() surfaces: requests
+    submitted (``serving_tenant_requests_total``) plus TTFT/ITL p50 and
+    p99 per tenant. Tenants past the registry cardinality cap fold into
+    ``"(overflow)"``."""
+    full = slo_summary(by_tenant=True)
+    reg = registry()
+    req_by_tenant: dict = {}
+    m = reg._metrics.get("serving_tenant_requests_total")
+    if m is not None:
+        for labels, h in list(m.series.items()):
+            t = dict(labels).get("tenant", "default")
+            req_by_tenant[t] = req_by_tenant.get(t, 0) + int(h.value)
+        if m.overflow:
+            req_by_tenant["(overflow)"] = req_by_tenant.get(
+                "(overflow)", 0) + int(sum(h.value for h in m.overflow))
+    out = {}
+    for t in sorted(set(full.get("tenants", {})) | set(req_by_tenant)):
+        per = full.get("tenants", {}).get(t, {})
+        ttft = per.get("serving_ttft_seconds", {})
+        itl = per.get("serving_itl_seconds", {})
+        out[t] = {
+            "requests": req_by_tenant.get(t, 0),
+            "ttft_p50": ttft.get("p50"), "ttft_p99": ttft.get("p99"),
+            "itl_p50": itl.get("p50"), "itl_p99": itl.get("p99"),
+        }
+    return out
+
+
+# the shared health() envelope: every health() surface wraps its own
+# payload with these versioned, registry-sourced top-level keys
+HEALTH_SCHEMA_VERSION = 1
+HEALTH_COMMON_KEYS = ("schema_version", "kind", "shed_total",
+                      "expired_total", "requests_total", "alerts")
+# the reference's alert summary when no rule exists (obs/alerts.py, not
+# ported yet: no rule can be defined, so none is ever pending or firing)
+_NO_ALERTS = {"rules": 0, "pending": 0, "firing": 0, "resolved": 0,
+              "active": []}
+
+
+def health_envelope(kind: str, payload: dict) -> dict:
+    """Wrap one surface's health payload with the shared envelope keys.
+    The payload's own keys stay at the top level; the envelope's win on
+    collision only for ``schema_version``/``kind``."""
+    reg = registry()
+    out = dict(payload)
+    out["schema_version"] = HEALTH_SCHEMA_VERSION
+    out["kind"] = str(kind)
+    out["shed_total"] = int(reg.total("serving_shed_total"))
+    out["expired_total"] = int(reg.total("serving_expired_total"))
+    out["requests_total"] = int(reg.total("serving_requests_total"))
+    out["alerts"] = dict(_NO_ALERTS, active=[])
     return out

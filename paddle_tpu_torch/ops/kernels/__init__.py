@@ -166,7 +166,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     one ``nvcc`` per source, all started together. Returns the seconds
     each build took (0.0 for one already built). The compiler's
     register/shared-memory report lands in ``<name>.log`` beside the
-    library."""
+    library. Processes sharing the checkout may build at once: each writes
+    its own temporary library and log and renames them into place, so a
+    library is either whole or absent."""
     names = list(SOURCES if names is None else names)
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -180,7 +182,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(_HERE / SOURCES[name][0])]
-        log = open(out_dir / f"{name}.log", "w")
+        log = open(out_dir / f"{name}.{os.getpid()}.log", "w")
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT),
                        tmp, lib, log, time.perf_counter())
@@ -188,6 +190,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     for name, (proc, tmp, lib, log, t0) in procs.items():
         rc = proc.wait()
         log.close()
+        os.replace(log.name, out_dir / f"{name}.log")
         times[name] = time.perf_counter() - t0
         if rc != 0:
             failed.append(name)

@@ -32,12 +32,12 @@ record ``leak_check()`` must catch — the sanitizer's own smoke test.
 Wired into the observability stack (lazily — this module stays
 importable with nothing but the stdlib): the ``kv_blocks_outstanding``
 gauge tracks live ledger-counted blocks and ``resource_leaks_total``
-counts entries a failed ``leak_check`` named.
+counts entries a failed ``leak_check`` named; a
+``flight_recorder.register_dump_extra`` hook renders outstanding
+resources (blocks, slots, handoff holds and transfers) into hang dumps.
 
 Counterpart of ``paddle_tpu/utils/resources.py``, copied, wrapping the
-port's ``BlockManager``. The reference's hook that renders outstanding
-resources into the collective flight recorder's hang dumps is left out:
-the flight recorder (``distributed/communication``) is not ported yet.
+port's ``BlockManager``.
 """
 from __future__ import annotations
 
@@ -354,6 +354,14 @@ def instrument_resources() -> ResourceLedger:
         _real[name] = real
         setattr(BlockManager, name, wrap(real))
     _instrumented[0] = True
+    try:
+        from ..distributed.communication.flight_recorder import (
+            register_dump_extra,
+        )
+
+        register_dump_extra(_dump_outstanding)
+    except Exception:  # flight recorder optional at this layer
+        pass
     return ledger
 
 
@@ -370,4 +378,35 @@ def uninstrument_resources() -> None:
     _real.clear()
     _current[0] = None
     _instrumented[0] = False
+    try:
+        from ..distributed.communication.flight_recorder import (
+            unregister_dump_extra,
+        )
+
+        unregister_dump_extra(_dump_outstanding)
+    except Exception:
+        pass
+
+
+def _dump_outstanding(file) -> None:
+    """flight_recorder dump extra: every outstanding resource and its
+    acquisition site — a hung pod names what it never gave back."""
+    led = _current[0]
+    lines = ["", "-- graft-own: outstanding resources --"]
+    if led is None:
+        lines.append("(leak sanitizer off)")
+    else:
+        now = time.monotonic()
+        with _state_mu:
+            snap = [(k, key, e.n, e.site, now - e.t0)
+                    for (k, key), e in sorted(
+                        led._live.items(), key=lambda kv: str(kv[0]))]
+        if not snap:
+            lines.append("(nothing outstanding)")
+        for k, key, n, site, age in snap[:200]:
+            lines.append(f"  {k} {key!r} n={n} for {age:.3f}s "
+                         f"(acquired at {site})")
+        if len(snap) > 200:
+            lines.append(f"  ... and {len(snap) - 200} more")
+    file.write("\n".join(lines) + "\n")
 

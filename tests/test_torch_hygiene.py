@@ -38,6 +38,16 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import paddle_tpu_torch.testing.chaos\n"
         "import paddle_tpu_torch.utils.resources\n"
         "import paddle_tpu_torch.utils.retries\n"
+        "import paddle_tpu_torch.base.flags, paddle_tpu_torch.analysis\n"
+        "import paddle_tpu_torch.distributed.store\n"
+        "import paddle_tpu_torch.distributed.communication.flight_recorder\n"
+        "import paddle_tpu_torch.obs.agg\n"
+        "import paddle_tpu_torch.inference.supervisor\n"
+        "import paddle_tpu_torch.inference.cluster\n"
+        "import paddle_tpu_torch.inference.disagg\n"
+        "import paddle_tpu_torch.testing.disagg_worker\n"
+        "import paddle_tpu_torch.testing.supervisor_worker\n"
+        "import paddle_tpu_torch.testing.router_worker\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
         "assert not bad, bad\n"

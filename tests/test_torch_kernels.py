@@ -224,6 +224,51 @@ def test_paged_decode_kernels_split_edges(dev, int8, case):
     assert _row_rel(got, want32) <= 5e-3
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_paged_decode_kernels_long_tables_block_size_8(dev, int8):
+    """The disaggregated configuration's decode: B=8, 16 heads, D=128,
+    8-token blocks and 544-page tables (4352 positions), rows of 4096 to
+    4352 tokens over shuffled pages, bf16 q. Against the plain version
+    (the tolerances of the split-edge test) and, per (sequence, head) row,
+    within 5e-3 of the plain version run in f32 on the kernel's pre-scaled
+    q; a second call gives the same bits."""
+    from paddle_tpu_torch.ops.paged_attention import _kv_quantize
+
+    b, h, kvh, d, bs, per = 8, 16, 16, 128, 8, 544
+    g = torch.Generator(device="cpu").manual_seed(13)
+    nb = b * per + 1
+    lens = torch.randint(4096, 4353, (b,), generator=g)
+    lens[0], lens[-1] = 4096, per * bs
+    tables = torch.randperm(b * per, generator=g).reshape(b, per)
+    for i in range(b):  # pages past the live ones hold the trash id
+        tables[i, -(-int(lens[i]) // bs):] = nb - 1
+    tables = tables.to(torch.int32).to(dev)
+    kp, vp = (torch.randn(kvh, nb, bs, d, generator=g).to(dev, torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn(b, 1, h, d, generator=g).to(dev, torch.bfloat16)
+    cl = lens.to(torch.int32).to(dev) - 1
+    if int8:
+        (kp, ks), (vp, vs) = _kv_quantize(kp), _kv_quantize(vp)
+        wrapper, args = paged_decode_int8, (q, kp, vp, ks, vs, tables, cl)
+        plain = paged_decode_int8_plain
+        want32 = plain(_prescaled_q32(q), *args[1:])
+    else:
+        wrapper, args = paged_decode, (q, kp, vp, tables, cl)
+        plain = paged_decode_plain
+        want32 = plain(_prescaled_q32(q), kp.float(), vp.float(), tables, cl)
+    before = wrapper.launches
+    got = wrapper(*args)
+    again = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(got, again)
+    want = plain(*args)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                               rtol=2e-2 if int8 else 0)
+    assert _row_rel(got, want32) <= 5e-3
+
+
 def _prescaled_q32(q):
     """q as the decode kernels round it (``q * (1/sqrt(D))`` in q's dtype),
     back at unit scale in f32 for the plain versions' own scaling."""

@@ -105,10 +105,8 @@ def test_generate_matches_engine(models, kw):
 def test_later_slices_refuse():
     tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     base = dict(max_batch=1, max_len=32, block_size=8, num_blocks=4)
-    for kw in ({"role": "prefill_only"}, {"role": "decode_only"},
-               {"fp8": True}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ContinuousBatchingEngine(tm, **base, **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ContinuousBatchingEngine(tm, **base, fp8=True)
     with pytest.raises(ValueError, match="role must be"):
         ContinuousBatchingEngine(tm, **base, role="both")
     eng = ContinuousBatchingEngine(tm, **base, prompt_pad=8)
