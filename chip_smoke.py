@@ -30,7 +30,14 @@ script's Part 5: a ``prefill_only`` and a ``decode_only`` engine handing
 KV blocks over through a store, in one process against the unified
 engine's streams (bf16, then int8 pools in overlap mode), then as two
 worker processes over a ``TCPKVStore`` in turns with the unified engine,
-and a prefill worker killed in the middle of a handoff. Each main path runs
+and a prefill worker killed in the middle of a handoff; and the
+low-precision GEMMs (phase 14): the fp8 and int8 GEMMs alone at the
+flagship's shapes against their plain versions (``torch._scaled_mm`` and
+``torch._int_mm`` on the card's layouts), the fp8 train step
+(``amp.convert_to_fp8``, big_mfu_decomp.py's variant) against bf16 in
+turns, eager and captured, ``ContinuousBatchingEngine(fp8=True)`` against
+bf16 on phase 4's and phase 5b's workloads, and ``generate`` over int8 and
+int4 weight-only and llm.int8 models. Each main path runs
 with every kernel launch count set to 0 just before it and read just
 after; a kernel
 of the path that did not launch, or launched another number of times than
@@ -1582,14 +1589,16 @@ def serving_prompts(torch, seed, n_req, vocab):
                           generator=rng).numpy() for i in range(n_req)]
 
 
-def loop_run(torch, model, kind, prompts, L, keep=False):
+def loop_run(torch, model, kind, prompts, L, keep=False, engine_kw=None):
     """One engine of kind ``kind`` over phase 4's workload, after its own
     warm-up; returns what the phase prints and gates on (with ``keep``,
-    the engine too, whose prefill phase 12(a) profiles)."""
+    the engine too, whose prefill phase 12(a) profiles). ``engine_kw``:
+    more engine keywords (phase 14's ``fp8=True``)."""
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
     from paddle_tpu_torch.ops import kernels
 
-    eng = ContinuousBatchingEngine(model, **SERVE, overlap=kind == "overlap")
+    eng = ContinuousBatchingEngine(model, **SERVE, overlap=kind == "overlap",
+                                   **(engine_kw or {}))
     with static_mode(kind != "eager"):
         for new in LOOP_WARM_NEW:
             for i in range(LOOP_WARM_REQUESTS):
@@ -1619,7 +1628,7 @@ def loop_run(torch, model, kind, prompts, L, keep=False):
              graphs0=graphs0, graphs=graph_counts(eng), counts=counts,
              stats=eng.overlap_stats(), prefill=pf,
              prefill_pool=graph_pool_bytes(torch, eng._prefill_fn),
-             warmed_up=warmed)
+             warmed_up=warmed, fp8_layers=getattr(eng, "fp8_layers", None))
     if counts["paged_decode_attention"] != L * steps or steps == 0:
         fail(f"phase 11 {kind} serving: {counts['paged_decode_attention']} "
              f"paged-decode launches for {steps} decode steps x {L} layers")
@@ -2165,14 +2174,16 @@ def decode_launch_error(counts, kv, L, steps):
             f"{stray} {other} launches")
 
 
-def chunked_run(torch, np, model, kind, kv, work, L):
+def chunked_run(torch, np, model, kind, kv, work, L, engine_kw=None,
+                label="phase 12(a)"):
     """One engine of kind ``kind`` over phase 5b's workload on ``kv``
     pools, after its own warm-up; returns what 12(a) prints and gates on."""
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
     from paddle_tpu_torch.ops import kernels
 
     eng = ContinuousBatchingEngine(model, **PREFIX_SERVE, kv_dtype=kv,
-                                   overlap=kind == "overlap")
+                                   overlap=kind == "overlap",
+                                   **(engine_kw or {}))
     vocab = model.config.vocab_size
     with static_mode(kind != "eager"):
         warm = np.random.RandomState(99).randint(0, vocab, (PREFIX_LEN + 64,))
@@ -2204,7 +2215,7 @@ def chunked_run(torch, np, model, kind, kv, work, L):
              tokens={q.req_id: list(q.out) for q in reqs}, graphs0=graphs0,
              graphs=graph_counts(eng), launches=counts[name], prefill=pf,
              prefill_pool=graph_pool_bytes(torch, eng._prefill_fn))
-    label = f"phase 12(a) {kind} chunked serving, {kv or 'bf16'} pools"
+    label = f"{label} {kind} chunked serving, {kv or 'bf16'} pools"
     err = decode_launch_error(counts, kv, L, steps)
     if err:
         fail(f"{label}: {err}")
@@ -3293,6 +3304,630 @@ def disagg_phase(torch, np, dev, args, card):
     torch.cuda.empty_cache()
 
 
+# -- phase 14: low-precision GEMMs --------------------------------------------
+# (a) the GEMMs alone: x [8192, 2048] (the train step's B=4 x S=2048 tokens,
+# and phase 4's whole-prompt prefill [16, 512]) against the flagship's
+# projection and MLP weights, a decode's 16 rows, and an odd shape whose
+# depth and width the card refuses unpadded. Each as (M, K, N)
+LOWP_GEMM_SHAPES = ((8192, 2048, 2048), (8192, 2048, 5632),
+                    (8192, 5632, 2048), (16, 2048, 5632), (5, 30, 40))
+# int8_dynamic_matmul's int32 product, card against CPU: a decode's rows
+# and the whole-prompt prefill's tokens
+LOWP_INT8_SHAPES = ((16, 2048, 5632), (8192, 2048, 2048))
+LOWP_CAST_N = 1 << 20  # values cast to e4m3 and e5m2, card against CPU
+FP8_FLOPS_PER_S = 1979e12  # H100 SXM dense fp8 (the data sheet's)
+# the fp8 GEMM against the plain version (the same fp8 images up-cast and
+# multiplied in f32, then the same divide), the worst row's norm-relative
+# error. Both sum exact products; the card's fp8 tensor cores accumulate
+# in a narrower format between promotions to f32. The first card run's
+# worst row was 1.42e-4 (PERF.md §6): a 3.5x margin
+FP8_GEMM_ROW_REL = 5e-4
+# the wrapper's bf16 outputs (y, dx, dw) against that plain f32 result: the
+# GEMM's error and one bf16 rounding (at most 2^-9 of each element)
+FP8_OUT_ROW_REL = FP8_GEMM_ROW_REL + 2.0 ** -8
+# (b) the fp8 train step: big_mfu_decomp.py:64-74's fp8 variant of the
+# flagship step (every Linear but the lm_head an Fp8Linear) with the bench
+# step's AdamW (bench.py:448-477: fused, bf16 moments, SR), against the
+# same bf16 step, in turns, eager and then captured
+FP8_TRAIN_ORDER = ("bf16", "fp8", "fp8", "bf16")
+FP8_LINEARS = 56  # 8 layers x 7 Linears
+# the fp8 losses against bf16's, step by step (28 steps on one batch, each
+# model from its own state after the same steps), in nats: the e4m3/e5m2
+# rounding of 56 GEMMs. The first card run's worst gap was 0.054 nats, near
+# step 12 (a relative bound fails where both losses near 0): a 2.8x margin
+FP8_LOSS_ABS = 0.15
+# (c) fp8 serving: phase 4's workload in eager, captured and overlap
+# engines, each kind bf16 and fp8 in turns; phase 5b's chunked
+# shared-prefix workload on int8 pools in overlap engines, bf16 then fp8.
+# Per-tensor just-in-time scales (the engine's model is in eval mode) span
+# the whole batch, so a row's fp8 result depends on the other rows: streams
+# are compared only across engines whose batches match (phase 4's), never
+# fp8 against bf16
+FP8_SERVE_ORDER = (("eager", ("bf16", "fp8")), ("captured", ("fp8", "bf16")),
+                   ("overlap", ("bf16", "fp8")))
+# phase 4's prompts scored by the fp8 and the bf16 model, last position:
+# the norm-relative error of the logits and the share of equal argmaxes
+# over the 32 prompts. The first card run gave 0.0752 and 0.8125 (26 of
+# 32; random weights leave near ties) (PERF.md §6): margins of 1.6x and
+# 3 more flips
+FP8_LOGIT_REL, FP8_ARGMAX_MIN = 0.12, 0.7
+# (d) generate (paged, B=16, prompt 128, +32) on Llama-542M converted three
+# ways; the last-logit norm-relative error against the bf16 model's. The
+# first card run gave int8 0.0175, int4 0.187, llm.int8 0.0317 (PERF.md
+# §6): margins of 2.1x-2.9x
+LOWP_GEN_B, LOWP_GEN_PROMPT, LOWP_GEN_NEW = 16, 128, 32
+WO_LOGIT_REL = {"int8": 0.05, "int4": 0.4, "llm.int8": 0.08}
+
+
+def fp8_gemm_case(torch, dev, gen, m, k, n):
+    """Phase 14(a) at one shape: the forward, dgrad and wgrad GEMMs on the
+    card against their plain versions, the wrapper's bf16 outputs against
+    the same, and the times of the GEMMs beside a bf16 matmul."""
+    from paddle_tpu_torch.amp import fp8 as F8
+    from paddle_tpu_torch.nn import quant as Q
+
+    bf = torch.bfloat16
+    x = torch.randn(m, k, generator=gen, device=dev).to(bf)
+    w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).to(bf)
+    dy = torch.randn(m, n, generator=gen, device=dev).to(bf)
+    xs, ws = F8._jit_scale(x, F8.E4M3_MAX), F8._jit_scale(w, F8.E4M3_MAX)
+    dys = F8._jit_scale(dy, F8.E5M2_MAX)
+    qx = F8._cast_fp8(x, xs, F8.E4M3, F8.E4M3_MAX)
+    qw = F8._cast_fp8(w, ws, F8.E4M3, F8.E4M3_MAX)
+    qdy = F8._cast_fp8(dy, dys, F8.E5M2, F8.E5M2_MAX)
+    plain, row = {}, {}
+    for name, (a, b, s) in {"forward": (qx, qw, xs * ws),
+                            "dgrad": (qdy, qw.t(), dys * ws),
+                            "wgrad": (qx.t(), qdy, xs * dys)}.items():
+        plain[name] = F8._mm_plain(a, b) / s
+        row[name] = row_rel_err(F8._mm(a, b) / s, plain[name])
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = F8.fp8_linear(xr, wr)
+    y.backward(dy)
+    out = {"y": row_rel_err(y, plain["forward"]),
+           "dx": row_rel_err(xr.grad, plain["dgrad"]),
+           "dw": row_rel_err(wr.grad, plain["wgrad"])}
+    del xr, wr, y, plain
+    qwc = qw.t().contiguous().t()  # the layout _scaled_mm takes
+    q8, s8 = Q.weight_quantize(w)
+    q8c = q8.t().contiguous().t()
+    qa, _ = Q._quantize_rows(x)
+    with torch.no_grad():
+        ms = dict(
+            bf16=time_ms(lambda: torch.matmul(x, w), 10),
+            fp8_gemm=time_ms(lambda: F8._mm(qx, qwc), 10),
+            fp8_linear=time_ms(lambda: F8.fp8_linear(x, w), 10),
+            int8_gemm=time_ms(lambda: Q._int8_mm(qa, q8c), 10),
+            int8_linear=time_ms(lambda: Q.int8_dynamic_matmul(x, q8c, s8),
+                                10))
+    flops = 2.0 * m * k * n
+    fp8_bound = max((m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S,
+                    flops / FP8_FLOPS_PER_S) * 1e3
+    return dict(shape=(m, k, n), row=row, out=out, ms=ms, fp8_bound=fp8_bound,
+                bf16_bound=bound(2 * (m * k + k * n + m * n), flops)[0])
+
+
+def int8_bitwise_case(torch, dev, gen, m, k, n):
+    """``int8_dynamic_matmul``'s pieces on the card against the CPU: the
+    weight's int8 image and scales, and the int32 product (bitwise)."""
+    from paddle_tpu_torch.nn import quant as Q
+
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)
+    q, s = Q.weight_quantize(w)
+    qc, sc = Q.weight_quantize(w.cpu())
+    qa, _ = Q._quantize_rows(x)
+    acc = Q._int8_mm(qa, q).cpu()
+    want = Q._int8_mm(qa.cpu(), q.cpu())
+    return dict(shape=(m, k, n), weight=torch.equal(q.cpu(), qc) and
+                torch.equal(s.cpu(), sc), product=torch.equal(acc, want))
+
+
+def cast_bitwise(torch, dev):
+    """The e4m3 and e5m2 casts of LOWP_CAST_N values of every magnitude, on
+    the card against the CPU, at unit and odd scales."""
+    from paddle_tpu_torch.amp import fp8 as F8
+
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn(LOWP_CAST_N, generator=g) * torch.exp2(torch.randint(
+        -24, 20, (LOWP_CAST_N,), generator=g).float())
+    xd = x.to(dev)
+    out = {}
+    for dt, fmax in ((F8.E4M3, F8.E4M3_MAX), (F8.E5M2, F8.E5M2_MAX)):
+        for s in (1.0, 0.37, 1234.5):
+            a = F8._cast_fp8(xd, torch.tensor(s, device=dev), dt, fmax)
+            b = F8._cast_fp8(x, torch.tensor(s), dt, fmax)
+            out[f"{str(dt).split('_')[1]} x{s}"] = torch.equal(
+                a.view(torch.uint8).cpu(), b.view(torch.uint8))
+    return out
+
+
+def fp8_gemm_failures(torch, dev, gen, card, shapes=LOWP_GEMM_SHAPES,
+                      show=True):
+    """Phase 14(a): returns the failures."""
+    bad = []
+    for m, k, n in shapes:
+        r = fp8_gemm_case(torch, dev, gen, m, k, n)
+        worst, worst_out = max(r["row"].values()), max(r["out"].values())
+        if show:
+            t = r["ms"]
+            print(f"phase 14(a) fp8 GEMM [{m}, {k}] x [{k}, {n}]: worst row "
+                  f"rel err against the plain f32 product of the same "
+                  f"images " + ", ".join(f"{a} {b:.3g}"
+                                         for a, b in r["row"].items())
+                  + f" (bound {FP8_GEMM_ROW_REL}); the wrapper's bf16 "
+                  f"outputs " + ", ".join(f"{a} {b:.3g}"
+                                          for a, b in r["out"].items())
+                  + f" (bound {FP8_OUT_ROW_REL:.4g}); ms: bf16 matmul "
+                  f"{t['bf16']:.4f} (bound {r['bf16_bound']:.4f}), fp8 GEMM "
+                  f"{t['fp8_gemm']:.4f} (bound {r['fp8_bound']:.4f}), "
+                  f"fp8_linear with its casts {t['fp8_linear']:.4f}, int8 "
+                  f"GEMM {t['int8_gemm']:.4f}, int8_dynamic_matmul "
+                  f"{t['int8_linear']:.4f} [{card}]")
+        if not worst <= FP8_GEMM_ROW_REL:
+            bad.append(f"fp8 GEMM {r['shape']}: worst row {worst:.3g}")
+        if not worst_out <= FP8_OUT_ROW_REL:
+            bad.append(f"fp8_linear {r['shape']}: worst output row "
+                       f"{worst_out:.3g}")
+    torch.cuda.empty_cache()
+    return bad
+
+
+def fp8_ranges_split(torch, fn):
+    """One call of ``fn`` under the profiler with the fp8 module's casts,
+    amax reductions and GEMM calls named: kernel ms by part (the fp8
+    GEMMs themselves, their operands' relayout and padding, casts, amax
+    reductions) and the rest by kernel class."""
+    from paddle_tpu_torch.amp import fp8 as F8
+
+    saved = {n: getattr(F8, n) for n in ("_cast_fp8", "_amax", "_mm")}
+
+    def ranged(name, f):
+        def run(*a, **k):
+            with torch.profiler.record_function(f"fp8:{name}"):
+                return f(*a, **k)
+        return run
+
+    for n, f in saved.items():
+        setattr(F8, n, ranged(n, f))
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n, f in saved.items():
+            setattr(F8, n, f)
+    allk = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("fp8:")]
+    split = {}
+    inside = 0.0
+    for evt in prof.events():
+        if not evt.name.startswith("fp8:"):
+            continue
+        for k, d in _range_kernels(evt):
+            part = {"_cast_fp8": "fp8 casts", "_amax": "amax reductions"}.get(
+                evt.name[4:], "fp8 GEMMs" if kernel_class(k) == "GEMMs"
+                else "fp8 operand relayout and padding")
+            split[part] = split.get(part, 0.0) + d / 1e3
+            inside += d / 1e3
+    for k, t in allk:
+        c = kernel_class(k)
+        split[c] = split.get(c, 0.0) + t
+    # the ranged kernels were counted by class too: take them back out
+    for k, d in ((k, d) for evt in prof.events()
+                 if evt.name.startswith("fp8:") for k, d in
+                 _range_kernels(evt)):
+        c = kernel_class(k)
+        split[c] -= d / 1e3
+    return wall, {k: v for k, v in split.items() if abs(v) > 1e-6}
+
+
+def fp8_history(torch, model):
+    return {n: (b.data_ptr(), b.detach().clone())
+            for n, b in model.named_buffers() if "amax_history" in n}
+
+
+def fp8_history_failures(torch, before, after, k):
+    """``k`` training forwards between two snapshots of the histories: each
+    kept its address, shifted by ``k`` and recorded ``k`` amaxes > 0."""
+    bad = []
+    for n, (ptr, h0) in before.items():
+        ptr1, h1 = after[n]
+        if ptr1 != ptr:
+            bad.append(f"{n} moved")
+        elif not (torch.equal(h1[:-k], h0[k:]) and bool((h1[-k:] > 0).all())):
+            bad.append(f"{n} did not advance by {k}: {h0[-k - 1:].tolist()}"
+                       f" -> {h1[-k - 1:].tolist()}")
+    if not before or set(before) != set(after):
+        bad.append("the amax histories are missing or renamed")
+    return bad
+
+
+def fp8_train_model(torch, dev, seed, depth, fp8, sr=True):
+    """The flagship at ``depth`` layers in bf16 (fp8: every Linear but the
+    lm_head converted) with the bench step's AdamW, and its step."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.amp import convert_to_fp8
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    pt_seed(seed)
+    cfg = LlamaConfig(**dict(LLAMA_542M, max_position_embeddings=TRAIN_SEQ,
+                             num_hidden_layers=depth))
+    m = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    n = convert_to_fp8(m, exclude=lambda s: "lm_head" in s) if fp8 else 0
+    o = AdamW(learning_rate=TRAIN_LR, parameters=m.parameters(),
+              moment_dtype="bfloat16", use_stochastic_rounding=sr,
+              fused=True)
+    return m, o, bench_step(m, o), n
+
+
+def fp8_capture_failures(torch, dev, seed, ids, labels, depth=GRAD_DEPTH,
+                         steps=TRAIN_STEPS):
+    """The fp8 step captured against eager from copies of one state (SR
+    off, ``depth`` layers): losses, parameters and histories bitwise, and
+    the captured model's histories rolled in place by every replay.
+    Returns (failures, losses)."""
+    from paddle_tpu_torch import jit
+
+    res, bad = [], []
+    for captured in (True, False):
+        m, o, c, _ = fp8_train_model(torch, dev, seed, depth, True, sr=False)
+        h0 = fp8_history(torch, m)
+        jit.enable_to_static(captured)
+        try:
+            first = [c(ids, labels).detach() for _ in range(2)]
+            h1 = fp8_history(torch, m)
+            out = c.multi_step(ids, labels, steps=steps)
+        finally:
+            jit.enable_to_static(True)
+        h2 = fp8_history(torch, m)
+        tag = "captured" if captured else "eager"
+        bad += [f"{tag}: {b}" for b in fp8_history_failures(torch, h0, h1, 2)
+                + fp8_history_failures(torch, h1, h2, steps)]
+        if captured and len(c._graphs) != 1:
+            bad.append(f"captured: {len(c._graphs)} graphs")
+        res.append((torch.cat([torch.stack(first), out]).float(),
+                    [p.detach().clone() for p in m.parameters()],
+                    {n: h for n, (_, h) in h2.items()}))
+        del m, o, c
+    (lc, pc, hc), (le, pe, he) = res
+    if not (torch.equal(lc, le) and all(torch.equal(a, b)
+                                        for a, b in zip(pc, pe))
+            and all(torch.equal(hc[n], he[n]) for n in hc)):
+        bad.append(f"captured differs from eager: losses {lc.tolist()} / "
+                   f"{le.tolist()}")
+    torch.cuda.empty_cache()
+    return bad, lc.tolist()
+
+
+def fp8_train_phase(torch, np, dev, args, card, ids, labels):
+    """Phase 14(b): the fp8 train step against bf16 in turns, eager and
+    captured, at full width; then captured against eager bitwise at
+    GRAD_DEPTH layers. Returns the failures."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.ops import kernels
+
+    L, K = LLAMA_542M["num_hidden_layers"], TRAIN_STEPS
+    bad, v = [], {}
+    for name in ("bf16", "fp8"):
+        m, o, c, n = fp8_train_model(torch, dev, args.seed, L, name == "fp8")
+        if name == "fp8" and n != FP8_LINEARS:
+            bad.append(f"{n} Linears converted, not {FP8_LINEARS}")
+        v[name] = dict(model=m, opt=o, step=c, losses=[], ms={}, counts=[])
+    want = {**flash_fwd_counts(L * K), **flash_bwd_counts(L * K),
+            "fused_adamw": ADAMW_GROUPS * K, "paged_decode_attention": 0,
+            "paged_decode_attention_int8": 0}
+    torch.cuda.reset_peak_memory_stats()
+    hist = fp8_history(torch, v["fp8"]["model"])
+    addr = {n: p for n, (p, _) in hist.items()}
+    for mode in ("eager", "captured"):
+        for name in ("bf16", "fp8"):
+            x = v[name]
+            with static_mode(mode == "captured"):
+                # eager: optimizer state, then the allocator's cache;
+                # captured: the warm-up call, then the capture (and one
+                # replay)
+                for _ in range(2):
+                    x["losses"].append(float(x["step"](ids, labels).detach()))
+        h0 = fp8_history(torch, v["fp8"]["model"])
+        for name in FP8_TRAIN_ORDER:
+            x = v[name]
+            with static_mode(mode == "captured"):
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = x["step"].multi_step(ids, labels, steps=K)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            x["ms"].setdefault(mode, []).append(dt / K * 1e3)
+            x["losses"] += [float(t) for t in out.cpu()]
+            if counts != want:
+                bad.append(f"{name} {mode}: launch counts {counts} != {want}")
+        h1 = fp8_history(torch, v["fp8"]["model"])
+        bad += [f"{mode} turns: {b}" for b in fp8_history_failures(
+            torch, h0, h1, K * FP8_TRAIN_ORDER.count("fp8"))]
+        if mode == "eager":
+            torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = [n for n, (p, _) in fp8_history(torch, v["fp8"]["model"]).items()
+             if p != addr[n]]
+    if moved:
+        bad.append(f"histories moved across the capture: {moved[:3]}")
+    if len(v["fp8"]["step"]._graphs) != 1:
+        bad.append(f"fp8 step graphs {len(v['fp8']['step']._graphs)}")
+    fpt = v["bf16"]["model"].flops_per_token(TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for name, x in v.items():
+        ls = x["losses"]
+        mfu = {mode: [round(tokens * fpt / (ms / 1e3) / BF16_FLOPS_PER_S, 4)
+                      for ms in t] for mode, t in x["ms"].items()}
+        print(f"phase 14(b) train Llama-542M bf16 B={TRAIN_BATCH} "
+              f"S={TRAIN_SEQ}, {name} Linears (big_mfu_decomp.py's "
+              f"{'fp8' if name == 'fp8' else 'adamw'} variant with the bench "
+              f"step's fused AdamW), multi_step(steps={K}) in turns "
+              f"{FP8_TRAIN_ORDER}: eager {[round(t, 2) for t in x['ms']['eager']]}"
+              f" ms/step, captured {[round(t, 2) for t in x['ms']['captured']]}"
+              f" ms/step, MFU (the bf16 step's flops_per_token {fpt:.0f} over "
+              f"989 TFLOP/s) {mfu}; peak memory of both {peak_gb:.2f} GB; "
+              f"losses {[round(t, 4) for t in ls]} [{card}]")
+        if not (all(np.isfinite(t) for t in ls) and ls[-1] < ls[0]):
+            bad.append(f"{name}: losses not finite and falling: {ls}")
+    lb, lf = v["bf16"]["losses"], v["fp8"]["losses"]
+    worst = max(abs(a - b) for a, b in zip(lf, lb))
+    print(f"phase 14(b) fp8 losses against bf16's, step by step: worst gap "
+          f"{worst:.4g} nats (bound {FP8_LOSS_ABS}); the fp8 model's "
+          f"{len(hist)} amax histories kept their addresses and advanced "
+          f"by one entry a training forward: {not any('advance' in b or 'moved' in b for b in bad)}")
+    if not worst <= FP8_LOSS_ABS:
+        bad.append(f"fp8 losses depart from bf16's by {worst:.4g}")
+    def eager_fp8_step():
+        with static_mode(False):
+            v["fp8"]["step"](ids, labels)
+
+    wall, split = fp8_ranges_split(torch, eager_fp8_step)
+    busy = sum(split.values())
+    print(f"phase 14(b) one profiled eager fp8 step: {wall:.2f} ms wall, "
+          f"{busy:.2f} ms of kernels: " + ", ".join(
+              f"{k} {t:.2f} ms" for k, t in sorted(split.items(),
+                                                  key=lambda kv: -kv[1]))
+          + f" [{card}]")
+    del v
+    torch.cuda.empty_cache()
+    cb, lc = fp8_capture_failures(torch, dev, args.seed, ids, labels)
+    print(f"phase 14(b) fp8 step captured against eager, {GRAD_DEPTH} layers "
+          f"at full width, SR off, {2 + TRAIN_STEPS} steps from copies of one "
+          f"state: losses, parameters and amax histories bitwise equal, "
+          f"histories rolled in place by every replay: "
+          f"{'yes' if not cb else '; '.join(cb)}; losses "
+          f"{[round(t, 4) for t in lc]}")
+    return bad + cb
+
+
+def fp8_logit_check(torch, np, bf, f8, prompts):
+    """Phase 4's prompts scored by both models, last position: the
+    norm-relative error of the fp8 logits, argmax agreement, and the fp8
+    argmax in bf16's top 5."""
+    got, want = [], []
+    with torch.no_grad():
+        for n in PROMPT_LENS:
+            ids = torch.from_numpy(np.stack(
+                [p for p in prompts if p.size == n]).astype(np.int64)).to(
+                bf.device)
+            want.append(bf(ids)[:, -1].float())
+            got.append(f8(ids)[:, -1].float())
+    got, want = torch.cat(got), torch.cat(want)
+    top5 = want.topk(5, dim=-1).indices
+    return dict(rel=rel_err(got, want),
+                argmax=float((got.argmax(-1) == want.argmax(-1)).float()
+                             .mean()),
+                top5=float((top5 == got.argmax(-1, keepdim=True)).any(-1)
+                           .float().mean()))
+
+
+def fp8_serving_phase(torch, np, dev, args, card):
+    """Phase 14(c): ``ContinuousBatchingEngine(fp8=True)`` against bf16 on
+    phase 4's workload (eager, captured, overlap) and phase 5b's on int8
+    pools. Returns the failures."""
+    import gc
+
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.amp import Fp8Linear
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = LlamaConfig(**LLAMA_542M)
+    models = {}
+    for name in ("bf16", "fp8"):
+        pt_seed(args.seed)
+        models[name] = LlamaForCausalLM(cfg, device=dev,
+                                        dtype=torch.bfloat16).eval()
+    L = cfg.num_hidden_layers
+    prompts = serving_prompts(torch, args.seed, N_REQUESTS, cfg.vocab_size)
+    bad, runs, kept = [], {"bf16": [], "fp8": []}, {}
+    for kind, order in FP8_SERVE_ORDER:
+        for name in order:
+            r = loop_run(torch, models[name], kind, prompts, L,
+                         keep=kind == "captured",
+                         engine_kw=dict(fp8=True) if name == "fp8" else None)
+            if kind == "captured":
+                kept[name] = r.pop("prefill_engine")
+            runs[name].append(r)
+            gc.collect()
+            print(f"phase 14(c) {name} {kind} serving: {N_REQUESTS} requests "
+                  f"(phase 4's workload) wall {r['wall']:.3f} s, TTFT p50 "
+                  f"{r['ttft'] * 1e3:.1f} ms, {r['decode_tokens']} decode "
+                  f"tokens in {r['steps']} decode steps, "
+                  f"{r['counts']['paged_decode_attention']} paged-decode "
+                  f"launches, graphs {r['graphs']}, fp8_layers "
+                  f"{r['fp8_layers']} [{card}]")
+    n_fp8 = sum(isinstance(m, Fp8Linear) for m in models["fp8"].modules())
+    if runs["fp8"][0]["fp8_layers"] != FP8_LINEARS or n_fp8 != FP8_LINEARS:
+        bad.append(f"fp8_layers {runs['fp8'][0]['fp8_layers']}, "
+                   f"{n_fp8} Fp8Linears in the model")
+    for name, rs in runs.items():
+        if any(r["tokens"] != rs[0]["tokens"] for r in rs):
+            bad.append(f"{name}: the eager, captured and overlap streams "
+                       f"differ")
+    agree = np.mean([a == b for rid, t in runs["fp8"][0]["tokens"].items()
+                     for a, b in zip(t, runs["bf16"][0]["tokens"][rid])])
+    # a replay of each captured engine's programs as its run left them:
+    # the whole-prompt prefill [16, 512] and a 16-step decode chunk
+    prefill_ms, decode_ms = {}, {}
+    for name, eng in kept.items():
+        n0 = kernels.launch_counts()
+        prefill_ms[name] = time_ms(eng._prefill_fn, 5, warmup=1)
+        decode_ms[name] = time_ms(eng._chunk_fn, 5, warmup=1) \
+            / SERVE["decode_chunk"]
+        kernels.set_launch_counts(n0)
+    del kept, eng
+    gc.collect()
+    lg = fp8_logit_check(torch, np, models["bf16"], models["fp8"], prompts)
+    print(f"phase 14(c) fp8 against bf16 serving, phase 4's workload: fp8 "
+          f"streams bitwise equal across eager, captured and overlap: "
+          f"{not any('fp8: the' in b for b in bad)}; greedy tokens agree "
+          f"with bf16's on {agree:.4f} of positions (reported); last "
+          f"prefill logit rel err {lg['rel']:.4g} (bound {FP8_LOGIT_REL}), "
+          f"argmax agreement {lg['argmax']:.4f} (min {FP8_ARGMAX_MIN}), "
+          f"fp8 argmax in bf16's top 5 {lg['top5']:.4f}; whole-prompt "
+          f"prefill replay [16, 512] bf16 {prefill_ms['bf16']:.3f} / fp8 "
+          f"{prefill_ms['fp8']:.3f} ms, a decode step in a replayed "
+          f"{SERVE['decode_chunk']}-step chunk bf16 {decode_ms['bf16']:.3f} / "
+          f"fp8 {decode_ms['fp8']:.3f} ms (CUDA events) [{card}]")
+    if not (lg["rel"] <= FP8_LOGIT_REL and lg["argmax"] >= FP8_ARGMAX_MIN):
+        bad.append(f"fp8 last prefill logits: rel err {lg['rel']:.4g}, "
+                   f"argmax agreement {lg['argmax']:.4f}")
+    # phase 5b's chunked shared-prefix workload on int8 pools
+    _, work = prefix_work(np, cfg.vocab_size, PREFIX_FAMILIES,
+                          PREFIX_REQUESTS, PREFIX_REPEATS,
+                          PREFIX_SERVE["max_batch"])
+    for name in ("bf16", "fp8"):
+        r = chunked_run(torch, np, models[name], "overlap", "int8", work, L,
+                        dict(fp8=True) if name == "fp8" else None,
+                        label=f"phase 14(c) {name}")
+        show_prefill_run(f"phase 14(c) {name} overlap chunked serving, int8 "
+                         f"pools (phase 5b's workload)", r, card)
+        del r
+        gc.collect()
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return bad
+
+
+def wo_convert(torch, model, kind):
+    from paddle_tpu_torch import quantization as QZ
+    from paddle_tpu_torch.nn import quant as Q
+
+    if kind == "llm.int8":
+        qat = QZ.QAT(QZ.QuantConfig(activation=None, weight=None))
+        model = qat.convert(qat.quantize(model), execute_dtype="int8")
+        return model, sum(isinstance(m, QZ.Int8InferenceLinear)
+                          for m in model.modules())
+    return model, Q.convert_to_weight_only(model, weight_dtype=kind)
+
+
+def lowp_generate_failures(torch, np, dev, args, card,
+                           kinds=("int8", "int4", "llm.int8")):
+    """Phase 14(d): ``generate`` (paged, captured) over Llama-542M
+    converted each of ``kinds`` ways, against the bf16 model. Returns the
+    failures."""
+    import gc
+
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, generate
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = LlamaConfig(**LLAMA_542M)
+    L = cfg.num_hidden_layers
+    ids = torch.from_numpy(np.random.RandomState(args.seed + 14).randint(
+        0, cfg.vocab_size, (LOWP_GEN_B, LOWP_GEN_PROMPT))).to(dev)
+    bad, ref = [], None
+    for kind in ("bf16",) + tuple(kinds):
+        pt_seed(args.seed)
+        m = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16).eval()
+        n = 0
+        if kind != "bf16":
+            m, n = wo_convert(torch, m, kind)
+        with torch.no_grad():
+            last = m(ids)[:, -1].float()
+            for _ in range(2):  # eager, then captured
+                generate(m, ids, max_new_tokens=LOWP_GEN_NEW, block_size=64)
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generate(m, ids, max_new_tokens=LOWP_GEN_NEW, block_size=64)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()["paged_decode_attention"]
+        if ref is None:
+            ref = (last, out)
+            e, agree = 0.0, 1.0
+        else:
+            e = rel_err(last, ref[0])
+            new = slice(LOWP_GEN_PROMPT, None)
+            agree = float((out[:, new] == ref[1][:, new]).float().mean())
+        print(f"phase 14(d) generate {kind} (paged, B={LOWP_GEN_B}, prompt "
+              f"{LOWP_GEN_PROMPT}, +{LOWP_GEN_NEW}, captured) Llama-542M"
+              f"{f' with {n} converted Linears' if n else ''}: last-logit "
+              f"rel err against bf16 {e:.4g}"
+              f"{f' (bound {WO_LOGIT_REL[kind]})' if kind in WO_LOGIT_REL else ''}"
+              f", tokens agree with bf16's on {agree:.4f}; {wall * 1e3:.1f} "
+              f"ms a call = {wall * 1e3 / LOWP_GEN_NEW:.3f} ms a generated "
+              f"token (the prefill included), paged-decode launches "
+              f"{launches} (want {L * (LOWP_GEN_NEW - 1)}) [{card}]")
+        # every Linear, the lm_head too, as the reference's tests convert
+        if kind != "bf16" and (n != FP8_LINEARS + 1 or
+                               not e <= WO_LOGIT_REL[kind]):
+            bad.append(f"{kind}: {n} Linears converted, last-logit rel err "
+                       f"{e:.4g}")
+        if launches != L * (LOWP_GEN_NEW - 1):
+            bad.append(f"{kind}: {launches} paged-decode launches")
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return bad
+
+
+def lowp_phase(torch, np, dev, args, card, ids, labels):
+    """Phase 14: the low-precision GEMMs. (a) fp8 and int8 GEMMs alone, (b)
+    the fp8 train step, (c) fp8 serving, (d) weight-only and llm.int8
+    generate."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 14)
+    bad = fp8_gemm_failures(torch, dev, gen, card)
+    casts = cast_bitwise(torch, dev)
+    int8 = [int8_bitwise_case(torch, dev, gen, *s) for s in LOWP_INT8_SHAPES]
+    print(f"phase 14(a) e4m3/e5m2 casts of {LOWP_CAST_N} values, card against "
+          f"CPU, bitwise: {json.dumps(casts)}; int8_dynamic_matmul card "
+          f"against CPU bitwise (weight image and scales, int32 product): "
+          + ", ".join(f"{r['shape']} {r['weight']}/{r['product']}"
+                      for r in int8))
+    bad += [f"cast {k} differs from the CPU's" for k, ok in casts.items()
+            if not ok]
+    bad += [f"int8 {r['shape']} differs from the CPU's" for r in int8
+            if not (r["weight"] and r["product"])]
+    t1 = time.perf_counter()
+    bad += fp8_train_phase(torch, np, dev, args, card, ids, labels)
+    t2 = time.perf_counter()
+    bad += fp8_serving_phase(torch, np, dev, args, card)
+    t3 = time.perf_counter()
+    bad += lowp_generate_failures(torch, np, dev, args, card)
+    t4 = time.perf_counter()
+    print(f"phase 14 {t4 - t0:.1f} s: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, "
+          f"(c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}")
+    if bad:
+        fail("phase 14: " + "; ".join(b[:300] for b in bad))
+
+
 def kernel_class(name: str) -> str:
     """Bucket a profiled kernel name for the training step's time split."""
     n = name.lower()
@@ -3337,6 +3972,7 @@ def main() -> int:
         fail("JAX or the JAX package was imported")
 
     t_start = time.perf_counter()
+    starts = []  # (phase, seconds after t_start), printed before the total
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3352,6 +3988,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     gen_cpu = torch.Generator(device="cpu").manual_seed(args.seed)
 
+    starts.append(("2", time.perf_counter() - t_start))
     # -- phase 2 ---------------------------------------------------------
     def show_paged(label, r, r8):
         print(f"phase 2 paged_decode {label} H=KVH=16 D=128 bs={r['bs']} "
@@ -3484,6 +4121,7 @@ def main() -> int:
     show_paged(label, r, r8)
     torch.cuda.empty_cache()
 
+    starts.append(("3", time.perf_counter() - t_start))
     # -- phase 3: scoring forward (main path of the flash kernel) ----------
     pt_seed(args.seed)
     cfg = LlamaConfig(**LLAMA_542M)
@@ -3518,6 +4156,7 @@ def main() -> int:
         fail("scoring forward disagrees with the plain attention path")
     del logits, logits_plain
 
+    starts.append(("4", time.perf_counter() - t_start))
     # -- phase 4: serving (main path of the paged-decode kernel) -----------
     def serve(n_req, new_tokens):
         eng = ContinuousBatchingEngine(model, **SERVE)
@@ -3573,6 +4212,7 @@ def main() -> int:
           f"{phase_s['decode'] / eng.decode_steps * 1e3:.3f} ms per decode "
           f"step, counts {json.dumps(serve_counts)} [{card}]")
 
+    starts.append(("5", time.perf_counter() - t_start))
     # -- phase 5: one full-width decode step, kernel vs plain ----------------
     B5, L5 = 16, 512
     per = SERVE["max_len"] // SERVE["block_size"]
@@ -3640,11 +4280,13 @@ def main() -> int:
     del caches, saved
     torch.cuda.empty_cache()
 
+    starts.append(("5b", time.perf_counter() - t_start))
     # -- phase 5b: shared-prefix serving, int8 against bf16 KV pools --------
     prefix_int8_counts = prefix_serving_phase(torch, np, model, cfg, card)
     del model
     torch.cuda.empty_cache()
 
+    starts.append(("6", time.perf_counter() - t_start))
     # -- phase 6: small f32 reference, card against CPU ----------------------
     small = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
                              num_attention_heads=4, num_key_value_heads=2,
@@ -3719,6 +4361,7 @@ def main() -> int:
     del cpu_model, gpu_model
     torch.cuda.empty_cache()
 
+    starts.append(("7", time.perf_counter() - t_start))
     # -- phase 7: the flagship train step at full width ----------------------
     # phases 7 and 8 run the step eagerly, as before the capture existed;
     # phase 10 runs it captured
@@ -3831,6 +4474,7 @@ def main() -> int:
     del model, opt, compiled, prof
     torch.cuda.empty_cache()
 
+    starts.append(("8", time.perf_counter() - t_start))
     # -- phase 8: kernels against plain paths inside the model --------------
     _, mk, ok = flagship(GRAD_DEPTH)
     _, mp, op = flagship(GRAD_DEPTH)
@@ -3899,15 +4543,18 @@ def main() -> int:
 
     pt_jit.enable_to_static(True)
 
+    starts.append(("10", time.perf_counter() - t_start))
     # -- phase 10: the training recipe, captured -------------------------------
     phase7_profile = (prof_wall_ms, busy if busy > 0 else float("nan"))
     recipe_counts, f16_fwd, f16_bwd, f32_adamw = recipe_phase(
         torch, np, dev, args, card, ids, labels, phase7_profile, device_rows,
         gen)
 
+    starts.append(("11", time.perf_counter() - t_start))
     # -- phase 11: the decode loop ---------------------------------------------
     loop_runs, serve_model = decode_loop_phase(torch, np, dev, args, card)
 
+    starts.append(("12", time.perf_counter() - t_start))
     # -- phase 12: the serving engine's front door --------------------------
     front_door_phase(torch, np, serve_model, loop_runs, card)
     del serve_model, loop_runs
@@ -3915,11 +4562,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    starts.append(("13", time.perf_counter() - t_start))
     # -- phase 13: disaggregated serving -----------------------------------------
     disagg_phase(torch, np, dev, args, card)
     gc.collect()
     torch.cuda.empty_cache()
 
+    starts.append(("14", time.perf_counter() - t_start))
+    # -- phase 14: low-precision GEMMs ------------------------------------------
+    lowp_phase(torch, np, dev, args, card, ids, labels)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    starts.append(("9", time.perf_counter() - t_start))
     # -- phase 9: the decode and AdamW kernels' device times ----------------
     # taken last: a profiler session slows the host work of the phases
     # after it (phases 4, 5 and 5b are host-bound)
@@ -3986,6 +4641,8 @@ def main() -> int:
         plain_ms=adamw_multi_row["plain_ms"],
         bound_ms=adamw_multi_row["bound_ms"],
         bound_by=adamw_multi_row["bound_by"], library_ms=None))
+    print("phase starts (s after the start): " + ", ".join(
+        f"{name} {t:.1f}" for name, t in starts))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

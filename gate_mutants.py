@@ -99,6 +99,22 @@ tokens against the unified engine's streams):
 - ``sender skips the CRC``: the commit record carries no whole-payload
   CRC; the clean-handoff gate (no nack, no fallback) must refuse it.
 
+The low-precision GEMMs, the same way, each variant through phase 14's
+gates (``chip_smoke.fp8_gemm_failures`` at three of phase 14(a)'s shapes,
+``chip_smoke.fp8_capture_failures``: the fp8 train step at two layers of
+full width captured against eager, and
+``chip_smoke.lowp_generate_failures`` for int4 weight-only ``generate``):
+
+- ``fp8 forward divides by one scale only``: the forward divides the f32
+  product by the activation's scale alone; phase 14(a)'s output gate must
+  refuse it;
+- ``amax history rebound instead of rolled in place``: ``Fp8Linear``
+  binds new history tensors, so a captured step keeps writing the old
+  ones; phase 14(b)'s history gates (address kept, one entry a forward)
+  must refuse it;
+- ``int4 nibbles unpacked in swapped order``: ``_unpack_int4`` puts each
+  byte's high nibble first; phase 14(d)'s last-logit gate must refuse it.
+
 Each variant runs through the kernel's own wrapper (``paged_decode`` and
 ``paged_decode_int8`` for the decode, ``fused_adamw_multi_update`` for
 AdamW). It also prints the verdict of the
@@ -464,6 +480,29 @@ DISAGG_MUTANTS = {
 }
 
 
+# the low-precision GEMMs, in HOST_MUTANTS' form
+LOWP_MUTANTS = {
+    "as is": None,
+    "fp8 forward divides by one scale only": (
+        "paddle_tpu_torch.amp.fp8", "_Fp8Dot.forward", [(
+            "y = (acc / (x_scale * w_scale)).to(x.dtype)",
+            "y = (acc / x_scale).to(x.dtype)")]),
+    "amax history rebound instead of rolled in place": (
+        "paddle_tpu_torch.amp.fp8", "Fp8Linear.forward", [(
+            "self._roll(self.amax_history_x, cur_x)",
+            "self.amax_history_x = torch.cat([self.amax_history_x[1:], "
+            "cur_x.reshape(1)])"), (
+            "self._roll(self.amax_history_w, cur_w)",
+            "self.amax_history_w = torch.cat([self.amax_history_w[1:], "
+            "cur_w.reshape(1)])")]),
+    "int4 nibbles unpacked in swapped order": (
+        "paddle_tpu_torch.nn.quant", "_unpack_int4", [(
+            "torch.stack([lo, hi], dim=1)", "torch.stack([hi, lo], dim=1)")]),
+}
+# lowp_mutants' GEMM shapes: a train/prefill shape, a decode's and the odd
+LOWP_MUTANT_SHAPES = (cs.LOWP_GEMM_SHAPES[0],) + cs.LOWP_GEMM_SHAPES[-2:]
+
+
 def host_variant(name, table=None):
     """Patch in the broken form ``name`` of a host function (from
     ``table``, default ``HOST_MUTANTS``); returns the callable that puts
@@ -594,6 +633,45 @@ def disagg_mutants(torch, np, dev, args, card):
     return ok, refused, len(DISAGG_MUTANTS) - 1
 
 
+def lowp_mutants(torch, np, dev, args, card, ids):
+    """Every low-precision variant through phase 14's gates (the GEMMs at
+    LOWP_MUTANT_SHAPES, the fp8 step captured against eager at two layers,
+    int4 weight-only generate). Returns (ok, refused, mutants counted)."""
+    ok, refused = True, []
+    for name in LOWP_MUTANTS:
+        restore = (lambda: None) if LOWP_MUTANTS[name] is None else \
+            host_variant(name, LOWP_MUTANTS)
+        bad = []
+        try:
+            for label, check in (
+                    ("14(a)", lambda: cs.fp8_gemm_failures(
+                        torch, dev, torch.Generator(device=dev).manual_seed(
+                            args.seed + 14), card, LOWP_MUTANT_SHAPES,
+                        show=False)),
+                    ("14(b)", lambda: cs.fp8_capture_failures(
+                        torch, dev, args.seed, ids, ids)[0]),
+                    ("14(d)", lambda: cs.lowp_generate_failures(
+                        torch, np, dev, args, card, kinds=("int4",)))):
+                try:
+                    bad += [f"{label} {b}" for b in check()]
+                except Exception as e:  # noqa: BLE001 - a crash refuses too
+                    bad.append(f"{label} raised {e!r}")
+        finally:
+            restore()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        if name == "as is":
+            ok &= not bad
+        elif bad:
+            refused.append(f"low-precision GEMMs: {name}")
+        else:
+            ok = False
+        print(f"lowp {name}: {len(bad)} failures "
+              f"{'; '.join(b[:200] for b in bad[:3]) if bad else 'pass'} -> "
+              f"{'FAIL' if bad else 'pass'} [{card}]")
+    return ok, refused, len(LOWP_MUTANTS) - 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -628,6 +706,9 @@ def main() -> int:
                             generator=gen_cpu).to(dev)
         results.append(adamw_mutants(torch, kernels, libs, dev, gen, card,
                                      ids))
+        import numpy as np
+
+        results.append(lowp_mutants(torch, np, dev, args, card, ids))
         del ids
         torch.cuda.empty_cache()
         import numpy as np

@@ -14,7 +14,10 @@ ref: the reference rendezvous layer — etcd leases+watches for elastic
 - ``TCPKVStore`` + ``TCPStoreServer``: a small line-JSON socket store
   for multi-node clusters WITHOUT a shared filesystem — the master
   node (rank 0 / launcher) runs the server, everyone connects by
-  ``tcp://host:port``. One request per connection; values are strings.
+  ``tcp://host:port``. Values are strings. A client keeps one
+  connection open and sends its requests down it one line at a time;
+  the server answers every line of a connection until the client
+  closes it, so a one-request client (the reference's) is served too.
 
 ``make_store`` turns a location string into a store: a filesystem path
 -> FileKVStore, ``tcp://host:port`` -> TCPKVStore. Both back
@@ -406,6 +409,7 @@ class TCPStoreServer:
         self._sock.listen(64)
         self.port = self._sock.getsockname()[1]
         self._stop = threading.Event()
+        self._conns: set = set()
         self._thread = threading.Thread(target=self._serve, daemon=True)
         self._thread.start()
 
@@ -430,22 +434,29 @@ class TCPStoreServer:
         self._sock.close()
 
     def _handle(self, conn):
+        # one thread per connection, answering its lines until EOF: a
+        # connection per request would leave a TIME_WAIT socket and a
+        # thread start behind every heartbeat and poll
+        with self._lock:
+            self._conns.add(conn)
         try:
-            with conn, conn.makefile("rw") as f:
-                line = f.readline()
-                if not line:
-                    return
-                req = json.loads(line)
-                op = req.get("op")
-                now = time.time()
-                try:
-                    resp = self._dispatch(op, req, now)
-                except Exception as e:  # noqa: BLE001 — marshalled to client
-                    resp = {"ok": False, "err": f"{type(e).__name__}: {e}"}
-                f.write(json.dumps(resp) + "\n")
-                f.flush()
+            with conn, conn.makefile("rwb") as f:
+                for line in f:
+                    req = json.loads(line)
+                    op = req.get("op")
+                    now = time.time()
+                    try:
+                        resp = self._dispatch(op, req, now)
+                    except Exception as e:  # noqa: BLE001 — to the client
+                        resp = {"ok": False,
+                                "err": f"{type(e).__name__}: {e}"}
+                    f.write(json.dumps(resp).encode("ascii") + b"\n")
+                    f.flush()
         except (OSError, ValueError):
             pass
+        finally:
+            with self._lock:
+                self._conns.discard(conn)
 
     def _dispatch(self, op, req, now):
         with self._lock:
@@ -496,13 +507,23 @@ class TCPStoreServer:
     def stop(self):
         self._stop.set()
         self._thread.join(2.0)
+        with self._lock:
+            conns = list(self._conns)
+        for conn in conns:  # a stopped server answers no open connection
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
 
 
 class TCPKVStore(KVStore):
-    """One request per connection, with reconnect-with-backoff: a
+    """One open connection per client, with reconnect-with-backoff: a
     connection reset / refused / timeout (master briefly overloaded,
     TCP blip, server restarting) retries under the op's Deadline
-    instead of raising straight into the caller's heartbeat loop.
+    instead of raising straight into the caller's heartbeat loop. A
+    kept connection the server has closed since the last request is
+    reopened at once (a one-request server closes every connection
+    after its answer).
 
     ``timeout`` is the TOTAL per-operation budget (a Deadline); each
     connection attempt gets the remaining slice. ``add`` carries a
@@ -517,6 +538,8 @@ class TCPKVStore(KVStore):
         self.retry = retry if retry is not None else RetryPolicy(
             max_attempts=4, base_delay=0.1, max_delay=2.0,
             transient=self._is_transient)
+        self._conn = self._file = None
+        self._io_lock = threading.Lock()
 
     @staticmethod
     def _is_transient(exc: BaseException) -> bool:
@@ -533,15 +556,48 @@ class TCPKVStore(KVStore):
             # wait_alive) see a failure, never a fabricated response
             raise ConnectionResetError(
                 "chaos: store request dropped (lost message)")
-        with socket.create_connection(
-            (self.host, self.port), timeout=timeout
-        ) as conn, conn.makefile("rw") as f:
-            f.write(json.dumps(payload) + "\n")
-            f.flush()
-            resp = json.loads(f.readline())
+        line = json.dumps(payload).encode("ascii") + b"\n"
+        with self._io_lock:
+            # the kept connection first; a fresh one if the server has
+            # closed the kept one since the last request
+            for fresh in ((False, True) if self._conn is not None
+                          else (True,)):
+                if fresh:
+                    self._close()
+                    self._conn = socket.create_connection(
+                        (self.host, self.port), timeout=timeout)
+                    self._file = self._conn.makefile("rb")
+                try:
+                    self._conn.settimeout(timeout)
+                    self._conn.sendall(line)
+                    raw = self._file.readline()
+                except TimeoutError:
+                    self._close()  # a late answer would meet the next ask
+                    raise
+                except OSError:
+                    if fresh:
+                        self._close()
+                        raise
+                    continue
+                if raw or fresh:
+                    break
+            try:
+                resp = json.loads(raw)
+            except ValueError:
+                self._close()
+                raise
         if not resp.get("ok"):
             raise RuntimeError(f"TCP store error: {resp.get('err')}")
         return resp.get("v")
+
+    def _close(self) -> None:
+        for h in (self._file, self._conn):
+            if h is not None:
+                try:
+                    h.close()
+                except OSError:
+                    pass
+        self._conn = self._file = None
 
     def _req(self, _deadline: Optional[Deadline] = None, **payload):
         dl = (_deadline if _deadline is not None

@@ -106,8 +106,9 @@ fall back to serving a prompt on it colocated.
 
 Greedy decoding only (as the reference's engine), so engine outputs are
 token-identical to isolated ``generate`` runs and to the JAX engine on the
-same weights. The reference's fp8 GEMMs (``fp8=``) arrive with a later
-slice and raise ``NotImplementedError``.
+same weights. ``fp8=True`` runs every Linear but the lm_head as an fp8
+delayed-scaling GEMM (``amp/fp8.py``); the engine's model is in eval mode,
+so every call scales just in time.
 """
 from __future__ import annotations
 
@@ -302,9 +303,6 @@ class _ShedCounts:
         return repr(dict(self.items()))
 
 
-# the reference's keywords whose features arrive with later slices, each
-# with the value that means "off"
-_LATER_ENGINE_ARGS = {"fp8": False}
 _ROLES = ("unified", "prefill_only", "decode_only")
 
 _ENGINE_IDS = itertools.count(1)
@@ -419,14 +417,13 @@ class ContinuousBatchingEngine:
         deployment: "unified" (everything), "prefill_only" (no decode
         dispatches; finished prefills park handoff-ready) or "decode_only"
         (takes ``import_kv`` handoffs; otherwise a unified engine, the
-        colocated fallback). ``fp8`` arrives with a later slice."""
+        colocated fallback). ``fp8=True`` swaps every Linear except the
+        lm_head for an :class:`~..amp.fp8.Fp8Linear` before any program is
+        built (``fp8_layers`` counts them)."""
         if role not in _ROLES:
             raise ValueError(
                 f"role must be 'unified', 'prefill_only' or "
                 f"'decode_only', got {role!r}")
-        if fp8 != _LATER_ENGINE_ARGS["fp8"]:
-            raise NotImplementedError(
-                f"fp8={fp8!r} arrives with a later slice of the port")
         self.role = role
         # obs identity first: every MetricAttr write below routes into
         # registry series labeled engine=<id>
@@ -504,6 +501,15 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
         self.kv_dtype = kv_dtype
+        # fp8 GEMMs: swap every Linear (except the lm_head: its logits feed
+        # sampling, where fp8 costs measurable quality for one GEMM of
+        # savings) for Fp8Linear before any program is built
+        self.fp8 = bool(fp8)
+        if self.fp8:
+            from ..amp import convert_to_fp8
+
+            self.fp8_layers = convert_to_fp8(
+                model, exclude=lambda name: "lm_head" in name)
         self.spec_k = None if spec_decode_k is None else int(spec_decode_k)
         if self.spec_k is not None and self.spec_k < 1:
             raise ValueError(f"spec_decode_k must be >= 1, got {self.spec_k}")

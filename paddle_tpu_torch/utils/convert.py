@@ -1,7 +1,7 @@
 """Carry the JAX package's parameters into the port, name for name.
 
 The caller builds ``arrays`` from a ``paddle_tpu`` layer's
-``named_parameters()`` (or ``state_dict()``) with ``np.asarray``, so this
+``named_parameters()`` (or ``named_buffers()``) with ``np.asarray``, so this
 package never imports ``paddle_tpu``. Paddle's ``Linear`` weight layout
 ``[in, out]`` is kept by the port, so no array is transposed.
 """
@@ -12,7 +12,28 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "load_jax_buffers"]
+
+
+def _load_named(kind: str, named: Mapping[str, torch.Tensor],
+                arrays: Mapping[str, np.ndarray]) -> None:
+    missing = sorted(set(named) - set(arrays))
+    extra = sorted(set(arrays) - set(named))
+    if missing or extra:
+        raise KeyError(f"{kind} names differ: missing {missing}, "
+                       f"unexpected {extra}")
+    with torch.no_grad():
+        for name, t in named.items():
+            # a writable copy numpy can hand torch: f32 for floats (numpy
+            # has no bfloat16 torch can read), int64 for integers
+            a = np.array(arrays[name], dtype=(np.float32 if
+                                              t.is_floating_point()
+                                              else np.int64))
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: shape {tuple(a.shape)} != "
+                                 f"{tuple(t.shape)}")
+            # in place: the destination keeps its strides and address
+            t.copy_(torch.from_numpy(a).to(device=t.device, dtype=t.dtype))
 
 
 def load_jax_params(module: torch.nn.Module,
@@ -20,17 +41,12 @@ def load_jax_params(module: torch.nn.Module,
     """Copy ``arrays[name]`` into every parameter of ``module`` (cast to the
     parameter's dtype, on its device). Raises ``KeyError`` when a name is
     missing or left over, ``ValueError`` on a shape mismatch."""
-    params = dict(module.named_parameters())
-    missing = sorted(set(params) - set(arrays))
-    extra = sorted(set(arrays) - set(params))
-    if missing or extra:
-        raise KeyError(f"parameter names differ: missing {missing}, "
-                       f"unexpected {extra}")
-    with torch.no_grad():
-        for name, p in params.items():
-            # a writable f32 copy: numpy has no bfloat16 torch can read
-            a = np.array(arrays[name], dtype=np.float32)
-            if tuple(a.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(a.shape)} != "
-                                 f"{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(a).to(device=p.device, dtype=p.dtype))
+    _load_named("parameter", dict(module.named_parameters()), arrays)
+
+
+def load_jax_buffers(module: torch.nn.Module,
+                     arrays: Mapping[str, np.ndarray]) -> None:
+    """``load_jax_params`` for ``module.named_buffers()``: the fp8 amax
+    histories, int8 ``qweight``/``scale``, quanter state. The caller builds
+    ``arrays`` from the ``paddle_tpu`` layer's ``named_buffers()``."""
+    _load_named("buffer", dict(module.named_buffers()), arrays)

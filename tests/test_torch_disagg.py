@@ -318,10 +318,13 @@ def test_role_validation_and_fp8_still_refuses(pk):
         tserving.ContinuousBatchingEngine(
             tm, max_batch=1, max_len=16, block_size=8, num_blocks=4,
             role="both")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tserving.ContinuousBatchingEngine(
-            tm, max_batch=1, max_len=16, block_size=8, num_blocks=4,
-            fp8=True)
+    # fp8 arrived and composes with every role (a fresh model each: the
+    # engine converts its model's Linears in place)
+    for role in ("prefill_only", "decode_only"):
+        fm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+        assert tserving.ContinuousBatchingEngine(
+            fm, max_batch=1, max_len=16, block_size=8, num_blocks=4,
+            fp8=True, role=role).fp8_layers == 14
     for role in ("prefill_only", "decode_only", "unified"):
         assert tserving.ContinuousBatchingEngine(
             tm, max_batch=1, max_len=16, block_size=8, num_blocks=4,

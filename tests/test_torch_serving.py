@@ -105,8 +105,9 @@ def test_generate_matches_engine(models, kw):
 def test_later_slices_refuse():
     tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     base = dict(max_batch=1, max_len=32, block_size=8, num_blocks=4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ContinuousBatchingEngine(tm, **base, fp8=True)
+    # fp8 arrived: every Linear but the lm_head becomes an Fp8Linear
+    fm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    assert ContinuousBatchingEngine(fm, **base, fp8=True).fp8_layers == 14
     with pytest.raises(ValueError, match="role must be"):
         ContinuousBatchingEngine(tm, **base, role="both")
     eng = ContinuousBatchingEngine(tm, **base, prompt_pad=8)

@@ -18,6 +18,7 @@ from paddle_tpu.distributed import store as jstore
 from paddle_tpu.testing import chaos as jchaos
 from paddle_tpu_torch.distributed import store as tstore
 from paddle_tpu_torch.testing import chaos as tchaos
+from paddle_tpu_torch.utils.retries import BudgetExceeded
 
 
 @pytest.fixture(autouse=True)
@@ -164,3 +165,26 @@ def test_tcp_client_gives_up_on_a_dead_server():
         c.get("k")
     assert isinstance(e.value, (OSError, TimeoutError)) or \
         "budget" in str(e.value).lower()
+
+
+def test_tcp_client_keeps_one_connection():
+    """A client sends every request down one kept connection; one the
+    server has dropped is reopened, and a stopped server answers no open
+    connection."""
+    server = tstore.TCPStoreServer(host="127.0.0.1")
+    c = tstore.TCPKVStore("127.0.0.1", server.port, timeout=0.5)
+    try:
+        c.set("k", "v")
+        conn = c._conn
+        for i in range(50):
+            c.set(f"k{i}", str(i))
+        assert [c.get(f"k{i}") for i in range(50)] == \
+            [str(i) for i in range(50)]
+        assert c._conn is conn and len(server._conns) == 1
+        for s in list(server._conns):
+            s.shutdown(socket.SHUT_RDWR)
+        assert c.get("k") == "v" and c._conn is not conn
+    finally:
+        server.stop()
+    with pytest.raises(BudgetExceeded, match="ConnectionRefusedError"):
+        c.get("k")
