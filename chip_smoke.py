@@ -37,7 +37,12 @@ flagship's shapes against their plain versions (``torch._scaled_mm`` and
 (``amp.convert_to_fp8``, big_mfu_decomp.py's variant) against bf16 in
 turns, eager and captured, ``ContinuousBatchingEngine(fp8=True)`` against
 bf16 on phase 4's and phase 5b's workloads, and ``generate`` over int8 and
-int4 weight-only and llm.int8 models. Each main path runs
+int4 weight-only and llm.int8 models; and the serving control plane (phase
+15), ``benchmarks/loadgen.py``'s autoscale scenario: an open-loop trace
+over a ``ClusterRouter`` that a ``FleetAutoscaler`` grows from one replica
+to three under an ``AlertManager``'s TTFT burn rule, with capture events
+and the lock sanitizer on, then a drain whose victim is killed mid-drain
+and a retirement back to one replica. Each main path runs
 with every kernel launch count set to 0 just before it and read just
 after; a kernel
 of the path that did not launch, or launched another number of times than
@@ -59,7 +64,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
+import math
+import random
 import statistics
 import subprocess
 import sys
@@ -3351,6 +3359,11 @@ FP8_SERVE_ORDER = (("eager", ("bf16", "fp8")), ("captured", ("fp8", "bf16")),
 # 32; random weights leave near ties) (PERF.md §6): margins of 1.6x and
 # 3 more flips
 FP8_LOGIT_REL, FP8_ARGMAX_MIN = 0.12, 0.7
+# the KV write where many lanes share a cell (the rows pointed at the trash
+# block), repeated on the card: every write's pools bitwise the CPU's. Those
+# rows' activations enter fp8's per-tensor scales, so a write whose winner
+# varied from run to run made the fp8 streams vary with it
+FP8_TRASH_WRITE_REPS = 20
 # (d) generate (paged, B=16, prompt 128, +32) on Llama-542M converted three
 # ways; the last-logit norm-relative error against the bf16 model's. The
 # first card run gave int8 0.0175, int4 0.187, llm.int8 0.0317 (PERF.md
@@ -3712,6 +3725,40 @@ def fp8_train_phase(torch, np, dev, args, card, ids, labels):
     return bad + cb
 
 
+def trash_write_check(torch, dev, reps=FP8_TRASH_WRITE_REPS):
+    """The engine's KV write at the whole-prompt prefill's shape, with 15
+    of 16 rows pointed at the trash block (every lane of theirs shares a
+    cell with 63 others) and the live row running past its table: ``reps``
+    writes on the card into fresh zero pools, each against the CPU's.
+    Returns the number of writes whose pools differ bitwise from the
+    CPU's."""
+    from paddle_tpu_torch.ops.paged_attention import paged_write_kv
+
+    cfg = LLAMA_542M
+    b, s, bs = SERVE["max_batch"], SERVE["prompt_pad"], SERVE["block_size"]
+    kvh = cfg["num_key_value_heads"]
+    d = cfg["hidden_size"] // cfg["num_attention_heads"]
+    per_seq = s // bs
+    nb = per_seq + 1  # the live row's blocks, then the trash block
+    gen = torch.Generator(device="cpu").manual_seed(14)
+    kk, vv = (torch.randn(b, s, kvh, d, generator=gen).to(torch.bfloat16)
+              for _ in range(2))
+    tables = torch.full((b, per_seq), nb - 1, dtype=torch.int32)
+    tables[0] = torch.arange(per_seq)
+    cl = torch.zeros(b, dtype=torch.int32)
+    cl[0] = bs // 2  # the live row's tail runs past its table
+
+    def write(device):
+        kp = torch.zeros(kvh, nb, bs, d, dtype=torch.bfloat16, device=device)
+        vp = torch.zeros_like(kp)
+        paged_write_kv(kk.to(device), vv.to(device), kp, vp,
+                       tables.to(device), cl.to(device), s)
+        return torch.stack([kp, vp]).cpu()
+
+    want = write("cpu")
+    return sum(not torch.equal(write(dev), want) for _ in range(reps))
+
+
 def fp8_logit_check(torch, np, bf, f8, prompts):
     """Phase 4's prompts scored by both models, last position: the
     norm-relative error of the fp8 logits, argmax agreement, and the fp8
@@ -3744,6 +3791,13 @@ def fp8_serving_phase(torch, np, dev, args, card):
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.ops import kernels
 
+    trash_bad = trash_write_check(torch, dev)
+    print(f"phase 14(c) KV write with 15 of 16 rows on the trash block, "
+          f"[{SERVE['max_batch']}, {SERVE['prompt_pad']}] lanes: "
+          f"{FP8_TRASH_WRITE_REPS - trash_bad} of {FP8_TRASH_WRITE_REPS} "
+          f"card writes bitwise the CPU's [{card}]")
+    bad = [f"{trash_bad} of {FP8_TRASH_WRITE_REPS} KV writes with shared "
+           f"cells differ from the CPU's"] if trash_bad else []
     cfg = LlamaConfig(**LLAMA_542M)
     models = {}
     for name in ("bf16", "fp8"):
@@ -3752,7 +3806,7 @@ def fp8_serving_phase(torch, np, dev, args, card):
                                         dtype=torch.bfloat16).eval()
     L = cfg.num_hidden_layers
     prompts = serving_prompts(torch, args.seed, N_REQUESTS, cfg.vocab_size)
-    bad, runs, kept = [], {"bf16": [], "fp8": []}, {}
+    runs, kept = {"bf16": [], "fp8": []}, {}
     for kind, order in FP8_SERVE_ORDER:
         for name in order:
             r = loop_run(torch, models[name], kind, prompts, L,
@@ -3775,8 +3829,11 @@ def fp8_serving_phase(torch, np, dev, args, card):
                    f"{n_fp8} Fp8Linears in the model")
     for name, rs in runs.items():
         if any(r["tokens"] != rs[0]["tokens"] for r in rs):
+            diff = {r["kind"]: sum(t != rs[0]["tokens"][rid]
+                                   for rid, t in r["tokens"].items())
+                    for r in rs[1:]}
             bad.append(f"{name}: the eager, captured and overlap streams "
-                       f"differ")
+                       f"differ (requests departing from eager's: {diff})")
     agree = np.mean([a == b for rid, t in runs["fp8"][0]["tokens"].items()
                      for a, b in zip(t, runs["bf16"][0]["tokens"][rid])])
     # a replay of each captured engine's programs as its run left them:
@@ -3926,6 +3983,786 @@ def lowp_phase(torch, np, dev, args, card, ids, labels):
           f"(c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}")
     if bad:
         fail("phase 14: " + "; ".join(b[:300] for b in bad))
+
+
+# -- phase 15: an autoscaled fleet ---------------------------------------------
+# benchmarks/loadgen.py:499-700 (autoscale_smoke) on the port: an open-loop
+# trace over a 1..3-replica ClusterRouter grown by a FleetAutoscaler under a
+# TTFT burn-rate rule and the trace's own envelope as feed-forward, then a
+# drain whose first victim is killed mid-drain. The schedule generator and
+# its driver are copies of loadgen.py's (TraceSpec :70-93, generate_schedule
+# :118, schedule_json, feedforward_from_spec :178; RouterFront and
+# run_schedule :226-320), so this script imports nothing from benchmarks/;
+# tests/test_torch_slo.py holds the copy byte-equal to loadgen's.
+
+
+@dataclasses.dataclass
+class TraceSpec:
+    """The seeded workload shape (loadgen's)."""
+
+    seed: int = 0
+    n_requests: int = 48
+    duration_s: float = 8.0
+    burst_factor: float = 3.0
+    burst_frac: float = 0.15
+    diurnal_amp: float = 0.5
+    tenants: int = 3
+    zipf_s: float = 1.2
+    batch_frac: float = 0.25
+    prompt_len_median: float = 10.0
+    prompt_len_sigma: float = 0.5
+    prompt_len_max: int = 24
+    output_len_median: float = 6.0
+    output_len_sigma: float = 0.5
+    output_len_max: int = 12
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _zipf_cdf(n: int, s: float):
+    w = [1.0 / (k + 1) ** s for k in range(n)]
+    tot = sum(w)
+    acc, out = 0.0, []
+    for x in w:
+        acc += x / tot
+        out.append(acc)
+    return out
+
+
+def _burst_windows(rng, spec: TraceSpec):
+    """Seeded burst episodes covering ~burst_frac of the horizon."""
+    windows = []
+    covered, target = 0.0, spec.burst_frac * spec.duration_s
+    while covered < target:
+        width = rng.uniform(0.03, 0.10) * spec.duration_s
+        start = rng.uniform(0.0, spec.duration_s - width)
+        windows.append((start, start + width))
+        covered += width
+    return windows
+
+
+def generate_schedule(spec: TraceSpec):
+    """The open-loop arrival trace: Poisson arrivals thinned against a
+    diurnal x burst rate envelope, lognormal lengths, a zipf tenant mix,
+    all from one ``random.Random(seed)``."""
+    if not 0.0 <= spec.diurnal_amp < 1.0:
+        raise ValueError("diurnal_amp must be in [0, 1)")
+    rng = random.Random(spec.seed)
+    bursts = _burst_windows(rng, spec)
+    cdf = _zipf_cdf(spec.tenants, spec.zipf_s)
+    base_rate = spec.n_requests / spec.duration_s
+    rate_max = base_rate * (1.0 + spec.diurnal_amp) * spec.burst_factor
+
+    def rate(t: float) -> float:
+        r = base_rate * (1.0 + spec.diurnal_amp
+                         * math.sin(2.0 * math.pi * t / spec.duration_s))
+        if any(a <= (t % spec.duration_s) < b for a, b in bursts):
+            r *= spec.burst_factor
+        return r
+
+    def _length(median: float, sigma: float, cap: int) -> int:
+        v = rng.lognormvariate(math.log(median), sigma)
+        return max(1, min(int(cap), int(round(v))))
+
+    out = []
+    t = 0.0
+    while len(out) < spec.n_requests:
+        t += rng.expovariate(rate_max)
+        if rng.random() * rate_max > rate(t):
+            continue
+        u = rng.random()
+        tenant = next(k for k, c in enumerate(cdf) if u <= c)
+        out.append({
+            "i": len(out),
+            "req_id": f"lg-{spec.seed}-{len(out):04d}",
+            "t": round(t, 6),
+            "tenant": f"tenant{tenant}",
+            "priority": ("batch" if rng.random() < spec.batch_frac
+                         else "interactive"),
+            "prompt_len": _length(spec.prompt_len_median,
+                                  spec.prompt_len_sigma,
+                                  spec.prompt_len_max),
+            "max_new_tokens": _length(spec.output_len_median,
+                                      spec.output_len_sigma,
+                                      spec.output_len_max),
+            "prompt_seed": rng.getrandbits(32),
+        })
+    return out
+
+
+def schedule_json(spec: TraceSpec, schedule) -> str:
+    """Canonical bytes of the schedule (loadgen's schema name)."""
+    return json.dumps({"schema": "paddle_tpu.loadgen/1",
+                       "spec": spec.to_dict(), "schedule": schedule},
+                      sort_keys=True, indent=2)
+
+
+def feedforward_from_spec(spec: TraceSpec):
+    """The trace's rate envelope, ``t -> expected-rate multiple``, from the
+    same seeded burst windows as the schedule."""
+    rng = random.Random(spec.seed)
+    bursts = _burst_windows(rng, spec)
+
+    def multiple(t: float) -> float:
+        m = 1.0 + spec.diurnal_amp * math.sin(
+            2.0 * math.pi * t / spec.duration_s)
+        if any(a <= (t % spec.duration_s) < b for a, b in bursts):
+            m *= spec.burst_factor
+        return m
+
+    return multiple
+
+
+class RouterFront:
+    """Drive a ``ClusterRouter``; per-token times come from the replicas'
+    supervisors, status alone from the router's result records."""
+
+    def __init__(self, router):
+        self.router = router
+        self.results = {}
+
+    def submit(self, item: dict, prompt) -> None:
+        self.router.submit(
+            item["req_id"], prompt, item["max_new_tokens"],
+            priority=item["priority"], tenant=item["tenant"])
+
+    def pump(self) -> None:
+        for d in self.router.step():
+            self.results[d["req_id"]] = d
+
+    def unfinished(self, ids) -> int:
+        return sum(1 for r in ids if r not in self.results)
+
+    def harvest(self, ids):
+        by_id = {}
+        for w in self.router.replicas:
+            sup = getattr(w, "supervisor", None)
+            if sup is not None:
+                by_id.update(sup.results)
+        out = []
+        for rid in ids:
+            if rid in by_id:
+                out.append(by_id[rid])
+            elif rid in self.results:
+                d = dict(self.results[rid])
+                d.setdefault("times", [])
+                out.append(d)
+            else:
+                out.append(None)
+        return out
+
+
+def schedule_prompts(np, schedule, vocab_size):
+    """Each entry's prompt, from its own seed (loadgen's draw)."""
+    return {item["req_id"]: np.random.RandomState(
+        item["prompt_seed"] % (2 ** 32)).randint(
+            0, vocab_size, (item["prompt_len"],)).astype(np.int32)
+        for item in schedule}
+
+
+def run_schedule(front, schedule, prompts, on_tick, drain_s):
+    """Submit every entry at its arrival instant, pumping (and calling
+    ``on_tick``) between arrivals and never gating a submission on
+    completions; then drain (at most ``drain_s``). Returns
+    ``(records, wall_s)``."""
+    ids = [item["req_id"] for item in schedule]
+    t0 = time.perf_counter()
+    for item in schedule:
+        due = t0 + item["t"]
+        while time.perf_counter() < due:
+            front.pump()
+            on_tick()
+        front.submit(item, prompts[item["req_id"]])
+    t_drain = time.perf_counter()
+    while front.unfinished(ids):
+        if time.perf_counter() - t_drain > drain_s:
+            break
+        front.pump()
+        on_tick()
+    wall = time.perf_counter() - t0
+    return front.harvest(ids), wall
+
+
+def autoscale_trace_kwargs(seed: int) -> dict:
+    """loadgen's autoscale trace (60 requests over 10 s, 3 tenants, 4x
+    bursts over a fifth of the horizon) with its lengths scaled to the
+    shared-prefix cell: prompts median 256 (max 512), outputs median 24
+    (max 48)."""
+    return dict(seed=seed, n_requests=60, duration_s=10.0, tenants=3,
+                burst_factor=4.0, burst_frac=0.2,
+                prompt_len_median=256.0, prompt_len_sigma=0.5,
+                prompt_len_max=512, output_len_median=24.0,
+                output_len_sigma=0.5, output_len_max=48)
+
+
+# loadgen.py:636-645 (its time_scale 1)
+AUTOSCALE_CFG = dict(min_replicas=1, max_replicas=3, scale_up_cooldown_s=0.75,
+                     scale_down_cooldown_s=1.0, recover_budget_frac=0.2,
+                     recover_hold_s=0.75, spawn_backoff_s=0.25,
+                     drain_timeout_s=8.0, feedforward_headroom=0.3,
+                     evaluate_interval_s=0.2)
+# the controller's TTFT burn rule (loadgen.py:610-614: objective 0.5, one
+# 2 s window) at a target below any TTFT the card reaches, an exact bucket
+# bound: every first token counts against the budget, so the rule fires
+# whenever first tokens arrive, whatever their times (a chunked [8, 256]
+# prefill alone takes ~14 ms); 15(b) swaps in a target no TTFT reaches
+AUTOSCALE_FORCED_S = 2.0 ** -10
+AUTOSCALE_QUIET_S = 2.0 ** 6
+AUTOSCALE_DRAIN_S = 120.0  # bound on every wait of the phase
+AUTOSCALE_BACKLOG = 4  # 15(b): session-pinned requests per live replica
+AUTOSCALE_BACKLOG_NEW = 32
+AUTOSCALE_STEPS = 16  # 15(b): bound on the autoscaler steps of each wait
+PROGRAM_KINDS = ("prefill", "decode", "decode_chunk", "spec_verify")
+
+
+def engine_accounting(kernels, acc):
+    """Wrap an engine's ``step`` so that its launches and decode steps are
+    added to ``acc[engine id]`` (the launches a step's dispatches count,
+    captured replays included); the wrapper keeps no reference to
+    anything but the engine itself."""
+
+    def wrap(eng):
+        step, key = eng.step, eng._obs_id
+        acc[key] = {"launches": {}, "decode_steps": 0}
+
+        def counted(*a, **k):
+            c0, s0 = kernels.launch_counts(), eng.decode_steps
+            try:
+                return step(*a, **k)
+            finally:
+                rec = acc[key]
+                for n, d in kernels.count_delta(
+                        c0, kernels.launch_counts()).items():
+                    rec["launches"][n] = rec["launches"].get(n, 0) + d
+                rec["decode_steps"] += eng.decode_steps - s0
+
+        eng.step = counted
+        return eng
+
+    return wrap
+
+
+def per_engine_launch_failures(acc, per_step):
+    """Each engine's float paged-decode launches against ``per_step`` x its
+    decode steps, and no int8 launch (bf16 pools)."""
+    bad = []
+    for key, rec in sorted(acc.items()):
+        got = rec["launches"].get("paged_decode_attention", 0)
+        stray = rec["launches"].get("paged_decode_attention_int8", 0)
+        if got != per_step * rec["decode_steps"] or stray:
+            bad.append(f"{key}: {got} paged-decode launches for "
+                       f"{rec['decode_steps']} decode steps x {per_step}, "
+                       f"{stray} int8 launches")
+    return bad
+
+
+def capture_failures(obs, eng, per_kind):
+    """None when every program of ``eng`` was captured at most once, its
+    ``graph_captures_total`` (capture events named ``<engine id>:<program>``)
+    equals the graphs it holds, and a warmed-up engine holds ``per_kind``
+    graphs per kind of program it dispatched; else what it shows.
+    Also returns ``(captures, graphs, kinds)`` summed over the programs."""
+    m = obs.registry()._metrics.get("graph_captures_total")
+    by_program = {} if m is None else {
+        dict(labels).get("program"): int(h.value)
+        for labels, h in m.series.items()}
+    fns = (eng._prefill_fn, eng._decode_fn, eng._chunk_fn, eng._verify_fn)
+    got = [(by_program.get(fn.name, 0), len(fn._graphs)) for fn in fns]
+    captures = sum(c for c, _ in got)
+    graphs = sum(g for _, g in got)
+    kinds = len(eng._phases_run & set(PROGRAM_KINDS))
+    bad = any(c != g or g > 1 for c, g in got) or (
+        eng.warmed_up and graphs != per_kind * kinds)
+    err = (f"{eng._obs_id}: captures/graphs per program {got}, {kinds} "
+           f"program kinds run, warmed_up {eng.warmed_up}") if bad else None
+    return err, (captures, graphs, kinds)
+
+
+def fleet_oracle(np, model, engine_kw, reqs, prompts):
+    """Every request's stream from one unloaded engine of the same shape
+    (warmed as the replicas are: its programs captured)."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+
+    ref = ContinuousBatchingEngine(model, **engine_kw)
+    warm_engine(np, ref)
+    if ref.prefix_cache is not None:
+        ref.prefix_cache.clear()
+    for rid, n in reqs:
+        ref.add_request(rid, prompts[rid], max_new_tokens=n)
+    done = ref.run()
+    out = {rid: list(done[rid].out) for rid, _ in reqs}
+    del ref, done
+    return out
+
+
+CAPACITY_ORDER = (1, 3, 3, 1)  # 15(c): fixed fleets, in turns
+
+
+def fleet_capacity(np, model, engine_kw, schedule, prompts, want, card, sync):
+    """15(c): the trace's requests all submitted at once into fixed fleets of
+    1 and of 3 replicas (each engine warmed first), in CAPACITY_ORDER's
+    turns: wall to drain, decode tokens per wall second, TTFT p50/max.
+    Returns the failures (a request not ok, a stream other than the
+    unloaded engine's); the times are reported, not gated."""
+    import gc
+
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.cluster import (ClusterRouter,
+                                                    InProcessReplica)
+
+    failures, rows = [], []
+    for n in CAPACITY_ORDER:
+        reps = [InProcessReplica(
+            f"cap{n}-{i}", lambda: ContinuousBatchingEngine(model,
+                                                            **engine_kw))
+            for i in range(n)]
+        for rep in reps:
+            warm_engine(np, rep.supervisor.engine)
+        router = ClusterRouter(reps, block_size=engine_kw["block_size"])
+        sync()
+        t0 = time.perf_counter()
+        for item in schedule:
+            router.submit(item["req_id"], prompts[item["req_id"]],
+                          item["max_new_tokens"], priority=item["priority"],
+                          tenant=item["tenant"])
+        res = router.run(deadline=AUTOSCALE_DRAIN_S)
+        sync()
+        wall = time.perf_counter() - t0
+        reqs = [r for rep in reps for r in rep.supervisor.results.values()
+                if not isinstance(r.req_id, tuple)]
+        bad = [item["req_id"] for item in schedule
+               if res.get(item["req_id"], {}).get("status") != "ok"
+               or list(res[item["req_id"]]["out"]) != want[item["req_id"]]]
+        if bad:
+            failures.append(f"15(c) {n} replicas: {len(bad)} requests not ok "
+                            f"or not the unloaded engine's: {bad[:6]}")
+        ttfts = sorted(r.ttft() for r in reqs if r.times)
+        rows.append((n, wall, sum(len(r.out) - 1 for r in reqs) / wall,
+                     ttfts[len(ttfts) // 2], ttfts[-1]))
+        router.stop()
+        del reps, router, reqs, res
+        gc.collect()
+    print(f"phase 15(c) capacity, the trace's {len(schedule)} requests at "
+          f"once into a fixed fleet, in turns: " + "; ".join(
+              f"{n} replica{'s' if n > 1 else ''} wall {w:.3f} s, "
+              f"{tps:.1f} decode tokens/s, TTFT p50/max {p50 * 1e3:.1f}/"
+              f"{pmax * 1e3:.1f} ms" for n, w, tps, p50, pmax in rows)
+          + f" [{card}]")
+    return failures
+
+
+def autoscale_phase(torch, np, dev, args, card, trace_kw=None,
+                    capacity=True):
+    """Phase 15: loadgen's autoscale scenario on the port at full width
+    (``trace_kw`` shortens the trace).
+
+    (a) An open-loop trace over a ``ClusterRouter`` that starts with one
+    ``InProcessReplica`` (journaled, the shared-prefix cell's engine), a
+    ``FleetAutoscaler`` ticked beside every pump, its ``AlertManager`` (the
+    process default, so ``router.health()`` shows it) holding a TTFT burn
+    rule that every first token breaches; capture events installed and the
+    lock sanitizer on. (b) A session-pinned backlog on every live replica, a
+    rule that cannot fire, the autoscaler stepped on an explicit clock until
+    a drain starts; chaos kills the first victim mid-drain; the router's
+    recovery finishes its accepted work; the autoscaler retires the fleet
+    down to one replica, whose retired and killed engines are then freed.
+    Every gate is an outcome the forced and quiet thresholds fix; times are
+    reported, never gated. (c), unless ``capacity`` is false: the trace's
+    requests at once into fixed fleets (``fleet_capacity``). Returns the
+    launch counts of (a)."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    import weakref
+    from collections import Counter
+
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.autoscale import (AutoscalerConfig,
+                                                      FleetAutoscaler)
+    from paddle_tpu_torch.inference.cluster import (ClusterRouter,
+                                                    InProcessReplica)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.obs import alerts, slo
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.testing import chaos
+    from paddle_tpu_torch.utils import locks
+
+    cuda = dev.type == "cuda"
+    # what the gates expect a step and a program kind to leave: on the CPU
+    # the wrappers run their plain versions (no launch) and nothing is
+    # captured
+    per_kind = 1 if cuda else 0
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    engine_kw = dict(PREFIX_SERVE)
+    spec = TraceSpec(**(trace_kw or autoscale_trace_kwargs(args.seed)))
+    schedule = generate_schedule(spec)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+    t_phase = time.perf_counter()
+    locks.reset()
+    locks.instrument_locks()  # before any lock of the fleet is made
+    obs.install_compile_events()
+    old_manager = alerts.set_default_manager(None)
+    journals = tempfile.mkdtemp(prefix="chip-smoke-ascale-")
+    try:
+        pt_seed(args.seed)
+        cfg = LlamaConfig(**LLAMA_542M)
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+        model.eval()
+        per_step = per_kind * cfg.num_hidden_layers  # paged-decode launches
+        prompts = schedule_prompts(np, schedule, cfg.vocab_size)
+        acc = {}
+        account = engine_accounting(kernels, acc)
+        engines = {}  # engine id -> weak reference
+        replica_engine = {}  # replica id -> engine id
+
+        def make_engine():
+            eng = account(ContinuousBatchingEngine(model, **engine_kw))
+            engines[eng._obs_id] = weakref.ref(eng)
+            return eng
+
+        def replica_factory(rid):
+            rep = InProcessReplica(rid, make_engine,
+                                   journal_dir=os.path.join(journals, rid))
+            replica_engine[rid] = rep.supervisor.engine._obs_id
+            return rep
+
+        # the seed replica, warmed outside the counted run as phase 5b's
+        seed_rep = replica_factory("seed0")
+        warm_engine(np, seed_rep.supervisor.engine)
+        seed_rep.supervisor.engine.prefix_cache.clear()
+        for rec in acc.values():  # the warm-up is not the counted run
+            rec["launches"].clear()
+            rec["decode_steps"] = 0
+        router = ClusterRouter([seed_rep], block_size=engine_kw["block_size"])
+        front = RouterFront(router)
+        mgr = alerts.AlertManager([alerts.BurnRateRule(
+            "ttft_burn_fast", "serving_ttft_seconds", objective=0.5,
+            threshold_s=AUTOSCALE_FORCED_S, windows=((2.0, 1.0),),
+            resolve_for_s=0.25)], emit_trace=False)
+        alerts.set_default_manager(mgr)
+        envelope = feedforward_from_spec(spec)
+        t0_cell = [None]
+
+        def feedforward(now):
+            if t0_cell[0] is None:
+                return 1.0
+            t = now - t0_cell[0]
+            return 1.0 if t >= spec.duration_s else envelope(t)
+
+        scaler = FleetAutoscaler(router, replica_factory,
+                                 config=AutoscalerConfig(**AUTOSCALE_CFG),
+                                 alerts=mgr, feedforward=feedforward,
+                                 clock=time.perf_counter)
+        peak, firing_seen, last_tick = [1], [0], [0.0]
+
+        def on_tick():
+            now = time.perf_counter()
+            if now - last_tick[0] < 0.05:
+                return
+            last_tick[0] = now
+            rec = scaler.step(now)
+            peak[0] = max(peak[0], int(rec["live"]))
+            firing_seen[0] = max(firing_seen[0],
+                                 router.health()["alerts"]["firing"])
+
+        # -- 15(a) --------------------------------------------------------------
+        kernels.reset_launch_counts()
+        t0_cell[0] = time.perf_counter()
+        recs, wall = run_schedule(front, schedule, prompts, on_tick,
+                                  AUTOSCALE_DRAIN_S)
+        sync()
+        t0_cell[0] = None
+        counts_a = kernels.launch_counts()
+        failures = []
+        ids = [item["req_id"] for item in schedule]
+        status = {rid: front.results.get(rid, {}).get("status", "lost")
+                  for rid in ids}
+        if any(s != "ok" for s in status.values()):
+            failures.append(f"not every request ended ok: "
+                            f"{dict(Counter(status.values()))}")
+        if peak[0] != AUTOSCALE_CFG["max_replicas"]:
+            failures.append(f"the fleet peaked at {peak[0]} live replicas, "
+                            f"not {AUTOSCALE_CFG['max_replicas']}")
+        if firing_seen[0] < 1:
+            failures.append("router.health() never showed the burn rule "
+                            "firing")
+        launch_bad = per_engine_launch_failures(acc, per_step)
+        total_pd = sum(r["launches"].get("paged_decode_attention", 0)
+                       for r in acc.values())
+        if counts_a.get("paged_decode_attention", 0) != total_pd:
+            launch_bad.append(
+                f"{counts_a.get('paged_decode_attention', 0)} paged-decode "
+                f"launches in all, {total_pd} inside the engines' steps")
+        failures += launch_bad
+        live_engines = [rep.supervisor.engine for i, rep in
+                        enumerate(router.replicas) if i not in router.dead]
+        caps = {}
+        for e in live_engines:
+            err, caps[e._obs_id] = capture_failures(obs, e, per_kind)
+            if err:
+                failures.append(err)
+        seed_caps = caps[replica_engine["seed0"]]
+        if seed_caps[1] != 2 * per_kind:
+            failures.append(f"the warmed seed replica holds {seed_caps[1]} "
+                            f"graphs, not one prefill and one decode")
+        del live_engines, e
+        ok_ids = [rid for rid in ids if status[rid] == "ok"]
+        streams = {rid: list(front.results[rid]["out"]) for rid in ok_ids}
+        want = fleet_oracle(np, model, engine_kw,
+                            [(item["req_id"], item["max_new_tokens"])
+                             for item in schedule], prompts)
+        differ = [rid for rid in ok_ids if streams[rid] != want[rid]]
+        if differ:
+            failures.append(f"{len(differ)} of {len(ok_ids)} ok streams "
+                            f"differ from the unloaded engine's: {differ[:6]}")
+        if locks.violation_count():
+            failures.append(f"{locks.violation_count()} lock-order "
+                            f"violations")
+        graded = [r if r is not None else
+                  {"req_id": item["req_id"], "tenant": item["tenant"],
+                   "priority": item["priority"], "status": "lost",
+                   "t_submit": 0.0, "times": [], "out": []}
+                  for r, item in zip(recs, schedule)]
+        report = slo.attainment_report(
+            graded, slo.SLOSpec(default=slo.SLOClass(
+                ttft_s=8.0, itl_p95_s=2.0, e2e_s=20.0),
+                per_priority={"batch": slo.SLOClass(ttft_s=15.0,
+                                                    e2e_s=30.0)}),
+            wall, extra={"trace_spec": spec.to_dict()})
+        ov = report["overall"]
+        # (each spawn leaves its own record, with the replica, beside the
+        # step's summary record)
+        spawns = [d for d in scaler.decisions
+                  if d["action"] == "scale-up" and "replica" in d]
+        capture_s = obs.registry()._metrics.get("graph_capture_seconds")
+        firsts = {}
+        for d in spawns:
+            rep = router.replicas[d["index"]]
+            t_first = [r.times[0] for r in rep.supervisor.results.values()
+                       if r.times]
+            eid = replica_engine[d["replica"]]
+            cap_s = sum(
+                h.sum for labels, h in
+                (capture_s.series.items() if capture_s else ())
+                if dict(labels)["program"].startswith(f"{eid}:"))
+            firsts[d["replica"]] = (
+                (min(t_first) - d["t"]) if t_first else None, cap_s,
+                d["reason"])
+        actions = {}
+        for d in scaler.decisions:
+            if "live" not in d:  # the actions' own records
+                actions[d["action"]] = actions.get(d["action"], 0) + 1
+        print(f"phase 15(a) autoscaled fleet, Llama-542M bf16, "
+              f"{spec.n_requests} requests over {spec.duration_s:g} s "
+              f"(loadgen's autoscale trace, seed {spec.seed}; prompts median "
+              f"{spec.prompt_len_median:g} max {spec.prompt_len_max}, outputs "
+              f"median {spec.output_len_median:g} max {spec.output_len_max}), "
+              f"the shared-prefix cell's engine per replica: wall "
+              f"{wall:.3f} s, statuses {ov['statuses']}, peak "
+              f"{peak[0]} live replicas, decisions {actions}, replica-seconds "
+              f"{scaler.replica_seconds:.3f}, TTFT p50/p99 "
+              f"{ov['ttft']['p50']}/{ov['ttft']['p99']} s, burn rule firing "
+              f"seen in router.health() {firing_seen[0]}, lock-order "
+              f"violations {locks.violation_count()} [{card}]")
+        for rid, (first, cap_s, reason) in firsts.items():
+            print(f"phase 15(a) spawn {rid} ({reason}): first token "
+                  + (f"{first * 1e3:.1f} ms" if first is not None else "none")
+                  + f" after the spawn decision, its captures "
+                  f"{cap_s * 1e3:.1f} ms [{card}]")
+        print(f"phase 15(a) per engine: " + ", ".join(
+            f"{k} {r['decode_steps']} decode steps "
+            f"{r['launches'].get('paged_decode_attention', 0)} paged-decode "
+            f"launches" for k, r in sorted(acc.items()))
+              + f"; captures/graphs/program kinds {caps}; counts "
+              f"{json.dumps(counts_a)}; {len(ok_ids)} ok streams bitwise "
+              f"the unloaded engine's: {not differ}")
+        print("phase 15(a) SLO report (obs.slo.attainment_report), overall: "
+              + json.dumps({k: ov[k] for k in (
+                  "requests", "statuses", "ttft", "itl_p95", "e2e",
+                  "attainment", "goodput_tokens_per_s")}, sort_keys=True)
+              + "; tenants: " + json.dumps(
+                  {t: {"requests": row["requests"],
+                       "ttft_p99": row["ttft"]["p99"],
+                       "attainment_all": row["attainment"]["all"]}
+                   for t, row in report["tenants"].items()}, sort_keys=True))
+        if failures:
+            fail("phase 15(a): " + "; ".join(failures)
+                 + f"; decisions {scaler.decisions}")
+
+        # -- 15(b) --------------------------------------------------------------
+        mgr_b = alerts.AlertManager([alerts.BurnRateRule(
+            "ttft_burn_fast", "serving_ttft_seconds", objective=0.5,
+            threshold_s=AUTOSCALE_QUIET_S, windows=((2.0, 1.0),),
+            resolve_for_s=0.25)], emit_trace=False)
+        alerts.set_default_manager(mgr_b)
+        scaler.alerts = mgr_b
+        rng = np.random.RandomState(args.seed + 15)
+        live = [i for i in range(len(router.replicas)) if i not in router.dead]
+        for i in live:
+            # the idle replicas' cached prefixes pin blocks, which the
+            # router reads as load: drop them, so that each new session
+            # goes to a replica no other session holds
+            cache = router.replicas[i].supervisor.engine.prefix_cache
+            if cache is not None:
+                cache.clear()
+        del cache
+        backlog, prompts_b = [], {}
+        for n, idx in enumerate(live):
+            sess = f"drain-s{n}"
+            for j in range(AUTOSCALE_BACKLOG):
+                item = schedule[(n * AUTOSCALE_BACKLOG + j) % len(schedule)]
+                rid = f"drain-{n}-{j}"
+                prompts_b[rid] = rng.randint(
+                    0, cfg.vocab_size, (item["prompt_len"],)).astype(np.int32)
+                router.submit(rid, prompts_b[rid],
+                              max_new_tokens=AUTOSCALE_BACKLOG_NEW,
+                              session=sess)
+                backlog.append(rid)
+        placed = sorted({router._sessions[f"drain-s{n}"]
+                         for n in range(len(live))})
+        failures = []
+        if placed != live:
+            failures.append(f"the sessions landed on {placed}, not on every "
+                            f"live replica {live}")
+        for i in live:
+            acc[router.replicas[i].supervisor.engine._obs_id] = {
+                "launches": {}, "decode_steps": 0}
+        chaos.install(chaos.ChaosSchedule(seed=args.seed)
+                      .at("scale.drain", 1, "drop"))
+        try:
+            kernels.reset_launch_counts()
+            t = time.perf_counter()
+            victim = held = None
+            for _ in range(AUTOSCALE_STEPS):
+                t += 1.0
+                rec = scaler.step(t)
+                if rec["action"] == "drain-start":
+                    victim = scaler.decisions[-2]["index"]  # its own record
+                    held = router.inflight_on(victim)
+                    break
+            if victim is None:
+                fail(f"phase 15(b): no drain started within "
+                     f"{AUTOSCALE_STEPS} steps; decisions {scaler.decisions}")
+            killed = not router.replicas[victim].alive()
+            victim_rid = router.replicas[victim].replica_id
+            res = router.run(deadline=AUTOSCALE_DRAIN_S)
+            t += 1.0
+            scaler.step(t)
+            retire_steps = 0
+            while len(scaler._live_idxs()) > AUTOSCALE_CFG["min_replicas"] \
+                    or scaler._draining:
+                if retire_steps >= AUTOSCALE_STEPS:
+                    break
+                router.step()
+                t += 1.0
+                scaler.step(t)
+                retire_steps += 1
+            sync()
+        finally:
+            chaos.uninstall()
+        counts_b = kernels.launch_counts()
+        acts = [d["action"] for d in scaler.decisions]
+        if not killed or held is None or held < 1:
+            failures.append(f"the drain victim {victim} was "
+                            f"{'killed' if killed else 'not killed'} holding "
+                            f"{held} accepted unfinished requests")
+        st_b = {rid: res.get(rid, {}).get("status", "lost")
+                for rid in backlog}
+        if any(s != "ok" for s in st_b.values()):
+            failures.append(f"backlog statuses {st_b}")
+        if router.n_recoveries != 1 or router.poisoned_ids:
+            failures.append(f"recoveries {router.n_recoveries}, poisoned "
+                            f"{router.poisoned_ids}")
+        if "drain-died" not in acts:
+            failures.append("no drain-died decision")
+        live_end = scaler._live_idxs()
+        if len(live_end) != AUTOSCALE_CFG["min_replicas"] or scaler._draining:
+            failures.append(f"{len(live_end)} live replicas and drains "
+                            f"{sorted(scaler._draining)} after "
+                            f"{retire_steps} steps")
+        streams_b = {rid: list(res[rid]["out"]) for rid in backlog
+                     if st_b[rid] == "ok"}
+        want_b = fleet_oracle(np, model, engine_kw,
+                              [(rid, AUTOSCALE_BACKLOG_NEW)
+                               for rid in streams_b], prompts_b)
+        differ_b = [rid for rid in streams_b if streams_b[rid] != want_b[rid]]
+        if differ_b:
+            failures.append(f"{len(differ_b)} backlog streams differ from "
+                            f"the unloaded engine's: {differ_b}")
+        launch_bad = per_engine_launch_failures(acc, per_step)
+        total_b = sum(r["launches"].get("paged_decode_attention", 0)
+                      for r in acc.values())
+        if counts_b.get("paged_decode_attention", 0) != total_b:
+            launch_bad.append(
+                f"{counts_b.get('paged_decode_attention', 0)} paged-decode "
+                f"launches in all, {total_b} inside the engines' steps")
+        failures += launch_bad
+        if live_end:
+            survivor = router.replicas[live_end[0]].supervisor.engine
+            err, _ = capture_failures(obs, survivor, per_kind)
+            if err:
+                failures.append(f"the survivor {err}")
+            survivor_id = survivor._obs_id
+            del survivor
+        else:
+            survivor_id = None
+        del rec, res
+        gc.collect()
+        alive = sorted(k for k, ref in engines.items()
+                       if ref() is not None and k != survivor_id)
+        if alive:
+            failures.append(f"engines of retired or killed replicas still "
+                            f"alive after gc.collect(): {alive}")
+        if locks.violation_count():
+            failures.append(f"{locks.violation_count()} lock-order "
+                            f"violations")
+        print(f"phase 15(b) drain, kill mid-drain, retire: backlog "
+              f"{len(backlog)} requests ({AUTOSCALE_BACKLOG} session-pinned "
+              f"on each of {len(live)} replicas, {AUTOSCALE_BACKLOG_NEW} new "
+              f"tokens), victim {victim_rid} killed mid-drain holding {held} "
+              f"accepted unfinished requests, statuses "
+              f"{dict(Counter(st_b.values()))}, "
+              f"recoveries {router.n_recoveries}, poisoned "
+              f"{router.poisoned_ids}, bitwise the unloaded engine's: "
+              f"{not differ_b}; retired down to {len(live_end)} replica in "
+              f"{retire_steps} steps; decisions {acts}; engines freed "
+              f"{len(engines) - 1 - len(alive)} of {len(engines) - 1}; "
+              f"replica-seconds {scaler.replica_seconds:.3f}; per engine "
+              + ", ".join(f"{k} {r['decode_steps']} decode steps "
+                          f"{r['launches'].get('paged_decode_attention', 0)}"
+                          f" launches" for k, r in sorted(acc.items())
+                          if r["decode_steps"])
+              + f"; lock-order violations {locks.violation_count()}, lock "
+              f"order edges {len(locks.lock_order_edges())}"
+              + (f"; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+                 f" GB ({mem0 / 1e9:.2f} GB allocated before the phase)"
+                 if cuda else "")
+              + f"; phase 15 {time.perf_counter() - t_phase:.1f} s [{card}]")
+        if failures:
+            fail("phase 15(b): " + "; ".join(failures)
+                 + f"; decisions {scaler.decisions}")
+        router.stop()
+        del router, front, scaler, seed_rep
+        if capacity:
+            failures = fleet_capacity(np, model, engine_kw, schedule,
+                                      prompts, want, card, sync)
+            if locks.violation_count():
+                failures.append(f"{locks.violation_count()} lock-order "
+                                f"violations")
+            if failures:
+                fail("phase 15(c): " + "; ".join(failures))
+        return counts_a
+    finally:
+        alerts.set_default_manager(old_manager)
+        obs.uninstall_compile_events()
+        locks.uninstrument_locks()
+        shutil.rmtree(journals, ignore_errors=True)
 
 
 def kernel_class(name: str) -> str:
@@ -4571,6 +5408,12 @@ def main() -> int:
     starts.append(("14", time.perf_counter() - t_start))
     # -- phase 14: low-precision GEMMs ------------------------------------------
     lowp_phase(torch, np, dev, args, card, ids, labels)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    starts.append(("15", time.perf_counter() - t_start))
+    # -- phase 15: an autoscaled fleet ------------------------------------------
+    autoscale_phase(torch, np, dev, args, card)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -102,7 +102,7 @@ tokens against the unified engine's streams):
 The low-precision GEMMs, the same way, each variant through phase 14's
 gates (``chip_smoke.fp8_gemm_failures`` at three of phase 14(a)'s shapes,
 ``chip_smoke.fp8_capture_failures``: the fp8 train step at two layers of
-full width captured against eager, and
+full width captured against eager, ``chip_smoke.trash_write_check``, and
 ``chip_smoke.lowp_generate_failures`` for int4 weight-only ``generate``):
 
 - ``fp8 forward divides by one scale only``: the forward divides the f32
@@ -113,7 +113,27 @@ full width captured against eager, and
   ones; phase 14(b)'s history gates (address kept, one entry a forward)
   must refuse it;
 - ``int4 nibbles unpacked in swapped order``: ``_unpack_int4`` puts each
-  byte's high nibble first; phase 14(d)'s last-logit gate must refuse it.
+  byte's high nibble first; phase 14(d)'s last-logit gate must refuse it;
+- ``KV write lanes sharing a cell race``: ``paged_write_kv`` lets every
+  lane write its own value, so the lanes of rows on the trash block race
+  for its cells; phase 14(c)'s write gate (``chip_smoke.trash_write_check``:
+  repeated writes bitwise the CPU's) must refuse it.
+
+The serving control plane, the same way, each variant through phase 15's
+gates (``chip_smoke.autoscale_phase``: the autoscaled fleet at full width
+over phase 15's trace cut to 30 requests over 5 s):
+
+- ``kill() leaves the replica alive``: ``InProcessReplica.kill`` does
+  nothing, so the drain victim is never killed; 15(b)'s kill, recovery
+  and ``drain-died`` gates must refuse it;
+- ``recovery skips the journal requeue``: the router's recovery drops the
+  dead replica's accepted work instead of requeueing it; 15(b)'s every-
+  request-ok gate must refuse it;
+- ``capture listener never fires``: ``jit`` calls no capture listener;
+  15(a)'s captures-equal-graphs gate must refuse it;
+- ``retire_replica keeps a reference to the engine``: the router keeps
+  each retired replica's engine; 15(b)'s freed-engines gate must refuse
+  it.
 
 Each variant runs through the kernel's own wrapper (``paged_decode`` and
 ``paged_decode_int8`` for the decode, ``fused_adamw_multi_update`` for
@@ -129,6 +149,7 @@ mutants refused. Needs an NVIDIA card and ``nvcc``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import shutil
@@ -498,7 +519,41 @@ LOWP_MUTANTS = {
     "int4 nibbles unpacked in swapped order": (
         "paddle_tpu_torch.nn.quant", "_unpack_int4", [(
             "torch.stack([lo, hi], dim=1)", "torch.stack([hi, lo], dim=1)")]),
+    "KV write lanes sharing a cell race": (
+        "paddle_tpu_torch.ops.paged_attention", "paged_write_kv", [(
+            "        vals = vals.reshape(vals.shape[0], b * s, "
+            "*vals.shape[3:])[:, src]\n"
+            "        vals = vals.reshape(vals.shape[0], b, s, "
+            "*vals.shape[2:])\n", "")]),
 }
+# the serving control plane (phase 15), in HOST_MUTANTS' form
+CONTROL_MUTANTS = {
+    "as is": None,
+    "kill() leaves the replica alive": (
+        "paddle_tpu_torch.inference.cluster", "InProcessReplica.kill", [(
+            "    self._dead = True\n    self.supervisor.close()",
+            "    pass")]),
+    "recovery skips the journal requeue": (
+        "paddle_tpu_torch.inference.cluster",
+        "ClusterRouter.recover_replica", [(
+            "    for rid, rec in pending.items():",
+            "    for rid in pending:\n"
+            "        self.inflight.pop(rid, None)\n"
+            "    for rid, rec in {}.items():")]),
+    "capture listener never fires": (
+        "paddle_tpu_torch.jit", "_notify_capture", [(
+            "    for fn in list(_capture_listeners):\n        fn(name, seconds)",
+            "    return")]),
+    "retire_replica keeps a reference to the engine": (
+        "paddle_tpu_torch.inference.cluster",
+        "ClusterRouter.retire_replica", [(
+            "    try:\n        rep.stop(deadline=deadline)",
+            "    self.__dict__.setdefault('_kept', []).append(\n"
+            "        rep.supervisor.engine)\n"
+            "    try:\n        rep.stop(deadline=deadline)")]),
+}
+# control_mutants' trace: phase 15's, shortened (the gates count no requests)
+CONTROL_TRACE = dict(n_requests=30, duration_s=5.0)
 # lowp_mutants' GEMM shapes: a train/prefill shape, a decode's and the odd
 LOWP_MUTANT_SHAPES = (cs.LOWP_GEMM_SHAPES[0],) + cs.LOWP_GEMM_SHAPES[-2:]
 
@@ -650,6 +705,9 @@ def lowp_mutants(torch, np, dev, args, card, ids):
                         show=False)),
                     ("14(b)", lambda: cs.fp8_capture_failures(
                         torch, dev, args.seed, ids, ids)[0]),
+                    ("14(c)", lambda: [f"{n} KV writes differ from the "
+                                       f"CPU's"] if (n := cs.trash_write_check(
+                                           torch, dev)) else []),
                     ("14(d)", lambda: cs.lowp_generate_failures(
                         torch, np, dev, args, card, kinds=("int4",)))):
                 try:
@@ -670,6 +728,42 @@ def lowp_mutants(torch, np, dev, args, card, ids):
               f"{'; '.join(b[:200] for b in bad[:3]) if bad else 'pass'} -> "
               f"{'FAIL' if bad else 'pass'} [{card}]")
     return ok, refused, len(LOWP_MUTANTS) - 1
+
+
+def control_mutants(torch, np, dev, args, card):
+    """Every control-plane variant through phase 15's gates
+    (``chip_smoke.autoscale_phase`` at full width, over a shortened trace).
+    Returns (ok, refused, mutants counted)."""
+    import io
+
+    trace = dict(cs.autoscale_trace_kwargs(args.seed), **CONTROL_TRACE)
+    ok, refused = True, []
+    for name in CONTROL_MUTANTS:
+        restore = (lambda: None) if CONTROL_MUTANTS[name] is None else \
+            host_variant(name, CONTROL_MUTANTS)
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                cs.autoscale_phase(torch, np, dev, args, card,
+                                   trace_kw=trace, capacity=False)
+            bad = None
+        except SystemExit as e:  # chip_smoke.fail: a gate refused it
+            bad = str(e)
+        except Exception as e:  # noqa: BLE001 - a crash refuses too
+            bad = f"phase 15 raised {e!r}"
+        finally:
+            restore()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        if name == "as is":
+            ok &= bad is None
+        elif bad:
+            refused.append(f"control plane: {name}")
+        else:
+            ok = False
+        print(f"control {name}: {bad[:400] if bad else 'pass'} -> "
+              f"{'FAIL' if bad else 'pass'} [{card}]")
+    return ok, refused, len(CONTROL_MUTANTS) - 1
 
 
 def main() -> int:
@@ -715,6 +809,7 @@ def main() -> int:
 
         results.append(host_mutants(torch, np, dev, args, card))
         results.append(disagg_mutants(torch, np, dev, args, card))
+        results.append(control_mutants(torch, np, dev, args, card))
     finally:
         for lib_name in MUTANTS:
             kernels._libs.pop(lib_name, None)

@@ -1,8 +1,8 @@
 """Cluster serving: a replica router with prefix-cache-aware scheduling
 (counterpart of ``paddle_tpu/inference/cluster.py``, copied over the
 port's supervisor, engine and stores; the wire records are the
-reference's). The reference's serve loops also tick the process's alert
-rules; ``obs/alerts`` is not ported yet, so no rule exists to tick.
+reference's). A replica's serve loop ticks the process's alert rules at
+the cadence it publishes its registry.
 
 One :class:`~.serving.ContinuousBatchingEngine` is
 deep but narrow — "millions of users" means a FLEET of engine replicas
@@ -144,7 +144,10 @@ class InProcessReplica:
     """A supervised engine in THIS process. ``journal_dir`` makes its
     accepted work recoverable by the router exactly like a process
     replica's; ``kill()`` is the fault hook tests/operators use to take
-    it out of rotation (the router then runs journal recovery)."""
+    it out of rotation (the router then runs journal recovery). A killed
+    or stopped replica drops its engine (``ServingSupervisor.close``), so
+    its KV pools and captured graphs are freed as a dead process's would
+    be; its harvested results stay readable."""
 
     def __init__(self, replica_id: str, engine_factory, *,
                  journal_dir: Optional[str] = None, **supervisor_kwargs):
@@ -162,6 +165,7 @@ class InProcessReplica:
         """Simulate replica death: no further pumps; pending work is
         recovered by the router from the journal / its routing table."""
         self._dead = True
+        self.supervisor.close()
 
     def submit(self, rec: dict) -> None:
         self.supervisor.submit(
@@ -184,7 +188,11 @@ class InProcessReplica:
         return out
 
     def load(self) -> Optional[dict]:
+        """The engine's load and prefix stats; None once the replica was
+        killed or stopped (its engine is freed)."""
         eng = self.supervisor.engine
+        if eng is None:
+            return None
         d = eng.load().as_dict()
         d["prefix"] = eng.prefix_stats()
         return d
@@ -201,6 +209,7 @@ class InProcessReplica:
     def stop(self, deadline: Optional[Deadline] = None) -> None:
         del deadline
         self._dead = True
+        self.supervisor.close()
 
 
 class ProcessReplica:
@@ -355,6 +364,11 @@ class ReplicaServer:
         self._hb += 1
         self.store.set(self.ns + "/hb", str(self._hb))
         self._obs_pub.maybe_publish()
+        # tick the local alert rules at the cadence the registry is
+        # published: a replica's own burn-rate / queue alerts fire here
+        # and ride the next publication fleet-wide
+        _obs.default_manager().maybe_evaluate(
+            min_interval_s=self._obs_pub.interval_s)
 
     def serve(self, deadline=None) -> None:
         """Serve until ``stop`` is posted or the Deadline runs out.

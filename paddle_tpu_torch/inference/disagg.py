@@ -1287,6 +1287,8 @@ class DisaggServer:
         self._hb += 1
         self.store.set(self.ns + "/hb", str(self._hb))
         self._obs_pub.maybe_publish()
+        _obs.default_manager().maybe_evaluate(
+            min_interval_s=self._obs_pub.interval_s)
 
     def serve(self, deadline=None) -> None:
         """Serve until ``stop`` is posted or the Deadline runs out;

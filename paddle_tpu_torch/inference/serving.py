@@ -566,6 +566,11 @@ class ContinuousBatchingEngine:
             jit.to_static(fn, layers=[model], full_graph=True)
             for fn in (self._prefill_program, self._decode_program,
                        self._chunk_program, self._verify_program))
+        # capture events name each program after its engine
+        # (obs.install_compile_events: graph_captures_total{program})
+        for sf in (self._prefill_fn, self._decode_fn, self._chunk_fn,
+                   self._verify_fn):
+            sf.name = f"{self._obs_id}:{sf._fn.__name__}"
 
         # host/device pipelining (overlap mode)
         self.overlap = bool(overlap)

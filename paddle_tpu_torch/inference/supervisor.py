@@ -597,6 +597,19 @@ class ServingSupervisor:
             self._finish(r)
         return []
 
+    def close(self) -> None:
+        """Retire the step thread and drop the engine, so its pools and
+        captured graphs are freed once nothing else holds it (a replica
+        that died or retired holds no device memory, as a dead process
+        would not). ``results`` stay readable; nothing may step the
+        supervisor afterwards."""
+        runner = self._runner
+        if runner is not None:
+            runner.retire()
+            runner.engine = None
+        self._runner = None
+        self.engine = None
+
     @staticmethod
     def _clone(req: GenRequest) -> GenRequest:
         """A fresh GenRequest carrying the submission (identity, prompt,

@@ -35,11 +35,18 @@ read such as ``.item()``, a host branch on a device value).
 on, the reference's last resort; its piecewise split is not ported. ``enable_to_static(False)``
 runs every function eagerly; ``not_to_static(fn)`` marks a function that
 ``to_static`` leaves eager.
+
+A capture is the port's counterpart of an XLA compile: every listener
+added with :func:`add_capture_listener` is called once per successful
+capture with the program's name (``StaticFunction.name``, the function's
+qualified name unless its owner names it) and the capture's wall seconds.
+``obs.install_compile_events()`` counts them.
 """
 from __future__ import annotations
 
 import dis
 import gc
+import time
 import types
 import warnings
 from typing import Any, Dict, List, Optional, Sequence
@@ -47,9 +54,29 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 from torch.utils import _pytree as pytree
 
-__all__ = ["to_static", "not_to_static", "StaticFunction", "enable_to_static"]
+__all__ = ["to_static", "not_to_static", "StaticFunction", "enable_to_static",
+           "add_capture_listener", "remove_capture_listener"]
 
 _enabled = [True]
+_capture_listeners: List = []
+
+
+def add_capture_listener(fn) -> None:
+    """Call ``fn(program_name, seconds)`` after every successful capture
+    (once per listener, however often it is added)."""
+    if fn not in _capture_listeners:
+        _capture_listeners.append(fn)
+
+
+def remove_capture_listener(fn) -> None:
+    """Stop calling ``fn``; a listener never added is ignored."""
+    if fn in _capture_listeners:
+        _capture_listeners.remove(fn)
+
+
+def _notify_capture(name: str, seconds: float) -> None:
+    for fn in list(_capture_listeners):
+        fn(name, seconds)
 
 
 def enable_to_static(flag: bool = True) -> None:
@@ -104,6 +131,9 @@ class StaticFunction:
         if isinstance(layers, torch.nn.Module):
             layers = [layers]
         self._fn = fn
+        # the program's name in capture events; an owner may rename it
+        self.name = str(getattr(fn, "__qualname__", None)
+                        or getattr(fn, "__name__", None) or repr(fn))
         self._layers = list(layers)
         self._optimizers = list(optimizers)
         self._scalers = list(scalers)
@@ -228,6 +258,7 @@ class StaticFunction:
         it once for this call."""
         from ..ops import kernels
 
+        t_capture = time.perf_counter()
         static = pytree.tree_map(
             lambda x: (x.detach().clone().requires_grad_(x.requires_grad)
                        if isinstance(x, torch.Tensor) else x), call_args)
@@ -308,7 +339,10 @@ class StaticFunction:
                 "eagerly from now on.", stacklevel=3)
             self._fallback_eager = True
             return None
-        return _Captured(graph, static, out, lr_bufs, step_delta, count_delta)
+        captured = _Captured(graph, static, out, lr_bufs, step_delta,
+                             count_delta)
+        _notify_capture(self.name, time.perf_counter() - t_capture)
+        return captured
 
     @staticmethod
     def _state_of(o):

@@ -20,13 +20,38 @@ adds no graph and changes no stream.
   registry and trace ring into the deployment's KV store; ``collect`` /
   ``fleet_summary`` / ``fleet_trace`` merge them.
 - **Health envelope** (:func:`health_envelope`): the shared top-level keys
-  every ``health()`` surface (supervisor, routers) carries.
+  every ``health()`` surface (supervisor, routers) carries, the
+  process-default alert manager's compact summary among them.
+- **Capture events** (:mod:`.compile`): CUDA-graph captures of the
+  ``jit.to_static`` programs counted by program name, the port's
+  counterpart of the reference's XLA compile events.
+- **Reaction** (:mod:`.alerts`, :mod:`.slo`, :mod:`.regress`):
+  declarative alert rules (thresholds, publisher absence, multi-window
+  SLO burn rates with per-(tenant, priority) error budgets) with a
+  deterministic pending -> firing -> resolved lifecycle; SLO attainment
+  reports; the schema'd bench ledger and its regression sentinel.
 
-Not ported yet (the control-plane slice): the reference's ``alerts``,
-``slo``, ``regress`` and ``compile`` modules and the ``python -m
-paddle_tpu.obs`` CLI. Without ``alerts`` no rule exists, so the envelope's
-``alerts`` key is the summary the reference gives when no rule is defined.
+CLI: ``python -m paddle_tpu_torch.obs dump|prom|trace|agg|alerts|top|regress``.
 """
+from . import alerts
+from .alerts import (
+    AbsenceRule,
+    AlertManager,
+    BurnRateRule,
+    ThresholdRule,
+    budget_remaining_frac,
+    burn_rate,
+    burn_rules_from_slo,
+    default_manager,
+    default_serving_rules,
+    default_training_rules,
+    set_default_manager,
+)
+from .compile import (
+    compile_events_installed,
+    install_compile_events,
+    uninstall_compile_events,
+)
 from .metrics import (
     Counter,
     Gauge,
@@ -35,6 +60,12 @@ from .metrics import (
     MetricsRegistry,
     labels_of,
     registry,
+)
+from .regress import (
+    bench_record,
+    detect_regressions,
+    load_ledger,
+    polarity_of,
 )
 from .trace import (
     Span,
@@ -61,6 +92,13 @@ __all__ = [
     "enabled", "set_process_label", "export_chrome_trace",
     "stitch_traces", "SLO_HISTOGRAMS", "slo_summary", "tenant_slo_table",
     "HEALTH_SCHEMA_VERSION", "HEALTH_COMMON_KEYS", "health_envelope",
+    "install_compile_events", "uninstall_compile_events",
+    "compile_events_installed",
+    "ThresholdRule", "AbsenceRule", "BurnRateRule", "AlertManager",
+    "burn_rate", "budget_remaining_frac", "burn_rules_from_slo",
+    "default_serving_rules", "default_training_rules",
+    "default_manager", "set_default_manager",
+    "bench_record", "load_ledger", "detect_regressions", "polarity_of",
 ]
 
 # SLO histograms the serving engine feeds (seconds)
@@ -142,16 +180,14 @@ def tenant_slo_table() -> dict:
 HEALTH_SCHEMA_VERSION = 1
 HEALTH_COMMON_KEYS = ("schema_version", "kind", "shed_total",
                       "expired_total", "requests_total", "alerts")
-# the reference's alert summary when no rule exists (obs/alerts.py, not
-# ported yet: no rule can be defined, so none is ever pending or firing)
-_NO_ALERTS = {"rules": 0, "pending": 0, "firing": 0, "resolved": 0,
-              "active": []}
 
 
 def health_envelope(kind: str, payload: dict) -> dict:
-    """Wrap one surface's health payload with the shared envelope keys.
-    The payload's own keys stay at the top level; the envelope's win on
-    collision only for ``schema_version``/``kind``."""
+    """Wrap one surface's health payload with the shared envelope keys,
+    the process-default alert manager's compact summary included (the
+    empty summary while no manager exists). The payload's own keys stay
+    at the top level; the envelope's win on collision only for
+    ``schema_version``/``kind``."""
     reg = registry()
     out = dict(payload)
     out["schema_version"] = HEALTH_SCHEMA_VERSION
@@ -159,5 +195,5 @@ def health_envelope(kind: str, payload: dict) -> dict:
     out["shed_total"] = int(reg.total("serving_shed_total"))
     out["expired_total"] = int(reg.total("serving_expired_total"))
     out["requests_total"] = int(reg.total("serving_requests_total"))
-    out["alerts"] = dict(_NO_ALERTS, active=[])
+    out["alerts"] = alerts.health_summary()
     return out

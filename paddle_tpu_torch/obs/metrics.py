@@ -30,8 +30,8 @@ CLI, and the future autoscaler all see. Design constraints, in order:
 
 Exports: ``snapshot()`` (plain dict), ``snapshot_jsonl(path)``
 (append-one-line durable log), ``expose_text()`` (Prometheus text
-exposition, histogram buckets included). The reference's
-``python -m paddle_tpu.obs`` CLI over them is not ported yet. The schema
+exposition, histogram buckets included), and the
+``python -m paddle_tpu_torch.obs dump`` CLI over any of them. The schema
 names keep the reference's ``paddle_tpu.obs.metrics`` strings, so both
 packages' snapshots compare equal.
 """

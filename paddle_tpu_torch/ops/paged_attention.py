@@ -628,7 +628,15 @@ def paged_write_kv(kk, vv, k_pool, v_pool, tables, cl, s: int,
     cell may be a shared prefix block; its contents stay bitwise the same.
     No in-bounds lane of the same call writes that cell unless the write
     is wider than the whole table, which is refused. This keeps the write
-    free of a host sync."""
+    free of a host sync.
+
+    Several lanes can target one cell: every row pointed at the trash
+    block writes into it. The last in-bounds lane (in ``[B, s]`` order)
+    wins, as in the reference's serial scatter: every lane of a cell
+    writes the winner's value, so the duplicates store equal bytes and
+    the result does not hang on which one the device runs last (fp8's
+    per-tensor scales read the trash rows' activations, and with them
+    what the trash holds)."""
     b = kk.shape[0]
     bs = k_pool.shape[2]
     if s > tables.shape[1] * bs:
@@ -639,10 +647,20 @@ def paged_write_kv(kk, vv, k_pool, v_pool, tables, cl, s: int,
     first = tables[:, :1].long().expand(b, s)
     phys = torch.where(valid, phys, first)
     off = torch.where(valid, off, torch.zeros_like(off))
-    keep = valid[None]  # [1, B, s]
+    # each cell's last in-bounds lane, -1 where none writes it
+    cell = (phys * bs + off).reshape(-1)
+    lane = torch.arange(b * s, device=cell.device)
+    winner = torch.full((k_pool.shape[1] * bs,), -1, dtype=torch.long,
+                        device=cell.device).scatter_reduce_(
+        0, cell, torch.where(valid.reshape(-1), lane, -1), "amax")
+    src = winner[cell]  # [B*s]
+    keep = (src >= 0).reshape(1, b, s)
+    src = src.clamp(min=0)
 
     def put(pool, vals):  # vals [B, s, kvh, ...] in the pool's dtype
         vals = vals.movedim(2, 0)  # [kvh, B, s, ...]
+        vals = vals.reshape(vals.shape[0], b * s, *vals.shape[3:])[:, src]
+        vals = vals.reshape(vals.shape[0], b, s, *vals.shape[2:])
         k = keep.reshape(keep.shape + (1,) * (vals.dim() - 3))
         pool[:, phys, off] = torch.where(k, vals, pool[:, phys, off])
 

@@ -41,6 +41,9 @@ env:
   DISAGG_STEPS_PER_PUMP — decode steps between store polls (default 1)
   DISAGG_TRACE_DUMP   — a path: the trace ring is dumped there at exit
   PADDLE_CHAOS        — optional fault schedule
+  PADDLE_LOCK_SANITIZER — non-empty: run under the lock-order sanitizer
+                        (``utils.locks``); a recorded inversion fails the
+                        exit
   PADDLE_LEAK_SANITIZER — non-empty: run under the resource ledger; a
                         clean exit must leave nothing outstanding
 """
@@ -50,6 +53,27 @@ import json
 import os
 
 __all__ = ["main", "build_model", "launch_record"]
+
+
+def _lock_sanitizer_on() -> bool:
+    """``PADDLE_LOCK_SANITIZER``: trace every lock made from here on (a
+    lock-order inversion anywhere in the worker raises
+    ``LockOrderViolation`` in process)."""
+    if not os.environ.get("PADDLE_LOCK_SANITIZER"):
+        return False
+    from ..utils.locks import instrument_locks
+
+    instrument_locks()
+    return True
+
+
+def _lock_sanitizer_verdict() -> None:
+    """At a clean exit: a recorded violation fails the worker."""
+    from ..utils.locks import violation_count
+
+    n = violation_count()
+    assert n == 0, f"lock sanitizer recorded {n} violation(s)"
+    print("lock-sanitizer: clean", flush=True)
 
 
 def build_model(device: str, model_json=None, seed: int = 0,
@@ -94,6 +118,7 @@ def main() -> None:
     from ..inference.serving import ContinuousBatchingEngine
 
     device = get_device(os.environ.get("DISAGG_DEVICE", "cuda"))
+    sanitize = _lock_sanitizer_on()
     leak_sanitize = bool(os.environ.get("PADDLE_LEAK_SANITIZER"))
     if leak_sanitize:
         # before the factory, so the engine's manager is built wrapped
@@ -163,6 +188,8 @@ def main() -> None:
             with open(dump_path, "w", encoding="utf-8") as fh:
                 json.dump(obs.ring().dump(), fh)
     store.set(f"cluster/{wid}/launches", json.dumps(launch_record(engines)))
+    if sanitize:
+        _lock_sanitizer_verdict()
     if leak_sanitize:
         eng = worker.supervisor.engine
         if eng.prefix_cache is not None:

@@ -15,6 +15,9 @@ env:
   ROUTER_JOURNAL_DIR  — journal directory (read by the router on death)
   ROUTER_BUDGET       — serve-loop wall budget in seconds (default 120)
   PADDLE_CHAOS        — optional fault schedule
+  PADDLE_LOCK_SANITIZER — non-empty: run under the lock-order sanitizer
+                        (``utils.locks``); a recorded inversion fails the
+                        exit
   PADDLE_LEAK_SANITIZER — non-empty: run under the resource ledger; on a
                         clean exit nothing may be outstanding
 """
@@ -33,8 +36,10 @@ def main() -> None:
     from ..inference.cluster import ReplicaServer
     from ..inference.serving import ContinuousBatchingEngine
     from ..models import LlamaConfig, LlamaForCausalLM
+    from .disagg_worker import _lock_sanitizer_on, _lock_sanitizer_verdict
 
     device = get_device(os.environ.get("ROUTER_DEVICE", "cuda"))
+    sanitize = _lock_sanitizer_on()
     leak_sanitize = bool(os.environ.get("PADDLE_LEAK_SANITIZER"))
     if leak_sanitize:
         # before the factory, so the engine's manager is built wrapped
@@ -54,6 +59,8 @@ def main() -> None:
         store, os.environ["ROUTER_REPLICA_ID"], factory,
         journal_dir=os.environ["ROUTER_JOURNAL_DIR"])
     server.serve(deadline=float(os.environ.get("ROUTER_BUDGET", "120")))
+    if sanitize:
+        _lock_sanitizer_verdict()
     if leak_sanitize:
         # prefix-cache pins last the process's life: drop them, so a clean
         # exit means nothing at all is outstanding

@@ -18,6 +18,9 @@ env:
   SUP_OVERLAP  — non-empty: engines run overlap mode (a kill then lands
                  with the copy ring mid-flight)
   PADDLE_CHAOS — optional fault schedule (the first wave only)
+  PADDLE_LOCK_SANITIZER — non-empty: run under the lock-order sanitizer
+                        (``utils.locks``); a recorded inversion fails the
+                        exit
 """
 from __future__ import annotations
 
@@ -46,8 +49,10 @@ def main() -> None:
     from ..inference.serving import ContinuousBatchingEngine
     from ..inference.supervisor import ServingSupervisor
     from ..models import LlamaConfig, LlamaForCausalLM
+    from .disagg_worker import _lock_sanitizer_on, _lock_sanitizer_verdict
 
     device = get_device(os.environ.get("SUP_DEVICE", "cuda"))
+    sanitize = _lock_sanitizer_on()
     pt_seed(0)
     model = LlamaForCausalLM(LlamaConfig.tiny(), device=device)
 
@@ -67,6 +72,8 @@ def main() -> None:
                     for rid, r in res.items()},
         "restarts": sup.restarts,
     }), flush=True)
+    if sanitize:
+        _lock_sanitizer_verdict()
 
 
 if __name__ == "__main__":

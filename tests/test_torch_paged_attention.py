@@ -97,6 +97,47 @@ def test_write_with_oob_lanes_and_ragged_gather_exact(cl, int8):
     np.testing.assert_array_equal(tvc.numpy(), np.asarray(jvc))
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_write_lanes_sharing_a_cell_last_in_bounds_lane_wins(int8):
+    """Rows pointed at one trash block write its cells many times over,
+    and lanes past a row land on its first cell: the pools equal the
+    reference's bitwise, which is the last in-bounds lane's value in
+    ``[B, s]`` order (an out-of-bounds lane overrides no write)."""
+    rng = np.random.RandomState(1)
+    b, kvh, nb, bs, d, per_seq, s = 4, 2, 6, 4, 8, 3, 6
+    trash = nb - 1
+    tables = np.full((b, per_seq), trash, np.int32)
+    tables[0] = [0, 1, 2]
+    cl = np.array([9, 0, 3, 7], np.int32)  # rows 0 and 3 run past the row
+    kk = rng.randn(b, s, kvh, d).astype(np.float32)
+    vv = rng.randn(b, s, kvh, d).astype(np.float32)
+    pools = [rng.randn(kvh, nb, bs, d).astype(np.float32) for _ in range(2)]
+    if int8:
+        pools = [rng.randint(-127, 128, (kvh, nb, bs, d)).astype(np.int8)
+                 for _ in range(2)]
+        pools += [rng.uniform(0.1, 3, (kvh, nb, bs)).astype(np.float32)
+                  for _ in range(2)]
+    scales = lambda ps: dict(zip(("k_scale", "v_scale"), ps[2:]))  # noqa: E731
+    jp = [jnp.asarray(p) for p in pools]
+    jout = JPA.paged_write_kv(jnp.asarray(kk), jnp.asarray(vv), jp[0], jp[1],
+                              jnp.asarray(tables), jnp.asarray(cl), s,
+                              **scales(jp))
+    tp = [torch.from_numpy(p.copy()) for p in pools]
+    TPA.paged_write_kv(torch.from_numpy(kk), torch.from_numpy(vv), tp[0],
+                       tp[1], torch.from_numpy(tables),
+                       torch.from_numpy(cl), s, **scales(tp))
+    for got, want in zip(tp, jout):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if not int8:
+        want = pools[0].copy()
+        for i in range(b):
+            for j in range(s):
+                p = cl[i] + j
+                if p // bs < per_seq:
+                    want[:, tables[i, p // bs], p % bs] = kk[i, j]
+        np.testing.assert_array_equal(tp[0].numpy(), want)
+
+
 def test_write_wider_than_table_is_refused():
     t = torch.zeros(1, 2, dtype=torch.int32)
     pool = torch.zeros(1, 2, 4, 8)
