@@ -65,6 +65,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import random
@@ -72,6 +73,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
@@ -1323,13 +1325,22 @@ def recipe_phase(torch, np, dev, args, card, ids, labels, phase7_profile,
         fail(f"phase 10(a): captured launch counts {counts_a} != {want}")
     if not (all(np.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         fail(f"phase 10(a): losses not finite and falling: {losses}")
-    wall, split, names = profile_step(torch, lambda: compiled(ids, labels))
+    # the profiler can lose kernel records (`flash_ab.py trace`: one of 120
+    # profiled replays of this graph lost 64 records, a flash forward among
+    # them, through the direct launch as through the operator): two replays
+    # are profiled and the trace with more kernel records is read; a kernel
+    # missing from the graph is missing from every replay's trace
+    profiles = [profile_step(torch, lambda: compiled(ids, labels))
+                for _ in range(2)]
+    records = [sum(n for _, n in p[2]) for p in profiles]
+    wall, split, names = profiles[records.index(max(records))]
     busy = sum(split.values())
     seen = {m: kernels_seen(names, m) for m in
             ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma",
              "adamw_multi_kernel")}
     p7_wall, p7_busy = phase7_profile
-    print(f"phase 10(a) one profiled replayed step: {wall:.2f} ms wall, "
+    print(f"phase 10(a) two profiled replays hold {records} kernel records; "
+          f"the fuller one: {wall:.2f} ms wall, "
           f"{busy:.2f} ms of kernel time ({100 * busy / wall:.1f}% busy; host "
           f"gaps {wall - busy:.2f} ms) beside phase 7's eager step "
           f"{p7_wall:.2f} ms wall, {p7_busy:.2f} ms of kernels (host gaps "
@@ -4765,6 +4776,445 @@ def autoscale_phase(torch, np, dev, args, card, trace_kw=None,
         shutil.rmtree(journals, ignore_errors=True)
 
 
+# -- phase 16: the deployment path, control flow and piecewise capture, and
+# amp.debugging -----------------------------------------------------------------
+# (a) Llama-542M at 8 layers, bf16, saved with jit.save (a torch.export
+# program over explicit weights), loaded, and served by a Predictor; (b) the
+# Llama 2 recipe step at DEPLOY_TRAIN_DEPTH layers, SR off so that eager and
+# captured twins draw nothing: a loss-spike guard (a Python `if` on a device
+# value, captured as one graph with both branches selected) and a host read
+# between backward and opt.step() (full_graph=False: two graphs, the read
+# eager); (c) phase 10(b)'s fp16 recipe with its forced overflow under the
+# tensor checker and the operator stats
+DEPLOY_SPEC = [([TRAIN_BATCH, TRAIN_SEQ], "int64")]
+DEPLOY_TURN_ITERS = 5  # forward calls per timed turn (A, B, B, A)
+DEPLOY_TRAIN_DEPTH = LLAMA_542M["num_hidden_layers"]  # full depth
+SPIKE_SCALE = 0.5  # the guard's scaling of a spiking loss
+PIECEWISE_TURN_STEPS = 3  # steps per timed turn of 16(b)
+DEPLOY_CPU_DEPTH = 2  # layers of 16(a)'s model saved on the CPU
+
+
+def flash_nodes(program):
+    """(flash_fwd operator nodes, softmax nodes) of an exported program."""
+    targets = [str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"]
+    return (targets.count("paddle_tpu_torch.flash_fwd.default"),
+            sum("softmax" in t for t in targets))
+
+
+def turns(torch, fns, iters):
+    """Wall ms per call of each of ``fns`` (two), in turns A, B, B, A of
+    ``iters`` calls each: ([A ms, A ms], [B ms, B ms])."""
+    out = ([], [])
+    for which in (0, 1, 1, 0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fns[which]()
+        torch.cuda.synchronize()
+        out[which].append((time.perf_counter() - t0) / iters * 1e3)
+    return out
+
+
+def fmt_turns(ms):
+    return "/".join(f"{x:.2f}" for x in ms)
+
+
+def cpu_saved_serving(torch, dev, seed, ids):
+    """Phase 16(a)'s second save: Llama-542M's widths at DEPLOY_CPU_DEPTH
+    layers, bf16, built and saved by ``jit.save`` on the CPU, then loaded
+    onto the card by ``jit.load`` (its default device). Returns (flash_fwd
+    nodes of the loaded program, flash-forward launches of one call, logits
+    rel err against the same weights' live forward on the card, whether
+    they are bitwise equal)."""
+    import os
+    import tempfile
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+
+    pt_seed(seed)
+    cfg = LlamaConfig(**dict(LLAMA_542M, num_hidden_layers=DEPLOY_CPU_DEPTH))
+    model = LlamaForCausalLM(cfg, device="cpu", dtype=torch.bfloat16)
+    model.eval()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "saved_on_cpu")
+        jit.save(model, path, input_spec=DEPLOY_SPEC)
+        layer = jit.load(path)
+    n_flash, _ = flash_nodes(layer.program)
+    model.to(dev)
+    n0 = kernels.launch_counts()["flash_attention_fwd"]
+    got = layer(ids)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()["flash_attention_fwd"] - n0
+    with torch.no_grad():
+        live = model(ids)
+    e = rel_err(got, live)
+    bitwise = bool(torch.equal(got, live))
+    del layer, model, got, live
+    torch.cuda.empty_cache()
+    return n_flash, launched, e, bitwise
+
+
+def deploy_serving(torch, np, dev, args, card, ids):
+    """Phase 16(a): the saved model served by a Predictor against the live
+    forward. Returns the flash-forward launches of one ``Predictor.run``."""
+    import os
+    import tempfile
+
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import kernels
+
+    pt_seed(args.seed)
+    cfg = LlamaConfig(**LLAMA_542M)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    model.eval()
+    L = cfg.num_hidden_layers
+    ids = ids.to(torch.int64)  # the spec's dtype
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "llama542m")
+        t0 = time.perf_counter()
+        jit.save(model, path, input_spec=DEPLOY_SPEC)
+        save_s = time.perf_counter() - t0
+        sizes = {ext: os.path.getsize(path + ext)
+                 for ext in (".pdiparams", ".pdmodel")}
+        t0 = time.perf_counter()
+        layer = jit.load(path)
+        load_s = time.perf_counter() - t0
+        n_flash, n_softmax = flash_nodes(layer.program)
+        t0 = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(path))
+        pred_s = time.perf_counter() - t0
+    del layer
+    if (n_flash, n_softmax) != (L, 0):
+        fail(f"phase 16(a): the exported program holds {n_flash} "
+             f"paddle_tpu_torch::flash_fwd nodes and {n_softmax} softmax "
+             f"nodes, expected {L} and 0")
+    feed = ids.cpu().numpy()
+    pred.get_input_handle(pred.get_input_names()[0]).copy_from_cpu(feed)
+    pred.run()  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    pred.run()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    out = pred.get_output_handle(pred.get_output_names()[0]).copy_to_cpu()
+    got = torch.from_numpy(out).to(dev)
+    with torch.no_grad():
+        live = model(ids)
+    want_counts = flash_fwd_counts(L)
+    if any(counts[k] != n for k, n in want_counts.items()):
+        fail(f"phase 16(a): a Predictor.run launched "
+             f"{ {k: counts[k] for k in want_counts} }, expected {want_counts}")
+    e = rel_err(got, live)
+    agree = float((got.argmax(-1) == live.argmax(-1)).float().mean())
+    bitwise = bool(torch.equal(got, live.float()))
+    if tuple(got.shape) != (TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size) or \
+            not torch.isfinite(got).all():
+        fail(f"phase 16(a): Predictor logits {tuple(got.shape)} or non-finite")
+    del got, out
+
+    def run_pred():
+        pred.run()
+
+    def run_live():
+        with torch.no_grad():
+            model(ids)
+
+    live_ms, pred_ms = turns(torch, (run_live, run_pred), DEPLOY_TURN_ITERS)
+    # phase 3's scoring forward with the flash forward as the registered
+    # operator (A) against the direct launch the port made before (B)
+    def run_direct():
+        op = fa.flash_fwd_op
+        fa.flash_fwd_op = fa.flash_attention_fwd
+        try:
+            run_live()
+        finally:
+            fa.flash_fwd_op = op
+
+    op_ms, direct_ms = turns(torch, (run_live, run_direct), DEPLOY_TURN_ITERS)
+    print(f"phase 16(a) deployed Llama-542M bf16 [4, 2048]: jit.save "
+          f"{save_s:.2f} s (.pdiparams {sizes['.pdiparams']} bytes, .pdmodel "
+          f"{sizes['.pdmodel']} bytes, {n_flash} flash_fwd nodes, "
+          f"{n_softmax} softmax), jit.load {load_s:.2f} s, create_predictor "
+          f"{pred_s:.2f} s; a Predictor.run launched "
+          f"{json.dumps({k: counts[k] for k in want_counts})}; logits rel err "
+          f"vs the live forward {e:.3g} (tol {LOGITS_REL_TOL}), argmax "
+          f"agreement {agree:.4f} (min {ARGMAX_MIN}), bitwise equal: "
+          f"{bitwise}; turns A, B, B, A of {DEPLOY_TURN_ITERS} calls: live "
+          f"forward {fmt_turns(live_ms)} ms, Predictor.run "
+          f"{fmt_turns(pred_ms)} ms [{card}]")
+    print(f"phase 16(a) phase 3's scoring forward, flash forward as the "
+          f"registered operator {fmt_turns(op_ms)} ms against the direct "
+          f"launch {fmt_turns(direct_ms)} ms (turns A, B, B, A of "
+          f"{DEPLOY_TURN_ITERS} calls) [{card}]")
+    if not (e <= LOGITS_REL_TOL and agree >= ARGMAX_MIN):
+        fail("phase 16(a): the deployed forward disagrees with the live one")
+    del pred, model
+    torch.cuda.empty_cache()
+    n_cpu, launched, e_cpu, bitwise_cpu = cpu_saved_serving(
+        torch, dev, args.seed, ids)
+    print(f"phase 16(a) Llama-542M bf16 at {DEPLOY_CPU_DEPTH} layers saved "
+          f"on the CPU, loaded onto the card: {n_cpu} flash_fwd nodes; a "
+          f"call launched the flash forward {launched} times; logits rel err "
+          f"vs the same weights' live forward on the card {e_cpu:.3g} (tol "
+          f"{LOGITS_REL_TOL}), bitwise equal: {bitwise_cpu} [{card}]")
+    if (n_cpu, launched) != (DEPLOY_CPU_DEPTH, DEPLOY_CPU_DEPTH) or \
+            not e_cpu <= LOGITS_REL_TOL:
+        fail(f"phase 16(a): the program saved on the CPU holds {n_cpu} "
+             f"flash_fwd nodes and launched the kernel {launched} times on "
+             f"the card (expected {DEPLOY_CPU_DEPTH} each), logits rel err "
+             f"{e_cpu:.3g}")
+    return counts["flash_attention_fwd"]
+
+
+def spike_guard_step(model, opt):
+    """The recipe step with a loss-spike guard: a Python `if` on a device
+    value (converted by dy2static: both branches, then a select)."""
+    def step(ids, labels, limit):
+        loss = model.loss(ids, labels)
+        if loss > limit:
+            loss = loss * SPIKE_SCALE
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return step
+
+
+def logged_step(model, opt, log):
+    """The recipe step with a host read between backward and the step."""
+    def step(ids, labels):
+        loss = model.loss(ids, labels)
+        loss.backward()
+        log.append(float(loss))
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return step
+
+
+def twins(torch, dev, depth, seed):
+    """Two copies of one recipe state (SR off: nothing is drawn)."""
+    return [recipe_model(torch, dev, depth, torch.bfloat16, seed, sr=False)
+            for _ in range(2)]
+
+
+def step_launches(counts):
+    return {k: counts[k] for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkv", "fused_adamw")}
+
+
+def control_flow_phase(torch, np, dev, args, card, ids, labels):
+    """Phase 16(b): the spike guard captured as one graph, both branches
+    bitwise equal to eager; the logged step piecewise, two graphs, bitwise
+    equal to eager; the piecewise and whole-eager steps in turns."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.ops import kernels
+
+    D = DEPLOY_TRAIN_DEPTH
+    want = {"flash_attention_fwd": D, "flash_attention_bwd_dq": D,
+            "flash_attention_bwd_dkv": D, "fused_adamw": ADAMW_GROUPS}
+    (m1, o1), (m2, o2) = twins(torch, dev, D, args.seed)
+    guarded = jit.to_static(spike_guard_step(m1, o1), layers=[m1],
+                            optimizers=[o1])
+    eager = spike_guard_step(m2, o2)
+    never = torch.full((), 1e9, device=dev)
+    always = torch.zeros((), device=dev)
+    diffs, counts, taken = [], None, []
+    # warm-up (eager), the capture, then replays: each branch twice
+    for i, limit in enumerate((never, always, never, always, never)):
+        kernels.reset_launch_counts()
+        a = guarded(ids, labels, limit)
+        torch.cuda.synchronize()
+        if i == 2:
+            counts = step_launches(kernels.launch_counts())
+        b = eager(ids, labels, limit)
+        taken.append(limit is always)
+        if not torch.equal(bits(torch, a.reshape(1)), bits(torch, b.reshape(1))):
+            diffs.append(f"loss of call {i}")
+    diffs += state_diff(torch, state_of(torch, m1, o1), state_of(torch, m2, o2))
+    graphs = len(guarded._graphs)
+    print(f"phase 16(b) spike guard (`if loss > limit: loss = loss * "
+          f"{SPIKE_SCALE}`), recipe step Llama-542M bf16 B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ} {D} layers, SR off: {graphs} captured graph; "
+          f"branch taken on calls {[i for i, t in enumerate(taken) if t]}; "
+          f"a replay launched {json.dumps(counts)}; captured vs eager twin: "
+          f"{'bitwise equal' if not diffs else diffs[:4]} (losses, "
+          f"parameters, moments) [{card}]")
+    if graphs != 1 or diffs or counts != want:
+        fail(f"phase 16(b): the spike-guard step: graphs {graphs}, "
+             f"launches {counts} (expected {want}), differences {diffs[:4]}")
+    del guarded, eager, m1, o1, m2, o2
+    torch.cuda.empty_cache()
+
+    (m1, o1), (m2, o2) = twins(torch, dev, D, args.seed + 1)
+    log1, log2 = [], []
+    split = jit.to_static(logged_step(m1, o1, log1), layers=[m1],
+                          optimizers=[o1], full_graph=False)
+    eager = logged_step(m2, o2, log2)
+    diffs, counts = [], None
+    n_calls = 5
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(n_calls):
+            kernels.reset_launch_counts()
+            a = split(ids, labels)
+            torch.cuda.synchronize()
+            if i == n_calls - 1:
+                counts = step_launches(kernels.launch_counts())
+            b = eager(ids, labels)
+            if not torch.equal(bits(torch, a.reshape(1)), bits(torch, b.reshape(1))):
+                diffs.append(f"loss of call {i}")
+    diffs += state_diff(torch, state_of(torch, m1, o1), state_of(torch, m2, o2))
+    pw = split._piecewise
+    graphs = (None if pw is None else
+              (len(pw._prefix_sf._graphs), len(pw._suffix_sf._graphs)))
+    steps = (o1._global_step, o2._global_step)
+    notes = [str(w.message)[:100] for w in caught]
+    print(f"phase 16(b) host read between backward and opt.step() "
+          f"(`log.append(float(loss))`), full_graph=False, {n_calls} calls: "
+          f"piecewise {pw is not None}, graphs (prefix, suffix) {graphs}, "
+          f"eager fallback {split._fallback_eager}; the last call launched "
+          f"{json.dumps(counts)}; _global_step {steps[0]} (eager twin "
+          f"{steps[1]}); logged losses equal: {log1 == log2}; split vs eager "
+          f"twin: {'bitwise equal' if not diffs else diffs[:4]}; warnings "
+          f"{notes[:2]} [{card}]")
+    if (pw is None or graphs != (1, 1) or split._fallback_eager or diffs
+            or counts != want or steps != (n_calls, n_calls) or log1 != log2):
+        fail(f"phase 16(b): the piecewise step: graphs {graphs}, launches "
+             f"{counts} (expected {want}), steps {steps}, differences "
+             f"{diffs[:4]}")
+    whole = jit.to_static(logged_step(m2, o2, log2), layers=[m2],
+                          optimizers=[o2], full_graph=False)
+    whole._fallback_eager = True  # what a split that is not safe leaves
+    eager_ms, split_ms = turns(
+        torch, (lambda: whole(ids, labels), lambda: split(ids, labels)),
+        PIECEWISE_TURN_STEPS)
+
+    def peak_gb(fn):
+        """Device memory a call allocates at its peak above its start."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    eager_gb = peak_gb(lambda: whole(ids, labels))
+    split_gb = peak_gb(lambda: split(ids, labels))
+    print(f"phase 16(b) a step in turns A, B, B, A of {PIECEWISE_TURN_STEPS}: "
+          f"whole-function eager {fmt_turns(eager_ms)} ms, piecewise (two "
+          f"replays, the read eager) {fmt_turns(split_ms)} ms; a call's "
+          f"peak allocation above its start: whole eager {eager_gb:.3f} GB, "
+          f"piecewise {split_gb:.3f} GB [{card}]")
+    del split, whole, eager, m1, o1, m2, o2
+    torch.cuda.empty_cache()
+
+
+def debugging_phase(torch, np, dev, args, card, ids, labels):
+    """Phase 16(c): phase 10(b)'s fp16 recipe (eager) under the tensor
+    checker: the clean step passes, the forced overflow raises and names
+    its first non-finite op; the operator stats of one step, the kernels'
+    reports among them; with debugging off the launches are as before."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.amp import debugging as dbg
+    from paddle_tpu_torch.ops import kernels
+
+    model, opt = recipe_model(torch, dev, FP16_DEPTH, torch.float32, args.seed)
+    scaler = amp.GradScaler()
+
+    def step():
+        with amp.auto_cast(level="O1", dtype="float16"):
+            loss = model.loss(ids, labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    dbg.enable_tensor_checker(dbg.TensorCheckerConfig(
+        True, debug_mode=dbg.DebugMode.CHECK_NAN_INF_AND_ABORT))
+    clean_err = forced_err = None
+    try:
+        try:
+            step()
+        except FloatingPointError as e:
+            clean_err = str(e).splitlines()[0]
+        scale0 = scaler.get_scale_value()
+        scaler.set_scale_value(2.0 ** 40)
+        try:
+            step()
+        except FloatingPointError as e:
+            forced_err = str(e).splitlines()[0]
+        opt.clear_grad()
+        scaler.set_scale_value(scale0)
+    finally:
+        dbg.disable_tensor_checker()
+    t0 = time.perf_counter()
+    with dbg.collect_operator_stats(print_summary=False) as col:
+        step()
+    stats_s = time.perf_counter() - t0
+    rows = col.rows()
+    by_op = {}  # invocations per op: a row counts them per output dtype
+    for r in rows:
+        by_op[r["op"]] = max(by_op.get(r["op"], 0), r["calls"])
+    L = FP16_DEPTH
+    want_reports = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                    "flash_attention_bwd_dkv": L, "fused_adamw": ADAMW_GROUPS}
+    reports = {k: by_op.get(k, 0) for k in want_reports}
+    top = sorted(rows, key=lambda r: -r["absmax"])[:5]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    print(f"phase 16(c) fp16 O1 recipe, {L} layers, eager, tensor checker "
+          f"CHECK_NAN_INF_AND_ABORT: clean step raised: {clean_err}; forced "
+          f"overflow (scale 2**40) raised: {forced_err!r} [{card}]")
+    print(f"phase 16(c) operator stats of one eager step ({stats_s:.2f} s "
+          f"with the stats on): {len(rows)} (op, dtype) rows over "
+          f"{sum(by_op.values())} op calls; the kernels' own reports "
+          f"{json.dumps(reports)}; largest absmax "
+          + "; ".join(f"{r['op']} {r['dtype']} {r['absmax']:.4g}" for r in top)
+          + f" [{card}]")
+    print(f"phase 16(c) launches of a step before the debugging "
+          f"{json.dumps(step_launches(before))}, after it "
+          f"{json.dumps(step_launches(after))}")
+    if clean_err is not None or not forced_err or "op '" not in forced_err:
+        fail(f"phase 16(c): the tensor checker: clean step {clean_err!r}, "
+             f"forced overflow {forced_err!r}")
+    if reports != want_reports or before != after:
+        fail(f"phase 16(c): the kernels reported {reports} (expected "
+             f"{want_reports}); launches before {step_launches(before)}, "
+             f"after {step_launches(after)}")
+    del model, opt, scaler
+    torch.cuda.empty_cache()
+
+
+def deploy_phase(torch, np, dev, args, card, ids, labels):
+    """Phase 16 (a)-(c)."""
+    deploy_serving(torch, np, dev, args, card, ids)
+    gc.collect()
+    torch.cuda.empty_cache()
+    control_flow_phase(torch, np, dev, args, card, ids, labels)
+    gc.collect()
+    debugging_phase(torch, np, dev, args, card, ids, labels)
+
+
 def kernel_class(name: str) -> str:
     """Bucket a profiled kernel name for the training step's time split."""
     n = name.lower()
@@ -5414,6 +5864,12 @@ def main() -> int:
     starts.append(("15", time.perf_counter() - t_start))
     # -- phase 15: an autoscaled fleet ------------------------------------------
     autoscale_phase(torch, np, dev, args, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    starts.append(("16", time.perf_counter() - t_start))
+    # -- phase 16: deployment, control flow and piecewise capture, debugging --
+    deploy_phase(torch, np, dev, args, card, ids, labels)
     gc.collect()
     torch.cuda.empty_cache()
 

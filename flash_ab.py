@@ -4,6 +4,7 @@
     cd <checkout> && python3 <path>/flash_ab.py LABEL [fwd|bwd]
     cd <checkout> && python3 <path>/flash_ab.py LABEL decode [BLOCKS_PER_SM..]
     cd <checkout> && python3 <path>/flash_ab.py LABEL steady [TURN ..] [split]
+    cd <checkout> && python3 <path>/flash_ab.py LABEL trace [N] [direct]
 
 Builds that checkout's flash kernels, then times them at
 ``chip_smoke.py`` phase 2's three configurations (B=4, S=2048, H=16,
@@ -38,6 +39,17 @@ each window is followed by two profiled dispatches whose device time is
 split by kernel name (a window that follows a profiled one in the same
 process may carry the profiler's cost). Needs an NVIDIA card and
 ``nvcc``.
+
+``trace`` counts the kernels in the profiler's trace of one replay of
+``chip_smoke.py`` phase 10(a)'s captured recipe step (Llama-542M at its
+depth, bf16, fused AdamW; random ids from seed 0), N times (default 20)
+for each of two ways: ``plain``, the profiled window holding the replay
+alone as the gate's ``profile_step`` does, and ``lead``, a small kernel
+and a sync first in the same window. Per replay it records the flash
+forward, dQ, dK/dV and AdamW kernels the trace shows, the number of kernel
+records and the first three kernels by start time. With ``direct`` (in a
+checkout whose flash forward is a registered operator), the step is
+captured with the forward's direct launch in place of the operator.
 """
 import json
 import os
@@ -249,6 +261,67 @@ def steady(torch, turns, split: bool):
     return out
 
 
+TRACE_KERNELS = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma",
+                 "adamw_multi_kernel")
+
+
+def traced_kernels(torch, fn, lead: bool):
+    """One call of ``fn`` under the profiler (after a small kernel and a
+    sync when ``lead``): the TRACE_KERNELS' counts as the gate reads them
+    (``key_averages``), the number of kernel records, the first three
+    kernels by start time."""
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        if lead:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    names = [(e.key, e.count) for e in prof.key_averages()
+             if e.device_type == cuda]
+    counts = {m: sum(n for k, n in names if m in k) for m in TRACE_KERNELS}
+    events = sorted((e for e in prof.events() if e.device_type == cuda),
+                    key=lambda e: e.time_range.start)
+    return counts, len(events), [e.name[:40] for e in events[:3]]
+
+
+def trace(torch, n: int, direct: bool):
+    """Phase 10(a)'s profiled replay, ``n`` times each way (see the
+    module's docstring): {"plain": [...], "lead": [...]}, one entry a
+    replay, and the launch counts one unprofiled replay added."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import kernels
+
+    kernels.build(["flash_attention_fwd", "flash_attention_bwd",
+                   "fused_adamw"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if direct:
+        fa.flash_fwd_op = fa.flash_attention_fwd
+    dev = torch.device("cuda")
+    depth = cs.LLAMA_542M["num_hidden_layers"]
+    model, opt = cs.recipe_model(torch, dev, depth, torch.bfloat16, 0)
+    step = cs.recipe_step(model, opt)
+    g = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.randint(0, cs.LLAMA_542M["vocab_size"],
+                        (cs.TRAIN_BATCH, cs.TRAIN_SEQ), generator=g,
+                        device=dev)
+    step(ids, ids)  # warm-up, eager
+    step(ids, ids)  # capture, then one replay
+    kernels.reset_launch_counts()
+    step(ids, ids)
+    torch.cuda.synchronize()
+    out = {"depth": depth, "graphs": len(step._graphs),
+           "replay_counts": kernels.launch_counts()}
+    for _ in range(n):
+        for way in ("plain", "lead"):
+            out.setdefault(way, []).append(traced_kernels(
+                torch, lambda: step(ids, ids), way == "lead"))
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, os.getcwd())
     import torch
@@ -264,6 +337,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     mode = sys.argv[2] if len(sys.argv) > 2 else "fwd"
+    if mode == "trace":
+        n = int(sys.argv[3]) if len(sys.argv) > 3 and sys.argv[3].isdigit() \
+            else 20
+        print(json.dumps({"label": sys.argv[1], "mode": mode,
+                          **trace(torch, n, "direct" in sys.argv[3:])}))
+        return 0
     if mode == "steady":
         turns = [a for a in sys.argv[3:] if a in TURNS] or ["default"]
         print(json.dumps({"label": sys.argv[1], "mode": mode, "turns": turns,

@@ -135,6 +135,27 @@ over phase 15's trace cut to 30 requests over 5 s):
   each retired replica's engine; 15(b)'s freed-engines gate must refuse
   it.
 
+Phase 16's host code, the same way, each variant through the part of
+phase 16 whose gates must refuse it:
+
+- ``the exported program holds the plain attention``: attention takes the
+  plain path while ``jit.save`` exports; 16(a)'s node and launch gates
+  (``chip_smoke.deploy_serving``) must refuse it;
+- ``the export asks the tracing device``: the export takes the flash path
+  only for tensors on the card, so a model saved on the CPU holds the plain
+  attention wherever it is loaded; 16(a)'s gate on the model saved on the
+  CPU (``chip_smoke.cpu_saved_serving``: nodes, launches on the card) must
+  refuse it;
+- ``the dy2static select runs only the true branch``: a converted ``if``
+  on a device value returns the true branch's results; 16(b)'s spike-guard
+  gate (captured against eager, bitwise, both branches) must refuse it;
+- ``the piecewise path replays the prefix twice`` (once it is captured)
+  and ``the piecewise path skips the breaking statement``: 16(b)'s
+  piecewise gates (bitwise against eager, launches, the logged losses)
+  must refuse them;
+- ``the tensor checker never fires``: 16(c)'s forced-overflow gate
+  (``chip_smoke.debugging_phase``) must refuse it.
+
 Each variant runs through the kernel's own wrapper (``paged_decode`` and
 ``paged_decode_int8`` for the decode, ``fused_adamw_multi_update`` for
 AdamW). It also prints the verdict of the
@@ -552,6 +573,51 @@ CONTROL_MUTANTS = {
             "        rep.supervisor.engine)\n"
             "    try:\n        rep.stop(deadline=deadline)")]),
 }
+# phase 16: the deployed forward, dy2static, the piecewise split and the
+# tensor checker, in HOST_MUTANTS' form, each with the part of phase 16
+# whose gates must refuse it
+DEPLOY_MUTANTS = {
+    "as is": None,
+    "the exported program holds the plain attention": (
+        "paddle_tpu_torch.nn.functional.attention", "_use_flash", [(
+            "if mask is not None or dropout_p > 0:",
+            "if mask is not None or dropout_p > 0 or "
+            "torch.compiler.is_exporting():")]),
+    "the export asks the tracing device": (
+        "paddle_tpu_torch.nn.functional.attention", "_use_flash", [(
+            'if q.device.type != "cuda" and not torch.compiler.is_exporting():',
+            'if q.device.type != "cuda":')]),
+    "the dy2static select runs only the true branch": (
+        "paddle_tpu_torch.jit.dy2static", "convert_ifelse", [(
+            "    f_out = false_fn(*init_args)\n"
+            "    return tuple(_select_leaf(pred, a, b) "
+            "for a, b in zip(t_out, f_out))",
+            "    return t_out")]),
+    "the piecewise path replays the prefix twice": (
+        "paddle_tpu_torch.jit", "StaticFunction._build_piecewise", [(
+            "        carry = pre_sf(*args, **kw)\n",
+            # once captured (a second call that captured would record a
+            # backward into the first call's eager gradients, which the
+            # suffix frees)
+            "        carry = pre_sf(*args, **kw)\n"
+            "        if pre_sf._graphs:\n"
+            "            carry = pre_sf(*args, **kw)\n")]),
+    "the piecewise path skips the breaking statement": (
+        "paddle_tpu_torch.jit", "StaticFunction._build_piecewise", [(
+            "carry2 = brk_fn(detached(carry))", "carry2 = detached(carry)")]),
+    "the tensor checker never fires": (
+        "paddle_tpu_torch.amp.debugging", "TensorCheckerConfig.__call__", [(
+            "    if not self.enable or not self._step_active():\n"
+            "        return\n", "    return\n")]),
+}
+DEPLOY_PARTS = {
+    "the exported program holds the plain attention": ("16(a)",),
+    "the export asks the tracing device": ("16(a)",),
+    "the dy2static select runs only the true branch": ("16(b)",),
+    "the piecewise path replays the prefix twice": ("16(b)",),
+    "the piecewise path skips the breaking statement": ("16(b)",),
+    "the tensor checker never fires": ("16(c)",),
+}
 # control_mutants' trace: phase 15's, shortened (the gates count no requests)
 CONTROL_TRACE = dict(n_requests=30, duration_s=5.0)
 # lowp_mutants' GEMM shapes: a train/prefill shape, a decode's and the odd
@@ -766,6 +832,50 @@ def control_mutants(torch, np, dev, args, card):
     return ok, refused, len(CONTROL_MUTANTS) - 1
 
 
+def deploy_mutants(torch, np, dev, args, card, ids):
+    """Every phase-16 variant through the part of phase 16 whose gates must
+    refuse it (``chip_smoke.deploy_serving``, ``control_flow_phase``,
+    ``debugging_phase`` at full width); the original through all three.
+    Returns (ok, refused, mutants counted)."""
+    import io
+
+    parts = {
+        "16(a)": lambda: cs.deploy_serving(torch, np, dev, args, card, ids),
+        "16(b)": lambda: cs.control_flow_phase(torch, np, dev, args, card,
+                                               ids, ids),
+        "16(c)": lambda: cs.debugging_phase(torch, np, dev, args, card,
+                                            ids, ids),
+    }
+    ok, refused = True, []
+    for name in DEPLOY_MUTANTS:
+        restore = (lambda: None) if DEPLOY_MUTANTS[name] is None else \
+            host_variant(name, DEPLOY_MUTANTS)
+        bad = []
+        try:
+            for part in DEPLOY_PARTS.get(name, tuple(parts)):
+                out = io.StringIO()
+                try:
+                    with contextlib.redirect_stdout(out):
+                        parts[part]()
+                except SystemExit as e:  # chip_smoke.fail: a gate refused it
+                    bad.append(f"{part}: {e}")
+                except Exception as e:  # noqa: BLE001 - a crash refuses too
+                    bad.append(f"{part} raised {e!r}")
+        finally:
+            restore()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        if name == "as is":
+            ok &= not bad
+        elif bad:
+            refused.append(f"phase 16: {name}")
+        else:
+            ok = False
+        print(f"deploy {name}: {'; '.join(b[:300] for b in bad) if bad else 'pass'}"
+              f" -> {'FAIL' if bad else 'pass'} [{card}]")
+    return ok, refused, len(DEPLOY_MUTANTS) - 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -803,6 +913,7 @@ def main() -> int:
         import numpy as np
 
         results.append(lowp_mutants(torch, np, dev, args, card, ids))
+        results.append(deploy_mutants(torch, np, dev, args, card, ids))
         del ids
         torch.cuda.empty_cache()
         import numpy as np

@@ -12,8 +12,9 @@ _BY_NAME = {
     "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
     "float16": torch.float16, "fp16": torch.float16, "half": torch.float16,
     "float32": torch.float32, "fp32": torch.float32, "float": torch.float32,
-    "int8": torch.int8,
-    "int32": torch.int32,
+    "float64": torch.float64, "fp64": torch.float64, "double": torch.float64,
+    "int8": torch.int8, "uint8": torch.uint8, "int16": torch.int16,
+    "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
 }
 
 

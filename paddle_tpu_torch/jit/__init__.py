@@ -1,19 +1,26 @@
 """``to_static``: the train or eval step captured as a CUDA graph
 (counterpart of ``paddle_tpu/jit``, whose ``jax.jit`` and ``lax.scan`` it
-stands in for).
+stands in for), and ``save``/``load`` of a layer for inference.
 
 ``to_static(fn, layers=, optimizers=, scalers=, full_graph=True)`` returns
-a :class:`StaticFunction`. On the card, the first call with a given
-argument signature (tensor shapes, dtypes and devices; the other
-arguments' values) runs ``fn`` eagerly: it builds the kernels and creates
-the optimizers' and scalers' state. The next call captures ``fn`` once as
-a ``torch.cuda.CUDAGraph`` — forward, backward, ``step()``,
-``clear_grad()`` and the scaler's ``update()``, whatever ``fn`` does — and
-every call replays it. One graph per signature, as the reference keeps one
-compiled program per argument structure, all in one memory pool of the
-function. :meth:`StaticFunction.multi_step` copies each step's inputs into
-the graph's inputs and replays K times, with no read back to the host
-between replays. On CPU tensors (the tests) ``fn`` runs eagerly.
+a :class:`StaticFunction`. As in the reference, ``fn`` first goes through
+``dy2static.convert``: a Python ``if``/``while``/``for range()`` on a
+tensor becomes a runtime dispatch that, inside a capture, selects between
+both branches with ``torch.where`` (a ``while`` runs as a bounded masked
+loop under ``FLAGS_dy2static_while_grad_bound``), and outside one reads
+the predicate on the host as Python would. On the card, the first call
+with a given argument signature (tensor shapes, dtypes and devices; the
+other arguments' values) runs ``fn`` eagerly: it builds the kernels and
+creates the optimizers' and scalers' state. The next call captures the
+converted ``fn`` once as a ``torch.cuda.CUDAGraph`` — forward, backward,
+``step()``, ``clear_grad()`` and the scaler's ``update()``, whatever ``fn``
+does — and every call replays it. One graph per signature, as the
+reference keeps one compiled program per argument structure, all in one
+memory pool of the function. :meth:`StaticFunction.multi_step` copies each
+step's inputs into the graph's inputs and replays K times, with no read
+back to the host between replays. On CPU tensors ``fn`` runs eagerly
+(``testing.capture.cpu_capture`` gives the parity tests a CPU stand-in of
+the capture).
 
 What a graph reads that changes from step to step lives on the device: the
 learning rate of each optimizer is a device scalar the graph reads (filled
@@ -28,12 +35,23 @@ on eager steps.
 
 A capture that creates or rebinds optimizer state (a first step, a
 ``set_state_dict`` since the last call) puts the state back, runs that
-call eagerly and captures the next one. ``full_graph=True`` (the
-default) raises, with the reason, when the step cannot be captured (a host
-read such as ``.item()``, a host branch on a device value).
-``full_graph=False`` warns and runs the whole function eagerly from then
-on, the reference's last resort; its piecewise split is not ported. ``enable_to_static(False)``
-runs every function eagerly; ``not_to_static(fn)`` marks a function that
+call eagerly and captures the next one. A host read of a device value
+inside the capture (``.item()``, ``float(loss)``, a branch the conversion
+could not rewrite) is a graph break. ``full_graph=True`` (the default)
+raises it as :class:`dy2static.GraphBreakError`, with the place and the
+rewrite options. ``full_graph=False`` does the reference's piecewise
+split: the function is cut at the breaking top-level statement
+(``dy2static.split_at_break``); the prefix and the suffix become
+``StaticFunction``s of their own over the same layers, optimizers and
+scalers, each captured as its own graph, and the breaking statement runs
+eagerly on every call. Where no safe split exists, or a carried tensor
+still requires grad while the code after the break differentiates, the
+whole function runs eagerly from then on. The split's first call is its
+trial: it takes a snapshot of the training state, and a trial that proves
+unsafe puts the state back before the eager rerun. Later calls take no
+snapshot (it would be a second copy of the state at every step): one whose
+carry proves unsafe finishes eagerly from where it stands. ``enable_to_static(False)`` runs
+every function eagerly; ``not_to_static(fn)`` marks a function that
 ``to_static`` leaves eager.
 
 A capture is the port's counterpart of an XLA compile: every listener
@@ -41,11 +59,23 @@ added with :func:`add_capture_listener` is called once per successful
 capture with the program's name (``StaticFunction.name``, the function's
 qualified name unless its owner names it) and the capture's wall seconds.
 ``obs.install_compile_events()`` counts them.
+
+``save(layer, path, input_spec=)`` writes ``{path}.pdiparams`` (the state
+as pickled numpy arrays; bf16 as raw ``uint16``, since numpy has no
+bfloat16) and ``{path}.pdmodel`` (pickled meta). With an ``input_spec``
+the meta holds a ``torch.export`` program of the layer's eval-mode forward
+with the parameters and buffers as explicit inputs, so the weights are
+stored once. ``load`` returns a :class:`TranslatedLayer` over that program
+(the flash forward runs in it as the registered operator
+``paddle_tpu_torch::flash_fwd``), or the state dict when there is none.
 """
 from __future__ import annotations
 
 import dis
 import gc
+import io
+import os
+import pickle
 import time
 import types
 import warnings
@@ -54,11 +84,47 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 from torch.utils import _pytree as pytree
 
+from . import dy2static
+from .dy2static import GraphBreakError
+
 __all__ = ["to_static", "not_to_static", "StaticFunction", "enable_to_static",
-           "add_capture_listener", "remove_capture_listener"]
+           "add_capture_listener", "remove_capture_listener", "save", "load",
+           "TranslatedLayer", "dy2static", "GraphBreakError"]
 
 _enabled = [True]
 _capture_listeners: List = []
+
+
+def _is_host_read(err: BaseException) -> bool:
+    """Whether a capture's error is a graph break: a host read of a device
+    value (the card's sync debug mode, a call CUDA refuses while capturing)
+    or a construct dy2static cannot capture."""
+    if isinstance(err, GraphBreakError):
+        return True
+    msg = str(err)
+    return isinstance(err, RuntimeError) and (
+        "synchronizing CUDA operation" in msg
+        or "operation not permitted when stream is capturing" in msg)
+
+
+class _CaptureBreak(Exception):
+    """A capture under ``full_graph=False`` met a graph break; carries the
+    :class:`GraphBreakError` with the frames to split at."""
+
+    def __init__(self, error: GraphBreakError):
+        super().__init__(str(error))
+        self.error = error
+
+
+class _PiecewiseUnsafe(RuntimeError):
+    """A piecewise split was built but is unsafe at runtime: a carried
+    value of another type than tensors and numbers, or (``grad``) a carried
+    tensor that requires grad while the code after the break
+    differentiates."""
+
+    def __init__(self, msg: str, grad: bool = False):
+        super().__init__(msg)
+        self.grad = grad
 
 
 def add_capture_listener(fn) -> None:
@@ -116,8 +182,11 @@ class _Captured:
         self.count_delta = count_delta
 
     def load(self, args) -> None:
-        for dst, src in zip(_tensors(self.static_args), _tensors(args)):
-            dst.copy_(src)
+        # no_grad: a static input may require grad (a leaf the step
+        # differentiates), and an in-place copy into such a leaf is refused
+        with torch.no_grad():
+            for dst, src in zip(_tensors(self.static_args), _tensors(args)):
+                dst.copy_(src)
 
 
 class StaticFunction:
@@ -130,7 +199,10 @@ class StaticFunction:
                  full_graph: bool = True):
         if isinstance(layers, torch.nn.Module):
             layers = [layers]
-        self._fn = fn
+        self._orig_fn = fn
+        # dy2static: tensor-dependent if/while/for become runtime dispatch
+        # (select under a capture, plain Python otherwise)
+        self._fn = dy2static.convert(fn)
         # the program's name in capture events; an owner may rename it
         self.name = str(getattr(fn, "__qualname__", None)
                         or getattr(fn, "__name__", None) or repr(fn))
@@ -141,6 +213,8 @@ class StaticFunction:
                                      or self._scalers)
         self._full_graph = bool(full_graph)
         self._fallback_eager = False
+        self._piecewise = None  # set after a successful graph-break split
+        self._split_depth = 0  # recursion guard for nested splits
         self._warmed = set()  # signatures whose warm-up call ran
         self._graphs: Dict[Any, _Captured] = {}
         self._pool = None
@@ -153,7 +227,7 @@ class StaticFunction:
         from ..amp.grad_scaler import AmpScaler
         from ..optimizer.optimizer import Optimizer
 
-        fn = self._fn
+        fn = self._orig_fn
         found = []
         for cell in getattr(fn, "__closure__", None) or ():
             try:
@@ -202,7 +276,7 @@ class StaticFunction:
 
     def _eager(self) -> bool:
         return (not _enabled[0] or self._fallback_eager
-                or getattr(self._fn, "_not_to_static", False))
+                or getattr(self._orig_fn, "_not_to_static", False))
 
     # -- call ----------------------------------------------------------------
     def __call__(self, *args, **kwargs):
@@ -210,13 +284,27 @@ class StaticFunction:
             self._discover()
             self._needs_discovery = False
         self._called = True
+        if self._piecewise is not None and not self._eager():
+            return self._call_piecewise(args, kwargs)
         call_args = (args, kwargs)
         dev = None if self._eager() else self._device(call_args)
         if dev is None:
-            return self._fn(*args, **kwargs)
-        g = self._graph_for(call_args, dev)
+            return self._orig_fn(*args, **kwargs)
+        try:
+            g = self._graph_for(call_args, dev)
+        except _CaptureBreak as brk:
+            # split outside the handler: the failed capture's frames (and
+            # the autograd graph they hold) go with the exception
+            g = brk.error
+        if isinstance(g, GraphBreakError):
+            return self._split(g, args, kwargs)
         if g is None:  # a warm-up call, or the eager fallback
-            return self._fn(*args, **kwargs)
+            # detached, as a replay's: an autograd graph the caller keeps
+            # alive into the next call (the capture) would tie the
+            # capture's backward to this call's stream
+            return pytree.tree_map(
+                lambda x: x.detach() if isinstance(x, torch.Tensor) else x,
+                self._orig_fn(*args, **kwargs))
         g.load(call_args)
         for buf, o in zip(g.lr_bufs, self._optimizers):
             buf.fill_(o.get_lr())
@@ -293,7 +381,8 @@ class StaticFunction:
                 # a host read during the capture raises here, with its place
                 torch.cuda.set_sync_debug_mode("error")
                 try:
-                    out = self._fn(*static[0], **static[1])
+                    with dy2static.select_mode(True, dev.type):
+                        out = self._fn(*static[0], **static[1])
                 except Exception as e:  # noqa: BLE001 - reported below
                     inner = e
                     raise
@@ -328,21 +417,37 @@ class StaticFunction:
             return None
         if err is not None:
             self._abandon_capture()
-            reason = f"{type(err).__name__}: {err}"
-            if self._full_graph:
-                raise RuntimeError(
-                    "to_static could not capture the step as a CUDA graph "
-                    f"(full_graph=True): {reason}") from err
-            warnings.warn(
-                "to_static(full_graph=False): the step cannot be captured as "
-                f"a CUDA graph ({reason}); running the whole function "
-                "eagerly from now on.", stacklevel=3)
-            self._fallback_eager = True
-            return None
+            return self._capture_failed(err)
         captured = _Captured(graph, static, out, lr_bufs, step_delta,
                              count_delta)
         _notify_capture(self.name, time.perf_counter() - t_capture)
         return captured
+
+    def _capture_failed(self, err: BaseException) -> None:
+        """A capture raised ``err``: a graph break raises
+        :class:`GraphBreakError` (``full_graph=True``) or asks the caller to
+        split (``_CaptureBreak``); any other error raises, or makes the
+        function eager from now on (``full_graph=False``)."""
+        if _is_host_read(err):
+            brk = dy2static.graph_break_error(err)
+            if isinstance(err, GraphBreakError):  # dy2static's own words
+                brk.args = err.args
+            if self._full_graph:
+                raise GraphBreakError(
+                    "to_static could not capture the step as a CUDA graph "
+                    f"(full_graph=True): {brk}") from err
+            raise _CaptureBreak(brk) from None
+        reason = f"{type(err).__name__}: {err}"
+        if self._full_graph:
+            raise RuntimeError(
+                "to_static could not capture the step as a CUDA graph "
+                f"(full_graph=True): {reason}") from err
+        warnings.warn(
+            "to_static(full_graph=False): the step cannot be captured as "
+            f"a CUDA graph ({reason}); running the whole function "
+            "eagerly from now on.", stacklevel=4)
+        self._fallback_eager = True
+        return None
 
     @staticmethod
     def _state_of(o):
@@ -366,6 +471,252 @@ class StaticFunction:
             s._interleave_snaps.clear()
             s._interleaved_opts.clear()
 
+    # -- piecewise capture (full_graph=False) ------------------------------
+    def _call_piecewise(self, args, kwargs):
+        """A call of the split function after its trial. It takes no
+        snapshot of the training state. A later call can still prove unsafe
+        (the break may bind another type on another branch): the call then
+        finishes eagerly from where it stands — the prefix ran as the eager
+        function would have — and the function runs eagerly from the next
+        call on. A carried tensor that requires grad while the code after
+        the break differentiates cannot be finished so (its history through
+        the captured prefix is gone): that raises, and the prefix's effects
+        stand."""
+        def demote(why):
+            warnings.warn(
+                "to_static(full_graph=False): piecewise capture became "
+                f"unsafe ({why}); this call finishes eagerly and the whole "
+                "function runs eagerly from now on.", stacklevel=5)
+            self._piecewise = None
+            self._fallback_eager = True
+
+        try:
+            return self._piecewise.later(args, kwargs, demote)
+        except _PiecewiseUnsafe as why:
+            self._piecewise = None
+            self._fallback_eager = True
+            raise RuntimeError(
+                "to_static(full_graph=False): piecewise capture became "
+                f"unsafe on a later call ({why}); the captured prefix has "
+                "run and its effects stand; the whole function runs eagerly "
+                "from the next call on") from None
+
+    def _split(self, err: GraphBreakError, args, kwargs):
+        """After a graph break under ``full_graph=False``: split the
+        function at the breaking statement and run this call piecewise (the
+        trial, the one call that takes a snapshot of the training state),
+        or, where no safe split exists, run it and every later call
+        eagerly."""
+        if self._split_depth < 3:
+            piecewise = self._build_piecewise(err)
+            if piecewise is not None:
+                snap = self._snapshot_host_state()
+                try:
+                    out = piecewise(*args, **kwargs)
+                except Exception as why:  # noqa: BLE001 - demoted below
+                    # any failure of the trial demotes: the state goes back
+                    # first, so a prefix that stepped an optimizer does not
+                    # step twice; a user's own error re-raises from the
+                    # eager run below with clean state
+                    self._restore_host_state(snap)
+                    warnings.warn(
+                        "to_static(full_graph=False): piecewise capture "
+                        f"unsafe ({why}); falling back to whole-function "
+                        "eager execution.", stacklevel=3)
+                else:
+                    info = piecewise._info
+                    warnings.warn(
+                        "to_static(full_graph=False): graph break at line "
+                        f"{info['line']} ({info['stmt']!r}) — piecewise "
+                        "capture: prefix and suffix run captured, each its "
+                        "own graph; only the breaking statement runs "
+                        "eagerly each call (host side effects re-execute; "
+                        f"carried locals: {info['carry1']}).", stacklevel=3)
+                    self._piecewise = piecewise
+                    return out
+        warnings.warn(
+            "to_static(full_graph=False): graph break — the step cannot be "
+            "captured as a CUDA graph and no safe split exists; running "
+            f"{getattr(self._orig_fn, '__qualname__', self._orig_fn)} "
+            f"eagerly from now on. Reason: {err}", stacklevel=3)
+        self._fallback_eager = True
+        return self._orig_fn(*args, **kwargs)
+
+    def _build_piecewise(self, err: GraphBreakError):
+        """The split execution path after a graph break, or None.
+
+        ``dy2static.split_at_break`` cuts ``fn`` at the breaking top-level
+        statement; the prefix and the suffix become StaticFunctions over
+        this one's layers, optimizers and scalers (each its own graph), and
+        the breaking statement runs eagerly each call. Runtime rules:
+        carried values are tensors or numbers, and where the code after the
+        break differentiates, no carried tensor may require grad (a
+        captured prefix hands its outputs over detached); on the trial a
+        violation raises ``_PiecewiseUnsafe`` and the caller demotes. The
+        returned function's ``later(args, kwargs, demote)`` runs a later
+        call: a carry of another type calls ``demote`` and finishes the
+        call eagerly (the break and the suffix's plain code on the carry as
+        it is); a carried tensor that requires grad still raises."""
+        import inspect
+
+        fn = self._orig_fn
+        code = getattr(fn, "__code__", None)
+        if code is None:
+            return None
+        src_file = code.co_filename
+        src_base = getattr(inspect.unwrap(fn), "__code__", code).co_firstlineno
+        # every same-file frame, deepest first: a break inside a same-file
+        # helper maps outside this function's body, but the call-site
+        # frame still splits; converted code carries lines relative to the
+        # function start
+        parts = None
+        for f, ln in getattr(err, "frames", ()):
+            if f == src_file:
+                line = ln
+            elif f == f"<dy2static:{src_file}>":
+                line = src_base + ln - 1
+            else:
+                continue
+            parts = dy2static.split_at_break(fn, line)
+            if parts is not None:
+                break
+        if parts is None:
+            return None
+        pre_fn, brk_fn, suf_fn, info = parts
+        kw = dict(layers=self._layers, optimizers=self._optimizers,
+                  scalers=self._scalers, full_graph=False)
+        pre_sf = StaticFunction(pre_fn, **kw)
+        suf_sf = StaticFunction(suf_fn, **kw)
+        pre_sf.name, suf_sf.name = f"{self.name}:prefix", f"{self.name}:suffix"
+        pre_sf._split_depth = suf_sf._split_depth = self._split_depth + 1
+        differentiates = info["differentiates"]
+
+        def unsafe(carry, stage) -> Optional[_PiecewiseUnsafe]:
+            for k, v in carry.items():
+                if isinstance(v, torch.Tensor):
+                    if differentiates and v.requires_grad:
+                        return _PiecewiseUnsafe(
+                            f"{stage} carries tensor {k!r}, which requires "
+                            "grad, across the split while the code after "
+                            "the break differentiates — a captured prefix "
+                            "hands it over without its grad history",
+                            grad=True)
+                elif not isinstance(v, (int, float, bool, complex,
+                                        type(None))):
+                    return _PiecewiseUnsafe(
+                        f"{stage} carries non-tensor value {k!r} of type "
+                        f"{type(v).__name__}")
+            return None
+
+        def detached(carry):
+            # what a captured prefix hands over, on every call alike: a
+            # backward through a carry raises instead of silently missing
+            # the prefix's graph (the reference's carry marks)
+            return {k: v.detach() if isinstance(v, torch.Tensor) else v
+                    for k, v in carry.items()}
+
+        def run(args, kw, demote):
+            carry = pre_sf(*args, **kw)
+            carry2 = None
+            why = unsafe(carry, "prefix")
+            if why is None:
+                carry2 = brk_fn(detached(carry))
+                why = unsafe(carry2, "break")
+                if why is None:
+                    return suf_sf(detached(carry2))
+            if demote is None or why.grad:
+                raise why
+            demote(why)
+            if carry2 is None:
+                carry2 = brk_fn(carry)
+            return suf_fn(carry2)
+
+        def piecewise(*args, **kw):
+            return run(args, kw, None)
+
+        piecewise.later = run
+        piecewise._info = info
+        piecewise._prefix_sf, piecewise._suffix_sf = pre_sf, suf_sf
+        return piecewise
+
+    # -- training state snapshot (piecewise trial safety) --------------------
+    def _generators_of(self) -> List[torch.Generator]:
+        from ..base import random as _random
+
+        devs = {p.device for p in self._params()}
+        return [g for d in sorted(devs, key=str)
+                for g in (_random.get_generator(d), _random.sr_generator(d))]
+
+    def _snapshot_host_state(self):
+        """Copies of the training state a prefix could commit: parameters,
+        buffers and gradients, the optimizers' accumulators and step
+        counts, the scalers' state and the generators. Makes a piecewise
+        attempt atomic: if it proves unsafe mid-call the state goes back
+        before the eager rerun (else a prefix that stepped the optimizer
+        would step again). State is written in place on restore, so
+        captured graphs keep their addresses."""
+        params = self._params()
+        bufs = [b for m in self._layers for b in m.buffers()]
+        with torch.no_grad():
+            return {
+                "values": [(t, t.detach().clone()) for t in params + bufs],
+                "grads": [(p, None if p.grad is None else p.grad.detach().clone())
+                          for p in params],
+                "optim": [(o, {a: {k: t.clone() for k, t in st.items()}
+                               for a, st in o._accumulators.items()},
+                           o._global_step, self._state_of(o)[1][1])
+                          for o in self._optimizers],
+                "scalers": [(s, [None if t is None else t.clone() for t in
+                                 (s._scale, s._good_steps, s._bad_steps,
+                                  s._found_inf)],
+                             (s._n_skipped_steps, s._last_skip_step,
+                              s._n_updates)) for s in self._scalers],
+                "rng": [(g, g.get_state()) for g in self._generators_of()],
+            }
+
+    def _restore_host_state(self, snap) -> None:
+        with torch.no_grad():
+            for t, v in snap["values"]:
+                t.copy_(v)
+            for p, g in snap["grads"]:
+                if g is None:
+                    p.grad = None
+                elif p.grad is None or p.grad.shape != g.shape:
+                    p.grad = g
+                else:
+                    p.grad.copy_(g)
+            for o, accs, step, beta_vecs in snap["optim"]:
+                live = o._accumulators
+                kept = {}
+                for a, st in accs.items():
+                    cur = live.get(a, {})
+                    kept[a] = {}
+                    for k, v in st.items():
+                        t = cur.get(k)
+                        if t is not None and t.shape == v.shape:
+                            t.copy_(v)
+                            kept[a][k] = t
+                        else:
+                            kept[a][k] = v
+                o._accumulators = kept
+                o._global_step = step
+                if beta_vecs is not None:
+                    o._beta_vecs = beta_vecs
+            for s, tensors, counters in snap["scalers"]:
+                live = [s._scale, s._good_steps, s._bad_steps, s._found_inf]
+                for i, (cur, v) in enumerate(zip(live, tensors)):
+                    if v is None or cur is None:
+                        live[i] = v
+                    else:
+                        cur.copy_(v)
+                (s._scale, s._good_steps, s._bad_steps, s._found_inf) = live
+                (s._n_skipped_steps, s._last_skip_step, s._n_updates) = counters
+                s._opt_states.clear()
+                s._interleave_snaps.clear()
+                s._interleaved_opts.clear()
+            for g, st in snap["rng"]:
+                g.set_state(st)
+
     # -- multi-step --------------------------------------------------------------
     def multi_step(self, *stacked_args, steps: Optional[int] = None,
                    lr_schedule=None):
@@ -387,6 +738,11 @@ class StaticFunction:
             raise RuntimeError(
                 "multi_step requires one regular call first (to create "
                 "optimizer state and cache the step's structure)")
+        if self._fallback_eager or self._piecewise is not None:
+            raise RuntimeError(
+                "multi_step requires full-graph capture, but this "
+                "function hit a graph break (full_graph=False) and runs "
+                "piecewise or eagerly; fix the break or use full_graph=True")
         if steps is not None:
             n = int(steps)
             per_step = lambda t: stacked_args  # noqa: E731
@@ -458,7 +814,7 @@ class StaticFunction:
                 args = per_step(t)
                 outs.append(pytree.tree_map(
                     lambda x: x.detach() if isinstance(x, torch.Tensor) else x,
-                    self._fn(*args)))
+                    self._orig_fn(*args)))
         finally:
             for o in self._optimizers:
                 o._lr_override = None
@@ -488,3 +844,197 @@ def to_static(function=None, input_spec=None, build_strategy=None,
     if function is not None:
         return decorate(function)
     return decorate
+
+
+# ---------------------------------------------------------------------------
+# save / load (reference: jit.save / jit.load, its StableHLO export replaced
+# by a torch.export program)
+# ---------------------------------------------------------------------------
+
+FORMAT = "paddle_tpu_torch.jit.v1"
+_REFERENCE_FORMAT = "paddle_tpu.jit.v1"
+
+
+def _spec_of(s, device: torch.device) -> torch.Tensor:
+    """An example input for one ``input_spec`` entry: a ``(shape, dtype)``
+    pair or any object with ``.shape`` and ``.dtype`` (the reference's
+    ``static.InputSpec`` included)."""
+    from ..base.dtype import to_torch_dtype
+
+    if hasattr(s, "shape"):
+        shape, dtype = s.shape, getattr(s, "dtype", None) or "float32"
+    else:
+        shape = s[0]
+        dtype = s[1] if len(s) > 1 else "float32"
+    if any(d is None or int(d) < 0 for d in shape):
+        raise ValueError(f"jit.save: input_spec shape {tuple(shape)} has a "
+                         "dynamic dimension; give every dimension")
+    if not isinstance(dtype, (str, torch.dtype)):
+        dtype = getattr(dtype, "name", None) or str(dtype)
+    return torch.zeros(tuple(int(d) for d in shape),
+                       dtype=to_torch_dtype(dtype), device=device)
+
+
+class _PureForward(torch.nn.Module):
+    """``layer``'s forward with its parameters and buffers as explicit
+    inputs (``torch.func.functional_call``), the reference's
+    ``pure_forward(param_arrays, buffer_arrays, *xs)``. The layer is held
+    outside the module tree, so an export stores no weights."""
+
+    def __init__(self, layer, param_names, buffer_names):
+        super().__init__()
+        self._held = [layer]
+        self._names = (list(param_names), list(buffer_names))
+
+    def forward(self, params, buffers, *xs):
+        pn, bn = self._names
+        state = {**dict(zip(pn, params)), **dict(zip(bn, buffers))}
+        return torch.func.functional_call(self._held[0], state, xs)
+
+
+def save(layer, path, input_spec=None, **config):
+    """Save a layer for inference: ``{path}.pdiparams`` (the state dict as
+    numpy arrays, bf16 as raw ``uint16``) and ``{path}.pdmodel`` (meta:
+    ``format``, ``class``, ``param_names``, ``buffer_names``, ``exported``,
+    and the names stored as ``uint16`` bf16). With ``input_spec`` (a list of
+    ``(shape, dtype)`` pairs or objects with ``.shape``/``.dtype``),
+    ``exported`` is a ``torch.export`` program of the eval-mode forward on
+    the layer's device, whose parameters and buffers are inputs."""
+    from ..framework.io import to_numpy
+
+    if not isinstance(layer, torch.nn.Module):
+        raise TypeError("jit.save expects a Layer")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    param_names = [k for k, _ in layer.named_parameters()]
+    buffer_names = [k for k, _ in layer.named_buffers()]
+    tensors = {**layer.state_dict(), **dict(layer.named_buffers())}
+    state = {k: to_numpy(v) for k, v in tensors.items()}
+    bf16 = sorted(k for k, v in tensors.items() if v.dtype == torch.bfloat16)
+    with open(path + ".pdiparams", "wb") as f:
+        pickle.dump(state, f, protocol=4)
+
+    exported, device = None, None
+    if input_spec is not None:
+        params = tuple(p.detach() for _, p in layer.named_parameters())
+        buffers = tuple(b for _, b in layer.named_buffers())
+        device = (params or buffers)[0].device if (params or buffers) \
+            else torch.device("cpu")
+        xs = [_spec_of(s, device) for s in input_spec]
+        was_training = layer.training
+        layer.eval()
+        try:
+            with torch.no_grad():
+                program = torch.export.export(
+                    _PureForward(layer, param_names, buffer_names),
+                    (params, buffers, *xs), strict=False)
+        finally:
+            layer.train(was_training)
+        # the example inputs are the weights: the program keeps none of them
+        try:
+            program.example_inputs = None
+        except AttributeError:  # a torch whose property has no setter
+            program._example_inputs = None
+        buf = io.BytesIO()
+        torch.export.save(program, buf)
+        exported = buf.getvalue()
+
+    meta = {
+        "format": FORMAT,
+        "class": type(layer).__name__,
+        "param_names": param_names,
+        "buffer_names": buffer_names,
+        "exported": exported,
+        "bfloat16": bf16,
+        "device": None if device is None else device.type,
+    }
+    with open(path + ".pdmodel", "wb") as f:
+        pickle.dump(meta, f, protocol=4)
+
+
+class TranslatedLayer:
+    """Inference-only callable over a loaded ``torch.export`` program
+    (reference: ``jit/translated_layer.py``): ``num_inputs`` data inputs,
+    the weights fed from ``.pdiparams`` on every call."""
+
+    def __init__(self, program, params, buffers):
+        self._program = program
+        self._module = program.module()
+        self._params = tuple(params)
+        self._buffers = tuple(buffers)
+        n_state = len(self._params) + len(self._buffers)
+        # data-input arity: the program's inputs minus the weights (the
+        # Predictor sizes its feed slots from this)
+        self.num_inputs = max(
+            len(program.graph_signature.user_inputs) - n_state, 1)
+
+    @property
+    def program(self):
+        """The ``torch.export.ExportedProgram``."""
+        return self._program
+
+    def __call__(self, *xs):
+        with torch.no_grad():
+            return self._module(self._params, self._buffers, *xs)
+
+    def eval(self):
+        return self
+
+    def train(self, mode: bool = True):
+        raise RuntimeError("TranslatedLayer is inference-only (exported)")
+
+
+class ForeignProgramError(ValueError):
+    """A ``.pdmodel`` whose program the port cannot run (a StableHLO export
+    of the JAX package). ``state`` holds the ``.pdiparams`` it read."""
+
+    def __init__(self, msg, state):
+        super().__init__(msg)
+        self.state = state
+
+
+def _program_on(meta, dev: torch.device):
+    """The exported program of ``meta`` with its device arguments moved to
+    ``dev``. Tracing asked no device of the flash path (see
+    ``nn.functional.attention._use_flash``), so a program saved on the CPU
+    holds the same ``paddle_tpu_torch::flash_fwd`` nodes as one saved on the
+    card, and launches the kernel there."""
+    program = torch.export.load(io.BytesIO(meta["exported"]))
+    if meta.get("device") and meta["device"] != dev.type:
+        from torch.export.passes import move_to_device_pass
+
+        program = move_to_device_pass(program, dev)
+    return program
+
+
+def load(path, device=None, **config):
+    """Load a :func:`save`'d model: a :class:`TranslatedLayer` on
+    ``device`` (default the CUDA card, which raises where CUDA is absent;
+    ``"cpu"`` on request) when the files hold a program, else the state
+    dict as tensors on the host. A reference ``.pdmodel`` with a StableHLO
+    program raises :class:`ForeignProgramError`, which carries the state
+    read from its ``.pdiparams``."""
+    from ..base.device import get_device
+    from ..framework.io import from_numpy
+    from ..ops import flash_attention  # noqa: F401 - registers paddle_tpu_torch::flash_fwd
+
+    with open(path + ".pdmodel", "rb") as f:
+        meta = pickle.load(f)
+    with open(path + ".pdiparams", "rb") as f:
+        raw = pickle.load(f)
+    bf16 = set(meta.get("bfloat16") or ())
+    state = {k: from_numpy(v, k in bf16) for k, v in raw.items()}
+    if not meta.get("exported"):
+        return state
+    if meta.get("format") != FORMAT:
+        raise ForeignProgramError(
+            f"{path}.pdmodel holds a program of format "
+            f"{meta.get('format')!r} (a StableHLO export of the JAX package), "
+            "which the port cannot run; its weights were read from "
+            f"{path}.pdiparams (this error's .state): build the layer in "
+            "paddle_tpu_torch, load them and save it with "
+            "paddle_tpu_torch.jit.save", state)
+    dev = get_device(device)
+    program = _program_on(meta, dev)
+    params = [state[k].to(dev) for k in meta["param_names"]]
+    buffers = [state[k].to(dev) for k in meta["buffer_names"]]
+    return TranslatedLayer(program, params, buffers)

@@ -60,8 +60,13 @@ def _use_flash(q: torch.Tensor, mask, dropout_p: float) -> bool:
     """The reference's ``_use_pallas`` gate with the CUDA card in place of
     the TPU: no mask, no dropout, head_dim in {64, 128, 256}, seq % 128.
     The flash path is differentiable (forward and backward kernels), so
-    training and inference take it alike."""
-    if mask is not None or dropout_p > 0 or q.device.type != "cuda":
+    training and inference take it alike. Under ``torch.export``
+    (``jit.save``) the device is not asked: the program holds the registered
+    operator whatever device it was traced on, and the operator launches the
+    kernel once the program runs on the card."""
+    if mask is not None or dropout_p > 0:
+        return False
+    if q.device.type != "cuda" and not torch.compiler.is_exporting():
         return False
     return q.shape[-1] in HEAD_DIMS and q.shape[1] % 128 == 0
 

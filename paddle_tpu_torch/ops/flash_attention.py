@@ -18,7 +18,12 @@ query heads in f32 and casts once.
 
 Public layout is paddle's ``[B, S, H, D]``; the kernels read and write it
 through strides. :class:`FlashAttention` is the autograd seam in place of
-the reference's ``custom_vjp``.
+the reference's ``custom_vjp``. The forward is also the registered operator
+``paddle_tpu_torch::flash_fwd`` (:func:`flash_fwd_op`): its CUDA
+implementation is the kernel wrapper, its CPU one the plain version, and
+its fake implementation gives the output shapes, so ``torch.export``
+records the kernel as one node of an exported program (``jit.save``) and
+a CUDA graph still records its launch.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 from . import kernels
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_fwd_plain",
+           "flash_fwd_op",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "FlashAttention", "NEG_INF"]
@@ -150,6 +156,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch("flash_attention_fwd", err)
     flash_attention_fwd.launches += 1
+    if kernels.OBSERVERS:
+        kernels.report("flash_attention_fwd", out, lse)
     flash_attention_fwd.variant_launches[variant] += 1
     return out, lse
 
@@ -297,6 +305,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch("flash_attention_bwd_dq", err)
     flash_attention_bwd_dq.launches += 1
+    if kernels.OBSERVERS:
+        kernels.report("flash_attention_bwd_dq", dq)
     flash_attention_bwd_dq.variant_launches[variant] += 1
     return dq
 
@@ -328,6 +338,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch("flash_attention_bwd_dkv", err)
     flash_attention_bwd_dkv.launches += 1
+    if kernels.OBSERVERS:
+        kernels.report("flash_attention_bwd_dkv", dk, dv)
     flash_attention_bwd_dkv.variant_launches[variant] += 1
     return dk, dv
 
@@ -347,6 +359,30 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
     return dq, dk, dv
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, scale: Optional[float]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel as a registered operator: (out, lse). CUDA tensors
+    launch the kernel (:func:`flash_attention_fwd`, which counts it)."""
+    return flash_attention_fwd(q, k, v, causal, scale)
+
+
+@flash_fwd_op.register_kernel("cpu")
+def _flash_fwd_op_cpu(q, k, v, causal, scale):
+    _check(q, k, v)
+    out, lse = flash_attention_fwd_plain(q, k, v, causal, scale)
+    return out.contiguous(), lse
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_op_fake(q, k, v, causal, scale):
+    b, sq, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
 class FlashAttention(torch.autograd.Function):
     """Autograd seam mirroring the reference's ``custom_vjp``: the forward
     kernel saves (q, k, v, out, lse); the backward runs the dQ and dK/dV
@@ -354,7 +390,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        out, lse = flash_fwd_op(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
@@ -369,5 +405,10 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Fused attention on ``[B, S, H, D]``; GQA and causal masking."""
-    return FlashAttention.apply(q, k, v, causal, scale)
+    """Fused attention on ``[B, S, H, D]``; GQA and causal masking. Without
+    a gradient to take, the operator is called directly (an exported
+    program holds it as one node)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale)
+    return flash_fwd_op(q, k, v, causal, scale)[0]

@@ -335,6 +335,8 @@ def fused_adamw_multi_update(ps: List[torch.Tensor], gs: List[torch.Tensor],
             float(1 - beta1), float(beta2), float(1 - beta2), stream)
         kernels.check_launch("fused_adamw", err)
         fused_adamw_multi_update.launches += 1
+        if kernels.OBSERVERS:
+            kernels.report("fused_adamw", *(ps[i] for i, _ in part))
     return ps, ms, vs
 
 

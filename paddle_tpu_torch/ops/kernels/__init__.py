@@ -29,7 +29,20 @@ from typing import Callable, Dict, Iterable, Optional
 __all__ = [
     "KERNELS", "kernel_wrapper", "launch_counts", "reset_launch_counts",
     "build", "load", "build_dir", "SOURCES", "HEAD_DIMS", "dtype_code",
+    "OBSERVERS", "report",
 ]
+
+# observers of the kernels' outputs (``amp.debugging``): a ctypes launch is
+# invisible to the dispatcher, so each wrapper hands what it wrote to these,
+# ``fn(kernel_name, outputs)``, when any is installed
+OBSERVERS: list = []
+
+
+def report(name: str, *outs) -> None:
+    """Hand a launch's outputs to every observer (called by the wrappers
+    only when ``OBSERVERS`` is not empty)."""
+    for obs in list(OBSERVERS):
+        obs(name, outs)
 
 _HERE = Path(__file__).resolve().parent
 

@@ -893,6 +893,8 @@ def paged_decode(q, k_pool, v_pool, tables, cache_len) -> torch.Tensor:
                          "paged_decode_attention_launch", q,
                          (k_pool, v_pool), tables, cache_len)
     paged_decode.launches += 1
+    if kernels.OBSERVERS:
+        kernels.report("paged_decode_attention", out)
     return out
 
 
@@ -928,6 +930,8 @@ def paged_decode_int8(q, k_pool, v_pool, k_scale, v_scale, tables,
                          "paged_decode_attention_int8_launch", q,
                          (k_pool, v_pool, k_scale, v_scale), tables, cache_len)
     paged_decode_int8.launches += 1
+    if kernels.OBSERVERS:
+        kernels.report("paged_decode_attention_int8", out)
     return out
 
 

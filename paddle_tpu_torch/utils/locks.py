@@ -306,17 +306,20 @@ def instrument_locks() -> bool:
     hook. Idempotent; returns True when newly installed."""
     if _instrumented[0]:
         return False
-    threading.Lock = _lock_factory
-    threading.RLock = _rlock_factory
-    _instrumented[0] = True
     try:
+        # imported before the factories are patched: a module-level lock
+        # its import builds would stay traced, and pass the
+        # ``thread.preempt`` chaos site, after ``uninstrument_locks()``
         from ..distributed.communication.flight_recorder import (
             register_dump_extra,
         )
-
-        register_dump_extra(_dump_held_locks)
     except Exception:  # flight recorder optional at this layer
-        pass
+        register_dump_extra = None
+    threading.Lock = _lock_factory
+    threading.RLock = _rlock_factory
+    _instrumented[0] = True
+    if register_dump_extra is not None:
+        register_dump_extra(_dump_held_locks)
     return True
 
 

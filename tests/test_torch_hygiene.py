@@ -48,6 +48,10 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import paddle_tpu_torch.testing.disagg_worker\n"
         "import paddle_tpu_torch.testing.supervisor_worker\n"
         "import paddle_tpu_torch.testing.router_worker\n"
+        "import paddle_tpu_torch.jit.dy2static, paddle_tpu_torch.framework\n"
+        "import paddle_tpu_torch.analysis.astutils, paddle_tpu_torch.autograd\n"
+        "import paddle_tpu_torch.amp.debugging\n"
+        "import paddle_tpu_torch.testing.capture\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
         "assert not bad, bad\n"

@@ -537,6 +537,57 @@ def test_flash_autograd_on_card_matches_plain_backward(dev, dtype):
             assert _rel(t.grad, w) <= 1e-2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_registered_op_equals_the_direct_launch(dev, dtype):
+    """``paddle_tpu_torch::flash_fwd`` (what ``flash_attention`` and an
+    exported program call) launches the same kernel as the wrapper, bitwise,
+    once per call; inside a CUDA graph too."""
+    from paddle_tpu_torch.ops.flash_attention import flash_fwd_op
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q = torch.randn(2, 256, 4, 128, generator=g).to(dev, dtype)
+    k = torch.randn(2, 256, 2, 128, generator=g).to(dev, dtype)
+    v = torch.randn(2, 256, 2, 128, generator=g).to(dev, dtype)
+    want = flash_attention_fwd(q, k, v, True)
+    n0 = flash_attention_fwd.launches
+    got = torch.ops.paddle_tpu_torch.flash_fwd(q, k, v, True, None)
+    assert flash_attention_fwd.launches == n0 + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    graph = torch.cuda.CUDAGraph()
+    flash_fwd_op(q, k, v, True, None)  # warm-up outside the capture
+    with torch.cuda.graph(graph):
+        static = flash_fwd_op(q, k, v, True, None)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(static, want):
+        assert torch.equal(a, b)
+
+
+def test_flash_program_saved_on_the_cpu_launches_on_the_card(dev, tmp_path):
+    """A model saved by ``jit.save`` on the CPU and loaded onto the card runs
+    the flash forward kernel once per layer a call (not the plain
+    attention), and agrees with the CPU model."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    torch.manual_seed(0)
+    cfg = LlamaConfig.tiny(hidden_size=128, num_attention_heads=2,
+                           num_key_value_heads=1)
+    model = LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32)
+    path = str(tmp_path / "m")
+    jit.save(model, path, input_spec=[([2, 128], "int64")])
+    layer = jit.load(path)
+    ids = torch.randint(0, cfg.vocab_size, (2, 128))
+    n0 = flash_attention_fwd.launches
+    got = layer(ids.to(dev))
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == n0 + cfg.num_hidden_layers
+    with torch.no_grad():
+        want = model(ids)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+
+
 ADAMW_COMBOS = [(torch.float32, torch.float32, torch.float32),
                 (torch.float32, torch.float32, torch.bfloat16),
                 (torch.bfloat16, torch.bfloat16, torch.bfloat16),

@@ -133,7 +133,14 @@ def test_metric_attr_matches_reference():
 
 
 def _engines(models, **kw):
+    """One engine of each package over fresh registries. The registries are
+    process-global and cap each metric at 512 series; engines of earlier
+    tests in the same worker process fill them, and a new engine's series
+    past the cap are not exported — in one package and not the other, as
+    the two packages' earlier engines differ in number."""
     jm, tm = models
+    for m in (tmetrics, jmetrics):
+        m.registry().reset()
     args = dict(max_batch=2, max_len=32, block_size=8, num_blocks=8,
                 prompt_pad=16)
     args.update(kw)
