@@ -42,7 +42,14 @@ int4 weight-only and llm.int8 models; and the serving control plane (phase
 over a ``ClusterRouter`` that a ``FleetAutoscaler`` grows from one replica
 to three under an ``AlertManager``'s TTFT burn rule, with capture events
 and the lock sanitizer on, then a drain whose victim is killed mid-drain
-and a retirement back to one replica. Each main path runs
+and a retirement back to one replica; and the deployment path (phase
+16); and collectives and data-parallel training (phase 17): the 17
+collectives, ``DataParallel`` around the flagship step captured under
+NCCL at world size 1, then two gloo ranks on the one card through
+``python -m paddle_tpu_torch.distributed.launch`` (this script re-run as
+each rank, ``--rank17``): the collectives on CUDA against CPU tensors,
+``DataParallel`` at full depth, and group-sharded stages 1-3 at two
+layers against it. Each main path runs
 with every kernel launch count set to 0 just before it and read just
 after; a kernel
 of the path that did not launch, or launched another number of times than
@@ -737,6 +744,47 @@ def adamw_case(torch, dev, gen, sr):
                 nbytes=nbytes, device=device)
 
 
+def adamw_shard_case(torch, dev, gen):
+    """The embedding's two dimension-0 shards, each updated by the kernel
+    with its SR index base (its offset in the whole tensor, as group
+    sharding passes it), against the whole tensor's update by the kernel:
+    bitwise. Returns the elements a shard without its base rounds
+    otherwise (reported: the base is what makes the shards agree)."""
+    from paddle_tpu_torch.ops.fused_adamw import (adamw_scalars_multi,
+                                                  fused_adamw_multi_update)
+
+    whole = list(embedding_inputs(torch, dev, gen))
+    parts = [[t.chunk(2, 0)[r].clone() for t in whole] for r in (0, 1)]
+    loose = [t.chunk(2, 0)[1].clone() for t in whole]
+    salts = torch.tensor([[0x9E3779B9, 0x2545F491]], device=dev)
+
+    def launch(tensors, base):
+        p, g, m, v = tensors
+        sc = adamw_scalars_multi(
+            lr=TRAIN_LR, epsilon=1e-8,
+            beta1_pow=torch.full((1,), 0.9 ** 3, device=dev),
+            beta2_pow=torch.full((1,), 0.999 ** 3, device=dev),
+            weight_decay=[0.01])
+        fused_adamw_multi_update([p], [g], [m], [v], scalars=sc, beta1=0.9,
+                                 beta2=0.999, sr_salts=salts,
+                                 sr_base=None if base is None else [base])
+
+    half = whole[0].numel() // 2
+    launch(whole, None)
+    for r in (0, 1):
+        launch(parts[r], r * half)
+    launch(loose, None)
+    torch.cuda.synchronize()
+    for r in (0, 1):
+        for a, b, name in zip(parts[r], whole, "pgmv"):
+            if not torch.equal(a.view(torch.int16),
+                               b.chunk(2, 0)[r].view(torch.int16)):
+                fail(f"fused AdamW: shard {r}'s {name} with its SR base "
+                     "differs from the whole tensor's update")
+    return int((loose[0].view(torch.int16)
+                != whole[0].chunk(2, 0)[1].view(torch.int16)).sum())
+
+
 def flagship_shapes(cfg=LLAMA_542M):
     """The flagship's parameter shapes, in ``named_parameters`` order: the
     embedding, per layer two norms and seven projections, the final norm
@@ -881,10 +929,9 @@ def adamw_multi_case(torch, dev, gen, dtype=None, sr=True):
                 bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, device=device)
 
 
-def bench_step(model, opt):
+def step_fn(model, opt):
     """``bench.py:479-488``: model(ids) -> cross_entropy -> backward ->
-    step -> clear_grad, under ``jit.to_static``."""
-    from paddle_tpu_torch import jit
+    step -> clear_grad."""
     from paddle_tpu_torch.nn import functional as F
 
     def step(ids, labels):
@@ -896,7 +943,14 @@ def bench_step(model, opt):
         opt.clear_grad()
         return loss
 
-    return jit.to_static(step, layers=[model], optimizers=[opt])
+    return step
+
+
+def bench_step(model, opt):
+    """:func:`step_fn` under ``jit.to_static``."""
+    from paddle_tpu_torch import jit
+
+    return jit.to_static(step_fn(model, opt), layers=[model], optimizers=[opt])
 
 
 def prefix_serving_phase(torch, np, model, cfg, card):
@@ -4363,6 +4417,36 @@ def fleet_capacity(np, model, engine_kw, schedule, prompts, want, card, sync):
     return failures
 
 
+def submit_backlog(router, live, prompts, between=None):
+    """15(b)'s backlog: session ``drain-s<n>`` (requests ``drain-<n>-<j>``
+    of ``prompts``) on live replica ``live[n]``. Each session is pinned to
+    its replica through the router's session affinity before its first
+    request, and the affinity outweighs any load while the backlog goes in:
+    the replicas' loads (``est_queue_delay_s`` grows with each replica's
+    measured step time) would otherwise move a session's later requests,
+    and with them the session, to an idle replica. ``between(idx)`` runs
+    after each request (the CPU test moves the load there). Returns the
+    request ids in submission order."""
+    ids = []
+    weight = router.session_weight
+    for n, idx in enumerate(live):
+        router._sessions[f"drain-s{n}"] = idx
+    router.session_weight = float("inf")
+    try:
+        for n, idx in enumerate(live):
+            for j in range(AUTOSCALE_BACKLOG):
+                rid = f"drain-{n}-{j}"
+                router.submit(rid, prompts[rid],
+                              max_new_tokens=AUTOSCALE_BACKLOG_NEW,
+                              session=f"drain-s{n}")
+                ids.append(rid)
+                if between is not None:
+                    between(idx)
+    finally:
+        router.session_weight = weight
+    return ids
+
+
 def autoscale_phase(torch, np, dev, args, card, trace_kw=None,
                     capacity=True):
     """Phase 15: loadgen's autoscale scenario on the port at full width
@@ -4623,18 +4707,12 @@ def autoscale_phase(torch, np, dev, args, card, trace_kw=None,
             if cache is not None:
                 cache.clear()
         del cache
-        backlog, prompts_b = [], {}
-        for n, idx in enumerate(live):
-            sess = f"drain-s{n}"
-            for j in range(AUTOSCALE_BACKLOG):
-                item = schedule[(n * AUTOSCALE_BACKLOG + j) % len(schedule)]
-                rid = f"drain-{n}-{j}"
-                prompts_b[rid] = rng.randint(
-                    0, cfg.vocab_size, (item["prompt_len"],)).astype(np.int32)
-                router.submit(rid, prompts_b[rid],
-                              max_new_tokens=AUTOSCALE_BACKLOG_NEW,
-                              session=sess)
-                backlog.append(rid)
+        prompts_b = {
+            f"drain-{n}-{j}": rng.randint(0, cfg.vocab_size, (schedule[
+                (n * AUTOSCALE_BACKLOG + j) % len(schedule)]["prompt_len"],)
+            ).astype(np.int32)
+            for n in range(len(live)) for j in range(AUTOSCALE_BACKLOG)}
+        backlog = submit_backlog(router, live, prompts_b)
         placed = sorted({router._sessions[f"drain-s{n}"]
                          for n in range(len(live))})
         failures = []
@@ -5215,6 +5293,663 @@ def deploy_phase(torch, np, dev, args, card, ids, labels):
     debugging_phase(torch, np, dev, args, card, ids, labels)
 
 
+# -- phase 17: collectives and data-parallel training -------------------------
+# (a) NCCL at world size 1 in this process; (b) and (c) two ranks on the one
+# card through `python -m paddle_tpu_torch.distributed.launch --nproc 2`,
+# gloo forced (NCCL puts no two ranks on one device), each rank running
+# this script with --rank17
+DP_STEPS = 3  # (a): the eager warm-up, the capture, a replay; (b): eager
+DP_PER_RANK = TRAIN_BATCH // 2  # (b): B=2 a rank, B=4 in all
+# (b): the two ranks' mean loss against one process's B=4 step (17(a)'s
+# twin), relative: a bf16 step over other GEMM shapes and a bf16 mean of
+# two gradients in place of one, about two bf16 ulps (2 * 2**-8)
+DP_LOSS_REL = 1e-2
+SHARD_DEPTH, SHARD_STEPS = 2, 2  # (c): layers and steps (SR off)
+HALF_BAND = (0.45, 0.55)  # (c): "about halved", as a ratio to DataParallel's
+P17_PROBE_TIMEOUT_S = 180  # a probe launch, building nothing
+P17_RANK_TIMEOUT_S = 900  # the (b)+(c) launch
+COLL_TIMED_NUMEL = 1 << 24  # 64 MB of f32 per timed collective (reported)
+P17_LEVELS = ("os", "os_g", "p_g_os")
+
+
+def p17_inputs(np, world: int, rank: int, seed: int) -> dict:
+    """Rank ``rank``'s inputs of the collective battery (any rank can make
+    every rank's, so each checks its results against numpy)."""
+    rng = np.random.RandomState(seed * 1000 + rank)
+    n = 4 * world
+    return dict(f=rng.randn(n, 6).astype(np.float32),
+                i=rng.randint(-50, 50, (n, 6)).astype(np.int64),
+                lst=rng.randn(world, 2, 3).astype(np.float32))
+
+
+def collective_battery(torch, np, dev, seed: int):
+    """The port's 17 collectives and ``barrier`` on ``dev``'s tensors in the
+    current world, each result against numpy over every rank's inputs:
+    returns ``(results, failures)``. At world sizes 1 and 2 every
+    expectation is exact (a sum of two f32 values has one rounding, as
+    numpy's has)."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed import ReduceOp
+    from paddle_tpu_torch.distributed.communication import stream
+
+    world, rank = D.get_world_size(), D.get_rank()
+    xs = [p17_inputs(np, world, k, seed) for k in range(world)]
+    mine = xs[rank]
+    on = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    f, i = on(mine["f"]), on(mine["i"])
+    want, got = {}, {}
+    stack = lambda key: np.stack([x[key] for x in xs])  # noqa: E731
+    for op, name, fn in ((ReduceOp.SUM, "sum", np.sum),
+                         (ReduceOp.MAX, "max", np.max),
+                         (ReduceOp.MIN, "min", np.min),
+                         (ReduceOp.PROD, "prod", np.prod)):
+        t = f.clone()
+        D.all_reduce(t, op)
+        got[f"all_reduce_{name}"] = t
+        want[f"all_reduce_{name}"] = fn(stack("f"), axis=0).astype(np.float32)
+        t = i.clone()
+        D.all_reduce(t, op)
+        got[f"all_reduce_{name}_int"] = t
+        want[f"all_reduce_{name}_int"] = fn(stack("i"), axis=0)
+    t = f.clone()
+    D.all_reduce(t, ReduceOp.AVG, sync_op=False).wait()
+    got["all_reduce_avg_async"] = t
+    want["all_reduce_avg_async"] = (np.sum(stack("f"), 0).astype(np.float32)
+                                    / np.float32(world))
+    rows = []
+    D.all_gather(rows, i)
+    got["all_gather"] = torch.stack(rows)
+    want["all_gather"] = stack("i")
+    out = torch.empty(world * f.shape[0], 6, device=dev)
+    D.all_gather_into_tensor(out, f)
+    got["all_gather_into_tensor"] = out
+    want["all_gather_into_tensor"] = np.concatenate(stack("f"), 0)
+    objs = []
+    D.all_gather_object(objs, {"rank": rank})
+    got["all_gather_object"] = objs
+    want["all_gather_object"] = [{"rank": k} for k in range(world)]
+    t = f.clone()
+    D.reduce(t, dst=world - 1)
+    got["reduce"] = t
+    want["reduce"] = (np.sum(stack("f"), 0).astype(np.float32)
+                      if rank == world - 1 else mine["f"])
+    t = i.clone()
+    D.broadcast(t, src=world - 1)
+    got["broadcast"] = t
+    want["broadcast"] = xs[world - 1]["i"]
+    n = f.shape[0] // world
+    t = torch.empty(n, 6, device=dev)
+    D.reduce_scatter(t, f.clone())
+    got["reduce_scatter"] = t
+    want["reduce_scatter"] = np.sum(stack("f"), 0).astype(
+        np.float32)[rank * n:(rank + 1) * n]
+    t = torch.empty(2, 3, device=dev)
+    D.scatter(t, list(on(xs[0]["lst"])) if rank == 0 else None, src=0)
+    got["scatter"] = t
+    want["scatter"] = xs[0]["lst"][rank]
+    got["gather"] = torch.stack(D.gather(i, dst=0))
+    want["gather"] = stack("i")
+    outs = []
+    D.alltoall(outs, list(on(mine["lst"])))
+    got["alltoall"] = torch.stack(outs)
+    want["alltoall"] = np.stack([x["lst"][rank] for x in xs])
+    t = torch.empty_like(f)
+    D.alltoall_single(t, f.clone())
+    got["alltoall_single"] = t
+    want["alltoall_single"] = np.concatenate(
+        [x["f"][rank * n:(rank + 1) * n] for x in xs], 0)
+    got["p2p_sendrecv"] = D.p2p_sendrecv(f, src=0, dst=world - 1)
+    want["p2p_sendrecv"] = (xs[0]["f"] if rank == world - 1
+                            else np.zeros_like(mine["f"]))
+    ring = [(k, (k + 1) % world) for k in range(world)]
+    got["ppermute"] = D.ppermute(i, ring)
+    want["ppermute"] = xs[(rank - 1) % world]["i"]
+    if world > 1:
+        right, left = (rank + 1) % world, (rank - 1) % world
+        t = torch.empty_like(i)
+        works = [D.isend(i, dst=right), D.irecv(t, src=left)]
+        for w in works:
+            w.wait()
+        got["isend_irecv"] = t
+        want["isend_irecv"] = xs[left]["i"]
+        t = torch.empty_like(f)
+        if rank == 0:
+            D.send(f, dst=right)
+            D.recv(t, src=left)
+        else:
+            D.recv(t, src=left)
+            D.send(f, dst=right)
+        got["send_recv"] = t
+        want["send_recv"] = xs[left]["f"]
+    t = f.clone()
+    stream.all_reduce(t, use_calc_stream=True)
+    got["stream_all_reduce"] = t
+    want["stream_all_reduce"] = want["all_reduce_sum"]
+    objs = [None]
+    if rank == 0:
+        objs = [{"seed": seed}]
+    D.broadcast_object_list(objs, src=0)
+    got["broadcast_object_list"] = objs
+    want["broadcast_object_list"] = [{"seed": seed}]
+    got["rank_in_trace"] = D.get_rank_in_trace()
+    want["rank_in_trace"] = rank
+    D.barrier()
+    res, failures = {}, []
+    for k, g in got.items():
+        if isinstance(g, torch.Tensor):
+            if g.device.type != torch.device(dev).type:
+                failures.append(f"{k} came back on {g.device}")
+            g = g.cpu().numpy()
+        res[k] = g
+        w = want[k]
+        same = (np.array_equal(g, w) and np.asarray(g).dtype == np.asarray(w).dtype
+                if isinstance(g, np.ndarray) else g == w)
+        if not same:
+            failures.append(f"{k} differs from numpy")
+    return res, failures
+
+
+def time_collectives(torch, dev):
+    """Wall ms (synchronized) of the large collectives on one 64 MB f32
+    tensor, with the bytes each staged through host memory: {name: (ms,
+    GB/s of the tensor's bytes, staged bytes)}. Reported, never gated."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed import communication as C
+
+    world = D.get_world_size()
+    x = torch.ones(COLL_TIMED_NUMEL, device=dev)
+    out = torch.empty(world * COLL_TIMED_NUMEL, device=dev)
+    shard = torch.empty(COLL_TIMED_NUMEL // world, device=dev)
+    calls = {
+        "all_reduce": lambda: D.all_reduce(x),
+        "broadcast": lambda: D.broadcast(x, src=0),
+        "all_gather_into_tensor": lambda: D.all_gather_into_tensor(out, x),
+        "reduce_scatter": lambda: D.reduce_scatter(shard, x),
+        "alltoall_single": lambda: D.alltoall_single(out[:COLL_TIMED_NUMEL], x),
+    }
+    rows = {}
+    for name, fn in calls.items():
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        C.reset_staged_bytes()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows[name] = (ms, x.numel() * 4 / ms / 1e6,
+                      sum(C.staged_bytes().values()))
+    return rows
+
+
+def p17_model(torch, dev, depth, seed, sr):
+    """The flagship's model and optimizer (``bench.py``'s AdamW) at
+    ``depth`` layers, from ``seed``."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    pt_seed(seed)
+    cfg = LlamaConfig(**dict(LLAMA_542M, max_position_embeddings=2048,
+                             num_hidden_layers=depth))
+    m = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    o = AdamW(learning_rate=TRAIN_LR, parameters=m.parameters(),
+              moment_dtype="bfloat16", use_stochastic_rounding=sr, fused=True)
+    return m, o
+
+
+def p17_batch(torch, np, dev, seed):
+    """Phase 7's global batch (labels = ids)."""
+    ids_np = np.random.RandomState(seed).randint(
+        0, LLAMA_542M["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ))
+    ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+    return ids, ids.clone()
+
+
+def dp_local_phase(torch, np, dev, args, card):
+    """17(a): NCCL at world size 1 in this process. Returns the twin's
+    (one process, no DataParallel) losses, which (b) is held against."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.distributed.communication import flight_recorder
+    from paddle_tpu_torch.ops import kernels
+
+    group = D.init_parallel_env()
+    failures = []
+    if group.backend != "nccl" or D.get_world_size() != 1:
+        fail(f"phase 17(a): expected NCCL at world size 1, got {group}")
+    _, bad = collective_battery(torch, np, dev, args.seed)
+    failures += [f"NCCL battery: {b}" for b in bad]
+    ids, labels = p17_batch(torch, np, dev, args.seed)
+    runs = {}
+    for name in ("DataParallel", "twin"):
+        model, opt = p17_model(torch, dev, LLAMA_542M["num_hidden_layers"],
+                               args.seed, sr=True)
+        wrapped = D.DataParallel(model) if name == "DataParallel" else model
+        step = jit.to_static(step_fn(wrapped, opt), layers=[model],
+                             optimizers=[opt])
+        flight_recorder.reset()
+        losses, per_call, times = [], [], []
+        for _ in range(DP_STEPS):
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(ids, labels).detach()))
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_call.append(step_launches(kernels.launch_counts()))
+        captured = [s for s in flight_recorder.recorder().snapshot()
+                    if "captured" in s.detail]
+        runs[name] = dict(
+            losses=losses, per_call=per_call, times=times,
+            graphs=len(step._graphs), captured=len(captured),
+            buckets=len(wrapped._buckets) if name == "DataParallel" else 0,
+            params=[p.detach().cpu() for p in model.parameters()])
+        del model, opt, wrapped, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    dp, twin = runs["DataParallel"], runs["twin"]
+    want = {"flash_attention_fwd": LLAMA_542M["num_hidden_layers"],
+            "flash_attention_bwd_dq": LLAMA_542M["num_hidden_layers"],
+            "flash_attention_bwd_dkv": LLAMA_542M["num_hidden_layers"],
+            "fused_adamw": ADAMW_GROUPS}
+    if dp["per_call"][-1] != want:
+        failures.append(f"a replay's launches {dp['per_call'][-1]} != {want}")
+    if dp["graphs"] != 1 or dp["captured"] != dp["buckets"]:
+        failures.append(f"{dp['graphs']} graphs, {dp['captured']} all-reduces "
+                        f"issued while capturing for {dp['buckets']} buckets")
+    differ = [i for i, (a, b) in enumerate(zip(dp["params"], twin["params"]))
+              if not torch.equal(a, b)]
+    if differ:
+        failures.append(f"after {DP_STEPS} steps {len(differ)} parameters "
+                        f"differ from the twin's (first: {differ[:3]})")
+    if dp["losses"] != twin["losses"]:
+        failures.append(f"losses {dp['losses']} != the twin's {twin['losses']}")
+    print(f"phase 17(a) NCCL world size 1: the 17 collectives and barrier on "
+          f"CUDA tensors equal numpy; DataParallel(Llama-542M bf16, "
+          f"B={TRAIN_BATCH} S={TRAIN_SEQ}, SR on, AdamW fused) under "
+          f"to_static: {dp['buckets']} gradient buckets, all-reduces issued "
+          f"inside the capture {dp['captured']}, graphs {dp['graphs']}, "
+          f"launches a call {dp['per_call']}, losses {dp['losses']} (twin "
+          f"{twin['losses']}), parameters bitwise the twin's after "
+          f"{DP_STEPS} steps: {not differ}; ms a call "
+          f"{[round(t, 2) for t in dp['times']]} (twin "
+          f"{[round(t, 2) for t in twin['times']]}) [{card}]")
+    D.destroy_process_group()
+    if failures:
+        fail("phase 17(a): " + "; ".join(failures))
+    return twin["losses"]
+
+
+def launch_ranks(mode, out, args, script=None, extra=(), backend="gloo",
+                 timeout=P17_RANK_TIMEOUT_S):
+    """``python -m paddle_tpu_torch.distributed.launch --nproc 2`` of
+    ``script`` (this file by default) in rank mode ``mode``; returns
+    ``(exit code, the ranks' logs)``."""
+    import os
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env.pop("PADDLE_DISTRI_BACKEND", None)
+    if backend:
+        env["PADDLE_DISTRI_BACKEND"] = backend
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc", "2", "--log_dir", str(out / "logs"), "--job_id", mode,
+           "--max_restart", "0", str(script or Path(__file__).resolve()),
+           "--rank17", mode, "--out", str(out), "--seed", str(args.seed),
+           *extra]
+    try:
+        rc = subprocess.run(cmd, cwd=here, env=env, timeout=timeout).returncode
+    except subprocess.TimeoutExpired:
+        rc = 124
+    logs = "".join(f"--- {f.name} ---\n{_log_excerpt(f)}\n"
+                   for f in sorted((out / "logs").glob("*.log")))
+    return rc, logs
+
+
+def _log_excerpt(path, n=3000):
+    """A rank log's traceback (from its first), else its last ``n``
+    characters."""
+    text = path.read_text(errors="replace")
+    at = text.find("Traceback")
+    return text[at:at + n] if at >= 0 else text[-n:]
+
+
+def rank_results(out):
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+def p17_probes(torch, np, args, card, tmp):
+    """Phase 17's probes of the card's backends, printed first: NCCL with
+    two ranks on the one device, and which collectives gloo takes on CUDA
+    tensors and whether it reduces bf16."""
+    out = tmp / "nccl2"
+    out.mkdir()
+    rc, logs = launch_ranks("nccl2", out, args, backend="",
+                            timeout=P17_PROBE_TIMEOUT_S)
+    if rc == 0:
+        got = rank_results(out)
+        print(f"phase 17 probe: NCCL with two ranks on one card: "
+              f"{got[0]['nccl2']} | {got[1]['nccl2']} [{card}]")
+    else:
+        print(f"phase 17 probe: NCCL with two ranks on one card: the launch "
+              f"exited {rc} (124: timed out after {P17_PROBE_TIMEOUT_S} s) "
+              f"[{card}]\n{logs[-2000:]}")
+    out = tmp / "probe"
+    out.mkdir()
+    rc, logs = launch_ranks("probe", out, args, timeout=P17_PROBE_TIMEOUT_S)
+    if rc != 0:
+        fail(f"phase 17 probe: the gloo probe launch exited {rc}\n{logs}")
+    got = rank_results(out)
+    print(f"phase 17 probe: gloo on CUDA tensors, per collective: "
+          f"{json.dumps(got[0]['gloo_cuda'])} [{card}]")
+    print(f"phase 17 probe: gloo reduces bf16: CPU tensors "
+          f"{got[0]['bf16_cpu']}, CUDA tensors {got[0]['bf16_cuda']} [{card}]")
+
+
+def dp_ranks(torch, np, args, card, twin_losses, tmp, script=None, extra=(),
+             parts="bc"):
+    """17(b) and (c) through the launcher; returns the failures."""
+    out = tmp / f"ranks-{parts}"
+    out.mkdir()
+    rc, logs = launch_ranks("train", out, args, script=script,
+                            extra=("--parts", parts, *extra))
+    if rc != 0:
+        return [f"the two-rank launch exited {rc}:\n{logs}"]
+    ranks = rank_results(out)
+    failures = []
+    for r, res in enumerate(ranks):
+        failures += [f"rank {r}: {f}" for f in res["failures"]]
+    if "b" in parts:
+        dp_losses = [float(np.mean(x)) for x in zip(*(r["dp_losses"]
+                                                     for r in ranks))]
+        rel = [abs(a - b) / abs(b) for a, b in zip(dp_losses, twin_losses)] \
+            if twin_losses else [float("nan")]
+        if twin_losses and max(rel) > DP_LOSS_REL:
+            failures.append(f"the ranks' mean losses {dp_losses} are "
+                            f"{max(rel):.3g} from one process's B="
+                            f"{TRAIN_BATCH} step {twin_losses} (tol "
+                            f"{DP_LOSS_REL})")
+        r0 = ranks[0]
+        print(f"phase 17(b) two gloo ranks on the one card (launcher, "
+              f"cuda:0 each): the collectives on CUDA tensors bitwise the "
+              f"same on CPU tensors and numpy's: "
+              f"{not any('battery' in f for f in failures)}; "
+              f"DataParallel(Llama-542M, B={DP_PER_RANK} a rank, SR on): "
+              f"mean losses {[round(x, 5) for x in dp_losses]} against one "
+              f"process's B={TRAIN_BATCH} "
+              f"{[round(x, 5) for x in twin_losses or []]}"
+              f" (worst rel {max(rel):.3g}, tol {DP_LOSS_REL}), ranks' "
+              f"parameters bitwise equal after each step "
+              f"{[r['dp_equal'] for r in ranks]}, gradients the ranks' mean "
+              f"bitwise {[r['dp_mean_ok'] for r in ranks]}, launches per rank "
+              f"{[r['dp_counts'] for r in ranks]}, ms a step "
+              f"{[[round(t, 1) for t in r['dp_ms']] for r in ranks]}, peak "
+              f"memory GB {[r['dp_peak_gb'] for r in ranks]}, collective "
+              f"contract {[r['contract'] for r in ranks]} [{card}]")
+        print("phase 17(b) collectives, 64 MB f32 on CUDA tensors under gloo "
+              "(ms, GB/s, bytes staged through host): " + "; ".join(
+                  f"{k} {v[0]:.2f} ms {v[1]:.2f} GB/s staged {v[2]}"
+                  for k, v in r0["coll_times"].items()) + f" [{card}]")
+    if "c" in parts:
+        for r, res in enumerate(ranks):
+            mem = res["mem"]
+            print(f"phase 17(c) rank {r}, Llama-542M at {SHARD_DEPTH} layers, "
+                  f"SR off, {SHARD_STEPS} steps: " + "; ".join(
+                      f"{lv}: params {m['params'] / 1e9:.3f} GB moments "
+                      f"{m['moments'] / 1e9:.3f} GB grads {m['grads'] / 1e9:.3f}"
+                      f" GB peak {m['peak'] / 1e9:.2f} GB, bitwise "
+                      f"DataParallel's {m['equal']}, AdamW launches "
+                      f"{m['adamw']}, ms a step {[round(t, 1) for t in m['ms']]}"
+                      for lv, m in mem.items()) + f" [{card}]")
+    return failures
+
+
+def phase17_rank(mode, out, seed, parts="bc"):
+    """One rank of a phase-17 launch (``chip_smoke.py --rank17 MODE``):
+    writes ``<out>/rank<r>.json``."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.distributed as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if mode == "nccl2":  # two ranks, NCCL, one device
+        try:
+            D.init_parallel_env()
+            t = torch.ones(4, device="cuda")
+            D.all_reduce(t)
+            torch.cuda.synchronize()
+            res = {"nccl2": f"ran: all_reduce gave {t.tolist()}"}
+        except Exception as e:  # noqa: BLE001 - the probe reports the refusal
+            res = {"nccl2": f"refused: {type(e).__name__}: {str(e)[:300]}"}
+        import os
+
+        with open(f"{out}/rank{os.environ['RANK']}.json", "w") as f:
+            json.dump(res, f)
+        return 0
+    group = D.init_parallel_env()
+    rank, dev = D.get_rank(), group.device
+    res = {"failures": []}
+    if mode == "probe":
+        import torch.distributed as tdist
+
+        x = torch.ones(8, device=dev)
+        ops = {
+            "all_reduce": lambda: tdist.all_reduce(x.clone()),
+            "broadcast": lambda: tdist.broadcast(x.clone(), 0),
+            "all_gather": lambda: tdist.all_gather(
+                [torch.empty_like(x) for _ in range(2)], x),
+            "all_gather_into_tensor": lambda: tdist.all_gather_into_tensor(
+                torch.empty(16, device=dev), x),
+            "reduce": lambda: tdist.reduce(x.clone(), 0),
+            "reduce_scatter": lambda: tdist.reduce_scatter(
+                torch.empty(4, device=dev), [x[:4].clone(), x[4:].clone()]),
+            "scatter": lambda: tdist.scatter(
+                torch.empty_like(x), [x, x] if rank == 0 else None, 0),
+            "gather": lambda: tdist.gather(
+                x, [torch.empty_like(x) for _ in range(2)] if rank == 0
+                else None, 0),
+            "all_to_all": lambda: tdist.all_to_all(
+                [torch.empty(4, device=dev) for _ in range(2)],
+                [x[:4].clone(), x[4:].clone()]),
+            "all_to_all_single": lambda: tdist.all_to_all_single(
+                torch.empty_like(x), x.clone()),
+        }
+        table = {}
+        for name, fn in ops.items():
+            try:
+                fn()
+                torch.cuda.synchronize()
+                table[name] = "takes"
+            except Exception as e:  # noqa: BLE001 - the probe reports it
+                table[name] = f"refuses ({str(e).splitlines()[0][:80]})"
+            tdist.barrier()
+        res["gloo_cuda"] = table
+        for where in ("cpu", "cuda"):
+            t = torch.full((8,), 1.5 + rank, dtype=torch.bfloat16,
+                           device=where if where == "cpu" else dev)
+            try:
+                tdist.all_reduce(t)
+                res[f"bf16_{where}"] = f"yes, {t[0].item()} (want 4.0)"
+            except Exception as e:  # noqa: BLE001 - the probe reports it
+                res[f"bf16_{where}"] = f"no ({str(e).splitlines()[0][:80]})"
+            tdist.barrier()
+    else:
+        train_rank(torch, np, D, group, rank, dev, seed, parts, res, out)
+    with open(f"{out}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    D.destroy_process_group()
+    return 0
+
+
+def train_rank(torch, np, D, group, rank, dev, seed, parts, res, out):
+    """17(b) and (c) on this rank; appends to ``res['failures']``."""
+    from pathlib import Path
+
+    from paddle_tpu_torch.base.random import model_parallel_random_seed
+    from paddle_tpu_torch.distributed.communication import flight_recorder
+    from paddle_tpu_torch.distributed.store import FileKVStore
+    from paddle_tpu_torch.ops import kernels
+
+    failures = res["failures"]
+    world = D.get_world_size()
+    ids, labels = p17_batch(torch, np, dev, seed)
+    x = ids[rank * DP_PER_RANK:(rank + 1) * DP_PER_RANK]
+    y = labels[rank * DP_PER_RANK:(rank + 1) * DP_PER_RANK]
+    if "b" in parts:
+        got_gpu, bad = collective_battery(torch, np, dev, seed)
+        failures += [f"battery on CUDA tensors: {b}" for b in bad]
+        got_cpu, bad = collective_battery(torch, np, torch.device("cpu"), seed)
+        failures += [f"battery on CPU tensors: {b}" for b in bad]
+        for k in got_gpu:
+            a, b = got_gpu[k], got_cpu[k]
+            same = (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                    else a == b)
+            if not same:
+                failures.append(f"battery: {k} on CUDA differs from the CPU")
+        res["coll_times"] = time_collectives(torch, dev)
+        model, opt = p17_model(torch, dev, LLAMA_542M["num_hidden_layers"],
+                               seed, sr=True)
+        # the salts follow the global branch, equal on both ranks; the
+        # local branch differs by rank
+        model_parallel_random_seed(seed, rank)
+        dp = D.DataParallel(model)
+        params = list(model.parameters())
+        probe = params[-2]  # the final norm: its gradient, mean of the ranks'
+        with dp.no_sync():
+            model.loss(x, y).backward()
+        rows = []
+        D.all_gather(rows, probe.grad.detach())
+        mean = (rows[0] + rows[1]) / world
+        opt.clear_grad()
+        model.loss(x, y).backward()
+        res["dp_mean_ok"] = bool(torch.equal(probe.grad, mean))
+        if not res["dp_mean_ok"]:
+            failures.append("DataParallel's gradient is not the ranks' mean")
+        opt.clear_grad()
+        step = step_fn(dp, opt)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, ms, equal = [], [], []
+        for _ in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(x, y).detach()))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ok = True
+            for p in params:  # rank 0's parameters against this rank's
+                buf = p.detach().clone()
+                D.broadcast(buf, src=0)
+                ok &= bool(torch.equal(buf, p))
+            flags = []
+            D.all_gather_object(flags, ok)
+            equal.append(all(flags))
+        res["dp_counts"] = step_launches(kernels.launch_counts())
+        res["dp_losses"], res["dp_ms"], res["dp_equal"] = losses, ms, equal
+        res["dp_peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+        want = {k: LLAMA_542M["num_hidden_layers"] * DP_STEPS for k in (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")}
+        want["fused_adamw"] = ADAMW_GROUPS * DP_STEPS
+        if res["dp_counts"] != want:
+            failures.append(f"launches {res['dp_counts']} != {want}")
+        if not all(equal):
+            failures.append(f"the ranks' parameters differ after steps "
+                            f"{[i for i, e in enumerate(equal) if not e]}")
+        del model, opt, dp, step, params, probe, rows, mean
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "c" in parts:
+        mem, base = {}, None
+        for level in ("dp", *P17_LEVELS):
+            gc.collect()
+            torch.cuda.empty_cache()
+            m0 = torch.cuda.memory_allocated()
+            model, opt = p17_model(torch, dev, SHARD_DEPTH, seed, sr=False)
+            if level == "dp":
+                wrapped = D.DataParallel(model)
+            else:
+                wrapped, opt, _ = D.group_sharded_parallel(model, opt, level)
+            torch.cuda.reset_peak_memory_stats()
+            row = {"params": torch.cuda.memory_allocated() - m0, "ms": []}
+            kernels.reset_launch_counts()
+            for i in range(SHARD_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == SHARD_STEPS - 1:
+                    row["moments"] = (torch.cuda.memory_allocated() - m0
+                                      - row["params"])
+                    before = torch.cuda.memory_allocated()
+                loss = wrapped.loss(x, y)
+                loss.backward()
+                if i == SHARD_STEPS - 1:
+                    row["grads"] = torch.cuda.memory_allocated() - before
+                del loss
+                opt.step()
+                opt.clear_grad()
+                torch.cuda.synchronize()
+                row["ms"].append((time.perf_counter() - t0) * 1e3)
+            row["adamw"] = kernels.launch_counts()["fused_adamw"]
+            row["peak"] = torch.cuda.max_memory_allocated() - m0
+            whole = ([p.detach() for p in model.parameters()] if level == "dp"
+                     else list(model._group_sharded.full_state().values()))
+            if level == "dp":
+                base = [t.clone() for t in whole]
+                row["equal"] = True
+            else:
+                row["equal"] = all(torch.equal(a, b)
+                                   for a, b in zip(whole, base))
+            mem[level] = row
+            del model, opt, wrapped, whole
+        del base
+        res["mem"] = mem
+        dp_row = mem["dp"]
+        for level in P17_LEVELS:
+            row = mem[level]
+            if not row["equal"]:
+                failures.append(f"{level}: parameters after {SHARD_STEPS} "
+                                "steps are not DataParallel's, bitwise")
+            if row["adamw"] != SHARD_STEPS:
+                failures.append(f"{level}: {row['adamw']} AdamW launches in "
+                                f"{SHARD_STEPS} steps")
+            halved = {"moments": True, "grads": level != "os",
+                      "params": level == "p_g_os"}
+            for what, should in halved.items():
+                ratio = row[what] / dp_row[what]
+                if (not HALF_BAND[0] <= ratio <= HALF_BAND[1] if should
+                        else ratio < HALF_BAND[1]):
+                    failures.append(f"{level}: {what} {row[what]} bytes, "
+                                    f"{ratio:.3f} of DataParallel's (halved: "
+                                    f"{should})")
+    store = FileKVStore(str(Path(out) / "contract"))
+    try:
+        flight_recorder.contract(store, rank, world, deadline=120.0)
+        res["contract"] = "agrees"
+    except Exception as e:  # noqa: BLE001 - a gate: recorded as a failure
+        res["contract"] = "mismatch"
+        failures.append(f"collective contract: {str(e)[:400]}")
+
+
+def collectives_phase(torch, np, dev, args, card):
+    """Phase 17: the probes, then (a), then (b) and (c)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p17_"))
+    try:
+        p17_probes(torch, np, args, card, tmp)
+        twin_losses = dp_local_phase(torch, np, dev, args, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        failures = dp_ranks(torch, np, args, card, twin_losses, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        fail("phase 17(b)-(c): " + "; ".join(failures))
+
+
 def kernel_class(name: str) -> str:
     """Bucket a profiled kernel name for the training step's time split."""
     n = name.lower()
@@ -5234,6 +5969,10 @@ def kernel_class(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of phase 17's two-rank launch (the launcher passes these)
+    ap.add_argument("--rank17", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parts", default="bc", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import numpy as np
@@ -5243,6 +5982,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on the card",
               file=sys.stderr)
         return 2
+    if args.rank17:
+        return phase17_rank(args.rank17, args.out, args.seed, args.parts)
     try:
         from paddle_tpu_torch import seed as pt_seed
         from paddle_tpu_torch.inference import ContinuousBatchingEngine
@@ -5372,6 +6113,12 @@ def main() -> int:
               f"({r['bound_by']}); torch._fused_adamw_ on the same tensors "
               f"(another function, for scale) "
               f"{r['torch_fused_adamw_ms']:.4f} ms [{card}]")
+    n_loose = adamw_shard_case(
+        torch, dev, torch.Generator(device=dev).manual_seed(args.seed + 2))
+    print(f"phase 2 fused_adamw 32000x2048 bf16 SR, two dimension-0 shards "
+          f"with their SR index bases: bitwise the whole tensor's update; "
+          f"without the base the second shard rounds {n_loose} elements "
+          f"otherwise [{card}]")
     r = adamw_multi_case(torch, dev, gen)
     adamw_multi_row = r
     device_rows.append((f"fused_adamw multi-tensor, {r['tensors']} tensors",
@@ -5870,6 +6617,12 @@ def main() -> int:
     starts.append(("16", time.perf_counter() - t_start))
     # -- phase 16: deployment, control flow and piecewise capture, debugging --
     deploy_phase(torch, np, dev, args, card, ids, labels)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    starts.append(("17", time.perf_counter() - t_start))
+    # -- phase 17: collectives and data-parallel training ----------------------
+    collectives_phase(torch, np, dev, args, card)
     gc.collect()
     torch.cuda.empty_cache()
 

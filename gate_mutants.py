@@ -156,6 +156,29 @@ phase 16 whose gates must refuse it:
 - ``the tensor checker never fires``: 16(c)'s forced-overflow gate
   (``chip_smoke.debugging_phase``) must refuse it.
 
+Phase 17's data-parallel and sharding host code, the same way, but
+patched into the two ranks that ``chip_smoke.dp_ranks`` launches (this
+script runs as each rank, ``--rank17 ... --mutant NAME``, patches the
+variant in, then runs ``chip_smoke.phase17_rank``), each through the part
+of 17(b)-(c) whose gates must refuse it:
+
+- ``DataParallel sums without averaging``: the gradient buckets are
+  all-reduced but not divided by the group size; 17(b)'s gradient-mean
+  gate (the final norm's gradient bitwise the mean of the ranks' own) must
+  refuse it;
+- ``the last gradient bucket is not reduced``: each rank keeps its own
+  gradients of the first parameters; 17(b)'s cross-rank equality of the
+  parameters must refuse it;
+- ``stage 2 gives rank r the other rank's gradient shard``: the
+  reduce-scatter's inputs are handed over in reverse order; 17(c)'s
+  bitwise gates against ``DataParallel`` must refuse it;
+- ``stage 3 gathers the parameter from before the update``: the step
+  updates a copy of the shard, so the next forward gathers the old one;
+  17(c)'s bitwise gate on stage 3 must refuse it;
+- ``SR salts come from the local branch``: the salt generators follow
+  the tracker's rank-offset branch; 17(b)'s cross-rank equality (SR on)
+  must refuse it.
+
 Each variant runs through the kernel's own wrapper (``paged_decode`` and
 ``paged_decode_int8`` for the decode, ``fused_adamw_multi_update`` for
 AdamW). It also prints the verdict of the
@@ -618,6 +641,38 @@ DEPLOY_PARTS = {
     "the piecewise path skips the breaking statement": ("16(b)",),
     "the tensor checker never fires": ("16(c)",),
 }
+# phase 17, in HOST_MUTANTS' form, each with the parts of 17(b)-(c) whose
+# gates must refuse it; patched into the launched ranks
+P17_MUTANTS = {
+    "as is": None,
+    "DataParallel sums without averaging": (
+        "paddle_tpu_torch.distributed.parallel", "DataParallel._sync_grads", [(
+            "flat.div_(n)", "flat.div_(1)")]),
+    "the last gradient bucket is not reduced": (
+        "paddle_tpu_torch.distributed.parallel", "DataParallel._sync_grads", [(
+            "for bucket in self._buckets:",
+            "for bucket in self._buckets[:-1]:")]),
+    "stage 2 gives rank r the other rank's gradient shard": (
+        "paddle_tpu_torch.distributed.sharding",
+        "_GroupSharded._after_backward", [(
+            "reduce_scatter(g, parts, group=self.group)",
+            "reduce_scatter(g, parts[::-1], group=self.group)")]),
+    "stage 3 gathers the parameter from before the update": (
+        "paddle_tpu_torch.distributed.sharding",
+        "_GroupSharded._after_backward", [(
+            "p.data = s.shard\n", "p.data = s.shard.clone()\n")]),
+    "SR salts come from the local branch": (
+        "paddle_tpu_torch.base.random", "_salt_seed", [(
+            "RNGStatesTracker.GLOBAL)", "RNGStatesTracker.LOCAL)")]),
+}
+P17_PARTS = {
+    "as is": "bc",
+    "DataParallel sums without averaging": "b",
+    "the last gradient bucket is not reduced": "b",
+    "stage 2 gives rank r the other rank's gradient shard": "c",
+    "stage 3 gathers the parameter from before the update": "c",
+    "SR salts come from the local branch": "b",
+}
 # control_mutants' trace: phase 15's, shortened (the gates count no requests)
 CONTROL_TRACE = dict(n_requests=30, duration_s=5.0)
 # lowp_mutants' GEMM shapes: a train/prefill shape, a decode's and the odd
@@ -832,6 +887,33 @@ def control_mutants(torch, np, dev, args, card):
     return ok, refused, len(CONTROL_MUTANTS) - 1
 
 
+def p17_mutants(torch, np, args, card):
+    """Every phase-17 variant through the parts of 17(b)-(c) that must
+    refuse it, in two launched ranks (no loss gate: it needs 17(a)'s
+    twin). Returns (ok, refused, mutants counted)."""
+    import tempfile as _tempfile
+
+    ok, refused = True, []
+    for name in P17_MUTANTS:
+        tmp = Path(_tempfile.mkdtemp(prefix="gate_mutants_p17_"))
+        try:
+            bad = cs.dp_ranks(torch, np, args, card, None, tmp,
+                              script=Path(__file__).resolve(),
+                              extra=("--mutant", name),
+                              parts=P17_PARTS[name])
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if name == "as is":
+            ok &= not bad
+        elif bad:
+            refused.append(f"phase 17: {name}")
+        else:
+            ok = False
+        print(f"p17 {name}: {'; '.join(b[:300] for b in bad) if bad else 'pass'}"
+              f" -> {'FAIL' if bad else 'pass'} [{card}]")
+    return ok, refused, len(P17_MUTANTS) - 1
+
+
 def deploy_mutants(torch, np, dev, args, card, ids):
     """Every phase-16 variant through the part of phase 16 whose gates must
     refuse it (``chip_smoke.deploy_serving``, ``control_flow_phase``,
@@ -879,9 +961,19 @@ def deploy_mutants(torch, np, dev, args, card, ids):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of a phase-17 mutant's launch (chip_smoke.dp_ranks)
+    ap.add_argument("--rank17", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parts", default="bc", help=argparse.SUPPRESS)
+    ap.add_argument("--mutant", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
+
+    if args.rank17:
+        if P17_MUTANTS[args.mutant] is not None:
+            host_variant(args.mutant, P17_MUTANTS)
+        return cs.phase17_rank(args.rank17, args.out, args.seed, args.parts)
 
     if not torch.cuda.is_available():
         print("gate_mutants: CUDA is not available; this script runs on the "
@@ -894,10 +986,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     gen_cpu = torch.Generator(device="cpu").manual_seed(args.seed)
+    import numpy as np
+
     tmp = Path(tempfile.mkdtemp(prefix="gate_mutants_"))
     results = []
     try:
         libs = build_variants(kernels, tmp)
+        # first, while this process holds next to nothing on the card: the
+        # two ranks it launches each hold a full-width model
+        results.append(p17_mutants(torch, np, args, card))
         results.append(fwd_mutants(torch, kernels, libs, dev, gen, card))
         torch.cuda.empty_cache()
         results.append(bwd_mutants(torch, kernels, libs, dev, gen, card))
@@ -910,14 +1007,10 @@ def main() -> int:
                             generator=gen_cpu).to(dev)
         results.append(adamw_mutants(torch, kernels, libs, dev, gen, card,
                                      ids))
-        import numpy as np
-
         results.append(lowp_mutants(torch, np, dev, args, card, ids))
         results.append(deploy_mutants(torch, np, dev, args, card, ids))
         del ids
         torch.cuda.empty_cache()
-        import numpy as np
-
         results.append(host_mutants(torch, np, dev, args, card))
         results.append(disagg_mutants(torch, np, dev, args, card))
         results.append(control_mutants(torch, np, dev, args, card))

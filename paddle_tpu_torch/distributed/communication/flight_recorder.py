@@ -2,8 +2,8 @@
 (counterpart of ``paddle_tpu/distributed/communication/flight_recorder.py``,
 copied: stdlib only, over the port's ``base.flags``, ``testing.chaos`` and
 ``utils.retries``; ``CollectiveScheduleMismatch`` comes from the port's
-``analysis.sanitizers``, which holds only that class). The port has no
-collectives yet: what it records today are the disaggregated handoff legs
+``analysis.sanitizers``). It records every collective of
+``distributed.communication`` and the disaggregated handoff legs
 (``handoff_send``/``handoff_recv``).
 
 Static schedule verification (COLL002/COLL003) proves agreement where

@@ -15,7 +15,9 @@ or for T at once (:func:`adamw_scalars_multi`, bitwise the same rows);
 nothing reads a device value back to the host. With SR salts (two uint32
 salts per tensor in an int64 device tensor) the bf16 writeback is the
 lowbias32 stochastic rounding of ``_stochastic_round_bf16`` over each
-element's C-order flat index within its parameter. ``skip`` (a device
+element's C-order flat index within its parameter, plus an optional base
+per tensor (``sr_base``: a shard's offset in its whole tensor, so a shard
+on dimension 0 draws the bits its elements draw unsharded). ``skip`` (a device
 bool) is the found-inf veto: p, m and v keep their bits.
 
 The plain versions :func:`fused_adamw_update_plain` and
@@ -72,14 +74,17 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def stochastic_round_bf16(x: torch.Tensor, salts: torch.Tensor) -> torch.Tensor:
+def stochastic_round_bf16(x: torch.Tensor, salts: torch.Tensor,
+                          base: int = 0) -> torch.Tensor:
     """The reference's ``_stochastic_round_bf16`` with its two salts given:
     add 16 hash bits below the bf16 cut of the f32 value and truncate;
     non-finite values pass through. ``salts``: int64 ``[2]`` holding two
-    uint32 values, on x's device."""
+    uint32 values, on x's device; ``base``: the flat index of x's first
+    element (0 for a whole tensor)."""
     xf = x.float()
     u = xf.view(torch.int32).to(torch.int64) & _M32
-    i = torch.arange(xf.numel(), dtype=torch.int64, device=x.device).view(x.shape)
+    i = (torch.arange(xf.numel(), dtype=torch.int64, device=x.device)
+         + int(base)).view(x.shape) & _M32
     s0, s1 = salts[0], salts[1]
     b = (_mul32(i, 0x9E3779B9) + s0) & _M32
     b = _mul32(b ^ (b >> 16), 0x7FEB352D)
@@ -202,7 +207,8 @@ def _check(p, g, m, v, sr_salts):
                          f"(got {p.dtype})")
 
 
-def _update_plain(p, g, m, v, scalars, salts, beta1: float, beta2: float):
+def _update_plain(p, g, m, v, scalars, salts, beta1: float, beta2: float,
+                  base: int = 0):
     """The kernel's arithmetic in plain torch ops, in place on p, m, v."""
     lr_t, eps_eff, decay_f = scalars[0], scalars[1], scalars[2]
     skip = scalars[3] != 0
@@ -210,7 +216,7 @@ def _update_plain(p, g, m, v, scalars, salts, beta1: float, beta2: float):
     m_new = beta1 * m.float() + (1 - beta1) * g32
     v_new = beta2 * v.float() + (1 - beta2) * g32 * g32
     new = p.float() * decay_f - lr_t * m_new / (torch.sqrt(v_new) + eps_eff)
-    out = (stochastic_round_bf16(new, salts) if salts is not None
+    out = (stochastic_round_bf16(new, salts, base) if salts is not None
            else new.to(p.dtype))
     # found-inf veto: select the original bits before anything lands
     p.copy_(torch.where(skip, p, out))
@@ -235,19 +241,24 @@ def fused_adamw_update_plain(p, g, m, v, *, lr, beta1: float, beta2: float,
 
 def fused_adamw_multi_update_plain(ps, gs, ms, vs, *, scalars: torch.Tensor,
                                    beta1: float, beta2: float,
-                                   sr_salts: Optional[torch.Tensor] = None):
+                                   sr_salts: Optional[torch.Tensor] = None,
+                                   sr_base: Optional[Sequence[int]] = None):
     """Plain PyTorch version of :func:`fused_adamw_multi_update`: the T
-    per-tensor plain updates, each with its scalar row and salts."""
-    _check_multi(ps, gs, ms, vs, scalars, sr_salts)
+    per-tensor plain updates, each with its scalar row, salts and base."""
+    _check_multi(ps, gs, ms, vs, scalars, sr_salts, sr_base)
     for i, (p, g, m, v) in enumerate(zip(ps, gs, ms, vs)):
         if p.numel():
             salts = None if sr_salts is None else sr_salts[i]
-            _update_plain(p, g, m, v, scalars[i], salts, beta1, beta2)
+            _update_plain(p, g, m, v, scalars[i], salts, beta1, beta2,
+                          0 if sr_base is None else sr_base[i])
     return ps, ms, vs
 
 
-def _check_multi(ps, gs, ms, vs, scalars, sr_salts):
+def _check_multi(ps, gs, ms, vs, scalars, sr_salts, sr_base=None):
     t = len(ps)
+    if sr_base is not None and len(sr_base) != t:
+        raise ValueError(f"fused AdamW: {len(sr_base)} SR bases for {t} "
+                         "tensors")
     if not (len(gs) == len(ms) == len(vs) == t):
         raise ValueError(f"fused AdamW: {len(ps)} params, {len(gs)} grads, "
                          f"{len(ms)} and {len(vs)} moments")
@@ -269,7 +280,8 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1}
 def fused_adamw_multi_update(ps: List[torch.Tensor], gs: List[torch.Tensor],
                              ms: List[torch.Tensor], vs: List[torch.Tensor], *,
                              scalars: torch.Tensor, beta1: float, beta2: float,
-                             sr_salts: Optional[torch.Tensor] = None):
+                             sr_salts: Optional[torch.Tensor] = None,
+                             sr_base: Optional[Sequence[int]] = None):
     """One fused AdamW step over T tensors, in place on each p, m and v.
 
     ``ps``/``gs``/``ms``/``vs``: T tensors each (p_i, g_i, m_i, v_i of one
@@ -277,18 +289,20 @@ def fused_adamw_multi_update(ps: List[torch.Tensor], gs: List[torch.Tensor],
     instantiation). ``scalars``: the f32 ``[T, 4]`` rows of
     :func:`adamw_scalars_multi`; ``sr_salts``: int64 ``[T, 2]`` (two uint32
     salts per tensor) for the stochastic-rounding bf16 writeback (bf16
-    params only). Tensor i gets exactly what :func:`fused_adamw_update`
-    gives it with row i and salts i. One launch per call, or one per 512
+    params only); ``sr_base``: T ints, each tensor's flat-index base for
+    that writeback (default 0). Tensor i gets exactly what
+    :func:`fused_adamw_update` gives it with row i and salts i. One launch per call, or one per 512
     tensors. CPU tensors take the plain version; CUDA tensors launch the
     kernel or raise."""
-    _check_multi(ps, gs, ms, vs, scalars, sr_salts)
+    _check_multi(ps, gs, ms, vs, scalars, sr_salts, sr_base)
     if not ps:
         return ps, ms, vs
     dev = ps[0].device
     if dev.type == "cpu":
         return fused_adamw_multi_update_plain(ps, gs, ms, vs, scalars=scalars,
                                               beta1=beta1, beta2=beta2,
-                                              sr_salts=sr_salts)
+                                              sr_salts=sr_salts,
+                                              sr_base=sr_base)
     if dev.type != "cuda":
         raise ValueError(f"fused_adamw_multi_update: unsupported device {dev}")
     types = {(p.dtype, g.dtype, m.dtype) for p, g, m in zip(ps, gs, ms)}
@@ -314,7 +328,8 @@ def fused_adamw_multi_update(ps: List[torch.Tensor], gs: List[torch.Tensor],
             g = g.contiguous()
             keep.append(g)
             rows.append((i, (p.data_ptr(), g.data_ptr(), m.data_ptr(),
-                             v.data_ptr(), p.numel())))
+                             v.data_ptr(), p.numel(),
+                             0 if sr_base is None else int(sr_base[i]))))
     lib = kernels.load("fused_adamw")
     stream = torch.cuda.current_stream(dev).cuda_stream
     for lo in range(0, len(rows), MAX_TENSORS_PER_LAUNCH):
@@ -326,7 +341,7 @@ def fused_adamw_multi_update(ps: List[torch.Tensor], gs: List[torch.Tensor],
         else:
             idx = slice(idx[0], idx[0] + len(idx))
         sc, sl = scalars[idx], None if sr_salts is None else sr_salts[idx]
-        table = (ctypes.c_longlong * (5 * len(part)))(
+        table = (ctypes.c_longlong * (6 * len(part)))(
             *(x for _, row in part for x in row))
         err = lib.fused_adamw_multi_launch(
             _CODES[p_dt], _CODES[g_dt], _CODES[m_dt], int(sl is not None),

@@ -84,8 +84,9 @@ SOURCES = {
             "flash_attention_bwd_dkv_wgmma_launch": _FLASH_BWD_ARGS}),
     "fused_adamw": (
         "fused_adamw.cu", {"fused_adamw_multi_launch":
-        # p/g/m dtype codes, sr, host table (T rows of p, g, m, v pointers
-        # and numel, int64), T, scalars (f32 [T, 4]), salts (int64 [T, 2]),
+        # p/g/m dtype codes, sr, host table (T rows of p, g, m, v pointers,
+        # numel and SR index base, int64), T, scalars (f32 [T, 4]), salts
+        # (int64 [T, 2]),
         # beta1, 1 - beta1, beta2, 1 - beta2, stream
         [_I, _I, _I, _I, _P, _I, _P, _P, _F, _F, _F, _F, _P]}),
 }

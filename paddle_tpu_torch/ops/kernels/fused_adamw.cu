@@ -10,8 +10,10 @@
 //   p' = p * decay_f[t] - (lr_t[t] * m') / (sqrt(v') + eps_eff[t])
 // then p' is written in p's dtype (round to nearest even), or, with the
 // stochastic-rounding writeback, through the lowbias32 hash of the element's
-// C-order flat index within its own tensor and tensor t's two salts (the
-// bits of _stochastic_round_bf16); non-finite values pass through. The
+// C-order flat index within its own tensor plus the table entry's base (0
+// for a whole tensor; a shard's offset in its whole tensor, so a shard draws
+// the bits its elements draw unsharded) and tensor t's two salts (the bits
+// of _stochastic_round_bf16); non-finite values pass through. The
 // scalar rows (lr_t, eps_eff, decay_f, skip) are a [T, 4] f32 device tensor
 // built by the wrapper with the reference's expressions, the salts a [T, 2]
 // int64 device tensor: nothing here reads the host. skip != 0 is the
@@ -57,6 +59,7 @@ struct TensorTable {
   void* m[MAX_TENSORS];
   void* v[MAX_TENSORS];
   long long n[MAX_TENSORS];
+  long long base[MAX_TENSORS];  // flat index of element 0 for the SR hash
   // elements before the first access whose p, g, m and v addresses are all
   // 16-byte aligned, or -1: the whole tensor element-wise
   int head[MAX_TENSORS];
@@ -150,13 +153,14 @@ adamw_multi_kernel(const __grid_constant__ TensorTable tab,
   M* __restrict__ m = (M*)tab.m[t];
   M* __restrict__ v = (M*)tab.v[t];
   const int64_t n = tab.n[t];
+  const int64_t base = tab.base[t];
   const int head = tab.head[t];
   const int64_t local = c - tab.chunk0[t];
 
   auto scalar = [&](int64_t i) {
     float m_new, v_new;
     p[i] = update<P, SR>(to_f<P>(p[i]), to_f<G>(g[i]), to_f<M>(m[i]),
-                         to_f<M>(v[i]), (uint32_t)i, k, lr_t, eps_eff,
+                         to_f<M>(v[i]), (uint32_t)(base + i), k, lr_t, eps_eff,
                          decay_f, s0, s1, m_new, v_new);
     m[i] = from_f<M>(m_new);
     v[i] = from_f<M>(v_new);
@@ -198,7 +202,7 @@ adamw_multi_kernel(const __grid_constant__ TensorTable tab,
         elem<P>(pa[u], e) = update<P, SR>(
             to_f<P>(elem<P>(pa[u], e)), to_f<G>(elem<G>(ga[u], e)),
             to_f<M>(elem<M>(ma[u], e)), to_f<M>(elem<M>(va[u], e)),
-            (uint32_t)(i + e), k, lr_t, eps_eff, decay_f, s0, s1, m_new,
+            (uint32_t)(base + i + e), k, lr_t, eps_eff, decay_f, s0, s1, m_new,
             v_new);
         elem<M>(ma[u], e) = from_f<M>(m_new);
         elem<M>(va[u], e) = from_f<M>(v_new);
@@ -219,15 +223,15 @@ bool aligned(const void* ptr, int64_t i) {
   return ((uintptr_t)ptr + i * (int64_t)sizeof(T)) % 16 == 0;
 }
 
-// table: T rows of (p, g, m, v, n) as int64, on the host
+// table: T rows of (p, g, m, v, n, base) as int64, on the host
 template <typename P, typename G, typename M, bool SR>
 int launch(const long long* table, int T, const float* scal,
            const long long* salts, Consts k, cudaStream_t stream) {
-  TensorTable tab;  // 24.6 KB, passed by value
+  TensorTable tab;  // 28.7 KB, passed by value
   tab.n_tensors = T;
   int64_t chunks = 0;
   for (int t = 0; t < T; ++t) {
-    const long long* row = table + 5 * t;
+    const long long* row = table + 6 * t;
     tab.p[t] = (void*)row[0];
     tab.g[t] = (const void*)row[1];
     tab.m[t] = (void*)row[2];
@@ -235,6 +239,7 @@ int launch(const long long* table, int T, const float* scal,
     const int64_t n = row[4];
     if (n <= 0) return -1;
     tab.n[t] = n;
+    tab.base[t] = row[5];
     int head = -1;
     for (int h = 0; h < VEC && head < 0; ++h)
       if (aligned<P>(tab.p[t], h) && aligned<G>(tab.g[t], h)
@@ -285,7 +290,8 @@ int by_grad(int g_dt, int m_dt, int sr, const long long* table, int T,
 
 }  // namespace
 
-// table: T rows of five int64 (p, g, m, v data pointers, numel), T in
+// table: T rows of six int64 (p, g, m, v data pointers, numel, SR index
+// base), T in
 // [1, 512]; scalars: f32 [T, 4] device; salts: int64 [T, 2] device (SR)
 extern "C" int fused_adamw_multi_launch(int p_dt, int g_dt, int m_dt, int sr,
                                         const void* table, int T,

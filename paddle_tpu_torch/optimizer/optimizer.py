@@ -97,6 +97,14 @@ def interleaving_optimizers():
     return list(opts.values())
 
 
+def _sr_base(p) -> int:
+    """The flat index, in its whole tensor, of a parameter's first element:
+    0, or the offset of the shard it holds under group sharding (so a
+    shard's stochastic rounding draws the bits its elements draw unsharded;
+    ``distributed.sharding`` sets it)."""
+    return getattr(p, "_sr_index_base", 0)
+
+
 def _lr_factor(lr, factor):
     """``lr * factor`` without a device op when the factor is 1."""
     return lr if factor == 1.0 else lr * factor
@@ -131,6 +139,13 @@ class Optimizer:
         # set by amp.GradScaler around a step it may roll back: the initial
         # value of every accumulator the step creates
         self._accum_creation_log = None
+        # placement hooks installed by distributed.sharding (stages 1-3),
+        # as the reference's: fn(tensor, param, accum_name) places each
+        # accumulator the optimizer creates (master weights included);
+        # fn(grad, param) places each gradient before its update (the
+        # reference's takes the gradient alone: its placement is a layout)
+        self._accum_placement_fn = None
+        self._grad_placement_fn = None
         # a new optimizer over these params takes them over: an abandoned
         # interleaving optimizer must not go on updating them
         _unregister_interleaved(self._parameter_list)
@@ -184,6 +199,8 @@ class Optimizer:
                                          device=param.device)
             else:  # a tensor, or a function that makes it (called once)
                 store[key] = init() if callable(init) else init
+            if self._accum_placement_fn is not None:
+                store[key] = self._accum_placement_fn(store[key], param, name)
             self._log_creation(name, key, store[key])
         return store[key]
 
@@ -214,6 +231,9 @@ class Optimizer:
         key = self._name(param)
         if key not in store:
             store[key] = param.detach().to(torch.float32)
+            if self._accum_placement_fn is not None:
+                store[key] = self._accum_placement_fn(store[key], param,
+                                                      "master_weight")
             self._log_creation("master_weight", key, store[key])
         return store[key]
 
@@ -261,6 +281,8 @@ class Optimizer:
                 "interleaved updates; disable interleave_updates for "
                 "accumulation loops")
         self._interleave_applied.add(id(p))
+        if self._grad_placement_fn is not None:
+            g = self._grad_placement_fn(g, p)
         scaler = self._interleave_scaler
         if scaler is not None and scaler.is_enable():
             # unscale this gradient as it lands and carry the running
@@ -293,6 +315,9 @@ class Optimizer:
         for group in self._param_groups:
             params_grads = [(p, p.grad) for p in group["params"]
                             if p.requires_grad and p.grad is not None]
+            if self._grad_placement_fn is not None:
+                params_grads = [(p, self._grad_placement_fn(g, p))
+                                for p, g in params_grads]
             grad_clip = group.get("grad_clip", self._grad_clip)
             if grad_clip is not None and params_grads:
                 params_grads = grad_clip(params_grads)
@@ -316,7 +341,8 @@ class Optimizer:
             p.copy_(new_value)
         elif (self._stochastic_rounding and p.dtype == torch.bfloat16
               and new_value.dtype != torch.bfloat16):
-            p.copy_(_stochastic_round_bf16(new_value, _random.sr_salts(p.device)))
+            p.copy_(_stochastic_round_bf16(new_value, _random.sr_salts(p.device),
+                                           _sr_base(p)))
         else:
             p.copy_(new_value)
 
@@ -563,10 +589,12 @@ class AdamW(_AdamBase):
             else:
                 if any(n not in store for n in names):  # first step: ones
                     ones = torch.ones((), dtype=torch.float32, device=device)
-                    for n in names:
+                    for p, n in zip(ps, names):
                         if n not in store:
-                            store[n] = ones
-                            self._log_creation(accum, n, ones)
+                            store[n] = (ones if self._accum_placement_fn is None
+                                        else self._accum_placement_fn(ones, p,
+                                                                      accum))
+                            self._log_creation(accum, n, store[n])
                 old = torch.stack([store[n].to(torch.float32) for n in names])
                 vec = old * beta
                 if skip is not None:
@@ -603,7 +631,8 @@ class AdamW(_AdamBase):
             fused_adamw_multi_update(
                 pvs, gs, ms, vs, scalars=scalars, beta1=self._beta1,
                 beta2=self._beta2,
-                sr_salts=_random.sr_salts(device, len(ps)) if sr else None)
+                sr_salts=_random.sr_salts(device, len(ps)) if sr else None,
+                sr_base=[_sr_base(p) for p in ps] if sr else None)
             for p, pv, use_master in zip(ps, pvs, masters):
                 if use_master:
                     p.copy_(pv)
