@@ -49,7 +49,13 @@ NCCL at world size 1, then two gloo ranks on the one card through
 ``python -m paddle_tpu_torch.distributed.launch`` (this script re-run as
 each rank, ``--rank17``): the collectives on CUDA against CPU tensors,
 ``DataParallel`` at full depth, and group-sharded stages 1-3 at two
-layers against it. Each main path runs
+layers against it; and tensor parallelism (phase 18): ``fleet.init`` with
+``mp_degree=2``, ``fleet.distributed_model`` (``TensorParallel``) and
+``fleet.distributed_optimizer`` around the flagship step in two gloo ranks
+(``--rank17 tp``) against a serial run's losses on the same weights, then
+recompute on every layer and the sequence-parallel pair at the MLP's
+widths, then dp=2 x mp=2 in four ranks (``--rank17 hybrid``) with the
+hybrid clip. Each main path runs
 with every kernel launch count set to 0 just before it and read just
 after; a kernel
 of the path that did not launch, or launched another number of times than
@@ -5580,8 +5586,8 @@ def dp_local_phase(torch, np, dev, args, card):
 
 
 def launch_ranks(mode, out, args, script=None, extra=(), backend="gloo",
-                 timeout=P17_RANK_TIMEOUT_S):
-    """``python -m paddle_tpu_torch.distributed.launch --nproc 2`` of
+                 timeout=P17_RANK_TIMEOUT_S, nproc=2):
+    """``python -m paddle_tpu_torch.distributed.launch --nproc <nproc>`` of
     ``script`` (this file by default) in rank mode ``mode``; returns
     ``(exit code, the ranks' logs)``."""
     import os
@@ -5593,7 +5599,7 @@ def launch_ranks(mode, out, args, script=None, extra=(), backend="gloo",
     if backend:
         env["PADDLE_DISTRI_BACKEND"] = backend
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-           "--nproc", "2", "--log_dir", str(out / "logs"), "--job_id", mode,
+           "--nproc", str(nproc), "--log_dir", str(out / "logs"), "--job_id", mode,
            "--max_restart", "0", str(script or Path(__file__).resolve()),
            "--rank17", mode, "--out", str(out), "--seed", str(args.seed),
            *extra]
@@ -5614,8 +5620,8 @@ def _log_excerpt(path, n=3000):
     return text[at:at + n] if at >= 0 else text[-n:]
 
 
-def rank_results(out):
-    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+def rank_results(out, n=2):
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(n)]
 
 
 def p17_probes(torch, np, args, card, tmp):
@@ -5704,9 +5710,9 @@ def dp_ranks(torch, np, args, card, twin_losses, tmp, script=None, extra=(),
     return failures
 
 
-def phase17_rank(mode, out, seed, parts="bc"):
-    """One rank of a phase-17 launch (``chip_smoke.py --rank17 MODE``):
-    writes ``<out>/rank<r>.json``."""
+def phase17_rank(mode, out, seed, parts="bc", steps=None):
+    """One rank of a phase-17 or phase-18 launch (``chip_smoke.py --rank17
+    MODE``): writes ``<out>/rank<r>.json``."""
     import numpy as np
     import torch
 
@@ -5774,6 +5780,10 @@ def phase17_rank(mode, out, seed, parts="bc"):
             except Exception as e:  # noqa: BLE001 - the probe reports it
                 res[f"bf16_{where}"] = f"no ({str(e).splitlines()[0][:80]})"
             tdist.barrier()
+    elif mode == "tp":
+        tp_rank(torch, np, D, rank, dev, seed, parts, res, out, steps)
+    elif mode == "hybrid":
+        hybrid_rank(torch, np, D, rank, dev, seed, res, out)
     else:
         train_rank(torch, np, D, group, rank, dev, seed, parts, res, out)
     with open(f"{out}/rank{rank}.json", "w") as f:
@@ -5950,6 +5960,624 @@ def collectives_phase(torch, np, dev, args, card):
         fail("phase 17(b)-(c): " + "; ".join(failures))
 
 
+# -- phase 18: tensor parallelism, recompute, sequence parallel ----------------
+# __graft_entry__.py:170-243's mp half on the port: fleet.init(mp_degree=2),
+# fleet.distributed_model (TensorParallel: every weight cut on its tp_axis,
+# Megatron's collectives) and fleet.distributed_optimizer around the Llama
+# step, ranks launched as phase 17(b)'s (gloo on cuda:0: NCCL refuses two
+# ranks on one card). The weights are a serial run's, made in this process
+# from --seed and carried into each rank's shards by utils.load_jax_params.
+# (a) the flagship at full width and depth, B=4, S=2048, bf16, SR on, 3
+# eager steps; (b) recompute on every decoder layer (SR off) and the SP
+# pair at the flagship's MLP widths; (c) dp=2 x mp=2 on four ranks, 2
+# layers, SR off, ClipGradByGlobalNorm through HybridParallelOptimizer.
+TP_DEGREE, TP_STEPS = 2, 3
+# (a), (c): each step's loss against the serial step's on the same weights
+# and data, relative. Each row-parallel all-reduce adds two bf16-rounded
+# partial products (1.5 bf16 ulps of 2**-8 per element at most, against the
+# serial GEMM's 0.5); these errors are unbiased, and the loss, an f32 mean
+# over 8192 tokens' cross entropies, averages them: one ulp of every logit
+# (logits have a std of ~0.36 here) moves a token's loss by at most ~1.4e-3
+# nats, ~1.6e-5 nats averaged with random signs. After a step the two runs'
+# parameters also differ by one bf16 ulp where SR's bits differ (column
+# shards draw other bits). 1e-3 of ~10.4 nats is ~0.01 nats, ~600 times
+# that estimate
+TP_LOSS_REL = 1e-3
+TP_BYTES_BAND = (0.45, 0.55)  # (a): a rank's parameter bytes / serial's
+# (a): ParallelCrossEntropy over the vocab-sharded logits against the plain
+# cross entropy on the gathered logits, per token, in nats: the same f32
+# maths but for the order of the sums of 32000 exponentials (~1e-6 of a
+# ~10-nat loss)
+PCE_ATOL = 1e-4
+# (b): the SP pair's gathered output against the serial pair's on the
+# gathered weights, norm-relative: the reduce-scatter adds two bf16 partials
+# (as (a)'s all-reduce), ~1 bf16 ulp (2**-8) of each element at most
+SP_REL = 1e-2
+SP_SHAPE = (2048, TRAIN_BATCH, 2048)  # [s, b, h]
+HYBRID_DEPTH, HYBRID_STEPS = 2, 2  # (c)
+# (c): the clip's bound, below the gradients' global norm at these steps
+# (0.6068 in the first card run), so the clip scales every gradient
+TP_CLIP_NORM = 0.5
+# (c): the clip's global norm against one computed from the same
+# gradients gathered whole (f32 sums in another order), relative; and
+# against the serial step's norm (other bf16 gradients; 9.7e-6 in the
+# first card run), relative
+CLIP_SAME_REL, CLIP_SERIAL_REL = 1e-4, 1e-3
+P18_RANK_TIMEOUT_S = 600
+
+
+def p18_model(torch, dev, depth, seed, sr, clip=None):
+    """The flagship's model and optimizer (``bench.py``'s AdamW, with
+    ``ClipGradByGlobalNorm(clip)`` where given) at ``depth`` layers, from
+    ``seed``."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    pt_seed(seed)
+    cfg = LlamaConfig(**dict(LLAMA_542M, max_position_embeddings=2048,
+                             num_hidden_layers=depth))
+    m = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    o = AdamW(learning_rate=TRAIN_LR, parameters=m.parameters(),
+              moment_dtype="bfloat16", use_stochastic_rounding=sr, fused=True,
+              grad_clip=None if clip is None else ClipGradByGlobalNorm(clip))
+    return m, o
+
+
+def tp_serial(torch, np, dev, args, depth, steps, sr, clip, path):
+    """One process's steps on the global batch, the weights saved to
+    ``path`` first: returns the losses and (with ``clip``) the global
+    norms."""
+    model, opt = p18_model(torch, dev, depth, args.seed, sr, clip)
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+               path)
+    ids, labels = p17_batch(torch, np, dev, args.seed)
+    losses, norms = [], []
+    for _ in range(steps):
+        loss = model.loss(ids, labels)
+        loss.backward()
+        if clip is not None:
+            pg = [(p, p.grad) for p in model.parameters() if p.grad is not None]
+            norms.append(float(opt._grad_clip.global_norm(pg)))
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, norms
+
+
+def tp_phase(torch, np, dev, args, card):
+    """Phase 18: the serial runs here, then (a)+(b) in two launched ranks
+    and (c) in four."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p18_"))
+    try:
+        serial_a, _ = tp_serial(torch, np, dev, args,
+                                LLAMA_542M["num_hidden_layers"], TP_STEPS,
+                                True, None, tmp / "serial_a.pt")
+        serial_c, norms_c = tp_serial(torch, np, dev, args, HYBRID_DEPTH,
+                                      HYBRID_STEPS, False, TP_CLIP_NORM,
+                                      tmp / "serial_c.pt")
+        failures = tp_ranks(torch, np, args, card, serial_a, tmp, parts="ab")
+        failures += hybrid_ranks(torch, np, args, card, serial_c, norms_c, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        fail("phase 18: " + "; ".join(failures))
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def tp_ranks(torch, np, args, card, serial, tmp, script=None, extra=(),
+             parts="ab"):
+    """18(a) and (b) through the launcher (two ranks); returns the
+    failures. ``serial``: the serial step's losses (None: not held)."""
+    out = tmp / f"tp-{parts}"
+    out.mkdir()
+    (out / "serial_a.pt").symlink_to((tmp / "serial_a.pt").resolve())
+    rc, logs = launch_ranks("tp", out, args, script=script,
+                            extra=("--parts", parts, *extra),
+                            timeout=P18_RANK_TIMEOUT_S)
+    if rc != 0:
+        return [f"the two-rank TP launch exited {rc}:\n{logs}"]
+    ranks = rank_results(out)
+    failures = [f"rank {r}: {f}" for r, res in enumerate(ranks)
+                for f in res["failures"]]
+    if "a" in parts:
+        r0 = ranks[0]
+        losses = r0["losses"]
+        if ranks[1]["losses"] != losses:
+            failures.append(f"the ranks' losses differ: {losses} | "
+                            f"{ranks[1]['losses']}")
+        rel = [_rel(a, b) for a, b in zip(losses, serial or [])]
+        if serial and max(rel) > TP_LOSS_REL:
+            failures.append(f"losses {losses} are {max(rel):.3g} from the "
+                            f"serial step's {serial} (tol {TP_LOSS_REL})")
+        print(f"phase 18(a) TensorParallel(Llama-542M) at mp={TP_DEGREE}, two "
+              f"gloo ranks on the one card, B={TRAIN_BATCH} S={TRAIN_SEQ} bf16 "
+              f"SR on, {len(losses)} eager steps: losses "
+              f"{[round(x, 6) for x in losses]} against the serial step's "
+              f"{[round(x, 6) for x in serial or []]} (worst rel "
+              f"{max(rel) if rel else float('nan'):.3g}, tol {TP_LOSS_REL}); "
+              f"launches per rank {[r['counts'] for r in ranks]}; "
+              f"ParallelCrossEntropy against the plain one on the gathered "
+              f"logits {[r['pce_err'] for r in ranks]} nats (tol {PCE_ATOL});"
+              f" shards "
+              f"loaded bitwise the serial weights {[r['loaded'] for r in ranks]}"
+              f"; the rank's first forward (cold) ms "
+              f"{[round(r['first_fwd_ms'], 1) for r in ranks]}"
+              f"; norms bitwise equal across ranks after each step "
+              f"{r0['repl_equal']}; parameter bytes "
+              f"{[round(r['bytes_ratio'], 4) for r in ranks]} of the serial "
+              f"model's; collective contract {[r['contract'] for r in ranks]}"
+              f" [{card}]")
+        print(f"phase 18(a) per rank: ms a step "
+              f"{[[round(t, 1) for t in r['ms']] for r in ranks]}, tokens/s "
+              f"{[round(TRAIN_BATCH * TRAIN_SEQ / (min(r['ms']) / 1e3)) for r in ranks]}"
+              f", peak memory GB {[r['peak_gb'] for r in ranks]}; a step's "
+              f"collectives {r0['coll_step']}; bytes staged through host a "
+              f"step {r0['staged_step']}; alone: " + "; ".join(
+                  f"{k} {v[0]:.2f} ms {v[1]:.2f} GB/s staged {v[2]}"
+                  for k, v in r0["coll_times"].items()) + f" [{card}]")
+    if "b" in parts:
+        r0 = ranks[0]
+        print(f"phase 18(b) recompute on all {LLAMA_542M['num_hidden_layers']}"
+              f" layers at mp={TP_DEGREE}, SR off: the first step's gradients "
+              f"bitwise the step's without recompute "
+              f"{[r['rc_equal'] for r in ranks]}, loss equal "
+              f"{[r['rc_loss_equal'] for r in ranks]}; launches per rank "
+              f"{[r['rc_counts'] for r in ranks]}; peak GB with / without "
+              f"recompute {[(r['rc_peak_gb'], r['plain_peak_gb']) for r in ranks]}"
+              f"; ms fwd+bwd with / without "
+              f"{[(round(r['rc_ms'], 1), round(r['plain_ms'], 1)) for r in ranks]}"
+              f" [{card}]")
+        print(f"phase 18(b) SP pair {SP_SHAPE[2]} -> "
+              f"{LLAMA_542M['intermediate_size']} -> {SP_SHAPE[2]} on "
+              f"{list(SP_SHAPE)} bf16: gathered output against the serial "
+              f"pair's norm-rel {[r['sp_rel'] for r in ranks]} (tol {SP_REL}),"
+              f" the row bias's gradient bitwise equal across ranks after the "
+              f"hooks {r0['sp_bias_equal']}, ms fwd+bwd "
+              f"{[round(r['sp_ms'], 1) for r in ranks]}, staged bytes "
+              f"{r0['sp_staged']} [{card}]")
+    return failures
+
+
+def hybrid_ranks(torch, np, args, card, serial, serial_norms, tmp,
+                 script=None, extra=()):
+    """18(c) through the launcher (four ranks); returns the failures."""
+    out = tmp / "hybrid"
+    out.mkdir()
+    (out / "serial_c.pt").symlink_to((tmp / "serial_c.pt").resolve())
+    rc, logs = launch_ranks("hybrid", out, args, script=script, extra=extra,
+                            nproc=4, timeout=P18_RANK_TIMEOUT_S)
+    if rc != 0:
+        return [f"the four-rank launch exited {rc}:\n{logs}"]
+    ranks = rank_results(out, 4)
+    failures = [f"rank {r}: {f}" for r, res in enumerate(ranks)
+                for f in res["failures"]]
+    # the global loss: the mean of the dp ranks' (mp peers agree)
+    losses = [float(np.mean(x)) for x in zip(ranks[0]["losses"],
+                                             ranks[2]["losses"])]
+    rel = [_rel(a, b) for a, b in zip(losses, serial or [])]
+    if serial and max(rel) > TP_LOSS_REL:
+        failures.append(f"(c) losses {losses} are {max(rel):.3g} from the "
+                        f"serial step's {serial} (tol {TP_LOSS_REL})")
+    norms = ranks[0]["norms"]
+    nrel = [_rel(a, b) for a, b in zip(norms, serial_norms or [])]
+    scales = ranks[0]["scales"]
+    serial_scales = [min(1.0, TP_CLIP_NORM / n) for n in serial_norms or []]
+    if not all(s < 1.0 for s in scales):
+        failures.append(f"(c) the clip did not scale: factors {scales}")
+    if serial_norms and max(nrel) > CLIP_SERIAL_REL:
+        failures.append(f"(c) clip norms {norms} are {max(nrel):.3g} from the "
+                        f"serial step's {serial_norms} (tol {CLIP_SERIAL_REL})")
+    print(f"phase 18(c) dp=2 x mp=2, four gloo ranks on the one card, "
+          f"Llama-542M at {HYBRID_DEPTH} layers, SR off, ClipGradByGlobalNorm"
+          f"({TP_CLIP_NORM}) through HybridParallelOptimizer, "
+          f"{HYBRID_STEPS} steps: groups as get_comm_list gives "
+          f"{[r['groups_ok'] for r in ranks]}; losses "
+          f"{[round(x, 6) for x in losses]} against the serial step's "
+          f"{[round(x, 6) for x in serial or []]} (worst rel "
+          f"{max(rel) if rel else float('nan'):.3g}); clip norms {norms} "
+          f"(factors {scales}, the serial step's {serial_scales}) against "
+          f"the serial "
+          f"{serial_norms} (worst rel {max(nrel) if nrel else float('nan'):.3g}"
+          f", tol {CLIP_SERIAL_REL}) and the gathered gradients' "
+          f"{ranks[0]['whole_norms']} (tol {CLIP_SAME_REL}); shards bitwise "
+          f"across dp peers, norms across all four "
+          f"{[r['bitwise'] for r in ranks]}; ms a step "
+          f"{[[round(t, 1) for t in r['ms']] for r in ranks]} (forward, "
+          f"backward, optimizer: {[r['split'] for r in ranks]}), peak GB "
+          f"{[r['peak_gb'] for r in ranks]} [{card}]")
+    return failures
+
+
+def p18_arrays(torch, path):
+    """The serial run's weights as f32 numpy (bf16 values exactly)."""
+    sd = torch.load(path)
+    return {n: t.float().numpy() for n, t in sd.items()}
+
+
+def tp_axis(p):
+    """A parameter's shard dimension (None where it is replicated)."""
+    return p.tp_axis if getattr(p, "is_distributed", False) else None
+
+
+def tp_gather(torch, D, t, axis, group):
+    """``t`` whole: gathered over ``group`` along ``axis`` (None: ``t``
+    itself)."""
+    if axis is None:
+        return t.detach()
+    shape = list(t.shape)
+    shape[axis] *= group.nranks
+    whole = torch.empty(shape, dtype=t.dtype, device=t.device)
+    D.all_gather_into_tensor(whole, t.detach().contiguous(), group=group,
+                             axis=axis)
+    return whole
+
+
+def all_true(D, flag: bool) -> bool:
+    flags = []
+    D.all_gather_object(flags, bool(flag))
+    return all(flags)
+
+
+def equal_across(torch, D, tensors, group) -> bool:
+    """Whether every tensor is bitwise the group's first rank's (on every
+    rank of ``group``)."""
+    ok = True
+    for t in tensors:
+        buf = t.detach().clone()
+        D.broadcast(buf, src=group.ranks[0], group=group)
+        ok &= bool(torch.equal(buf, t))
+    return ok
+
+
+def coll_stats(seq0):
+    """{op: [count, MB]} of the collectives recorded after ``seq0``."""
+    from paddle_tpu_torch.distributed.communication import flight_recorder
+
+    sizes = {"bfloat16": 2, "float32": 4, "float16": 2, "int64": 8}
+    out = {}
+    for s in flight_recorder.recorder().snapshot():
+        if s.seq <= seq0:
+            continue
+        n = 1
+        for d in s.shape:
+            n *= d
+        row = out.setdefault(s.op, [0, 0.0])
+        row[0] += 1
+        row[1] = round(row[1] + n * sizes.get(s.dtype, 4) / 1e6, 3)
+    return out
+
+
+def recorder_seq():
+    from paddle_tpu_torch.distributed.communication import flight_recorder
+
+    snap = flight_recorder.recorder().snapshot()
+    return snap[-1].seq if snap else 0
+
+
+def tp_rank(torch, np, D, rank, dev, seed, parts, res, out, steps=None):
+    """18(a) and (b) on this rank; appends to ``res['failures']``."""
+    import functools
+    from pathlib import Path
+
+    from paddle_tpu_torch.distributed import communication as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.communication import flight_recorder
+    from paddle_tpu_torch.distributed.fleet.utils.recompute import recompute
+    from paddle_tpu_torch.distributed.store import FileKVStore
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.utils import load_jax_params
+
+    failures = res["failures"]
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"mp_degree": TP_DEGREE}
+    hcg = fleet.init(strategy=strategy)
+    g = hcg.get_model_parallel_group()
+    L = LLAMA_542M["num_hidden_layers"]
+    ids, labels = p17_batch(torch, np, dev, seed)
+    arrays = p18_arrays(torch, Path(out) / "serial_a.pt")
+    serial_bytes = sum(a.size * 2 for a in arrays.values())
+
+    def tp_model(sr):
+        model, opt = p18_model(torch, dev, L, seed, sr)
+        tp = fleet.distributed_model(model)
+        load_jax_params(model, arrays)
+        return model, tp, fleet.distributed_optimizer(opt)
+
+    if "a" in parts:
+        n_steps = steps or TP_STEPS
+        model, tp, opt = tp_model(True)
+        params = list(model.named_parameters())
+        res["loaded"] = all(
+            torch.equal(tp_gather(torch, D, p, tp_axis(p), g),
+                        torch.from_numpy(arrays[n]).to(dev, p.dtype))
+            for n, p in params)
+        if not res["loaded"]:
+            failures.append("the shards, gathered, are not the serial weights")
+        res["bytes_ratio"] = sum(p.numel() * p.element_size()
+                                 for _, p in params) / serial_bytes
+        if not TP_BYTES_BAND[0] <= res["bytes_ratio"] <= TP_BYTES_BAND[1]:
+            failures.append(f"parameter bytes {res['bytes_ratio']:.4f} of the "
+                            f"serial model's (band {TP_BYTES_BAND})")
+        repl = [p for _, p in params if not p.is_distributed]
+        # the vocab-sharded cross entropy against the plain one on the
+        # gathered logits, per token (the rank's first forward: timed)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            shard = tp(ids)
+            torch.cuda.synchronize()
+            res["first_fwd_ms"] = (time.perf_counter() - t0) * 1e3
+            v = shard.shape[-1]
+            mine = model._parallel_ce(shard.reshape(-1, v), labels.reshape(-1))
+            whole = tp_gather(torch, D, shard, 2, g)
+            plain = F.cross_entropy(whole.reshape(-1, TP_DEGREE * v),
+                                    labels.reshape(-1), reduction="none")
+            res["pce_err"] = float((mine - plain).abs().max())
+            del shard, mine, whole, plain
+        if not res["pce_err"] <= PCE_ATOL:
+            failures.append(f"ParallelCrossEntropy is {res['pce_err']:.3g} "
+                            f"nats from the plain cross entropy on the "
+                            f"gathered logits (tol {PCE_ATOL})")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, ms, equal = [], [], []
+        for i in range(n_steps):
+            if i == n_steps - 1:
+                seq0 = recorder_seq()
+                C.reset_staged_bytes()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = tp.loss(ids, labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss.detach()))
+            if i == n_steps - 1:
+                res["coll_step"] = coll_stats(seq0)
+                res["staged_step"] = C.staged_bytes()
+            equal.append(all_true(D, equal_across(torch, D, repl, g)))
+        counts = kernels.launch_counts()
+        want = {**flash_fwd_counts(L * n_steps), **flash_bwd_counts(L * n_steps),
+                "fused_adamw": ADAMW_GROUPS * n_steps}
+        res["counts"] = step_launches(counts)
+        got = {k: counts.get(k, 0) for k in want}
+        if got != want:
+            failures.append(f"launches {got} != {want}")
+        res["losses"], res["ms"], res["repl_equal"] = losses, ms, equal
+        res["peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+        if not all(equal):
+            failures.append(f"the replicated parameters differ across ranks "
+                            f"after steps {[i for i, e in enumerate(equal) if not e]}")
+        res["coll_times"] = time_tp_collectives(torch, D, dev, g)
+        del model, tp, opt, params, repl, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "b" in parts:
+        model, tp, opt = tp_model(False)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss0 = tp.loss(ids, labels)
+        loss0.backward()
+        torch.cuda.synchronize()
+        res["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        res["plain_peak_gb"] = round((torch.cuda.max_memory_allocated() - base)
+                                     / 1e9, 3)
+        grads = [p.grad.clone() for p in model.parameters()]
+        opt.clear_grad()
+        for layer in model.llama.layers:
+            layer.forward = functools.partial(recompute, layer.forward)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss1 = tp.loss(ids, labels)
+        loss1.backward()
+        torch.cuda.synchronize()
+        res["rc_ms"] = (time.perf_counter() - t0) * 1e3
+        res["rc_peak_gb"] = round((torch.cuda.max_memory_allocated() - base)
+                                  / 1e9, 3)
+        res["rc_equal"] = all(torch.equal(p.grad, q) for p, q in
+                              zip(model.parameters(), grads))
+        res["rc_loss_equal"] = bool(torch.equal(loss0.detach(), loss1.detach()))
+        opt.step()
+        opt.clear_grad()
+        counts = kernels.launch_counts()
+        want = {**flash_fwd_counts(2 * L), **flash_bwd_counts(L),
+                "fused_adamw": ADAMW_GROUPS}
+        res["rc_counts"] = step_launches(counts)
+        got = {k: counts.get(k, 0) for k in want}
+        if got != want:
+            failures.append(f"(b) launches {got} != {want}")
+        if not res["rc_equal"] or not res["rc_loss_equal"]:
+            failures.append("(b) the recomputed step's gradients or loss are "
+                            "not bitwise the step's without recompute")
+        if not res["rc_peak_gb"] < res["plain_peak_gb"]:
+            failures.append(f"(b) peak {res['rc_peak_gb']} GB with recompute, "
+                            f"{res['plain_peak_gb']} GB without")
+        del model, tp, opt, grads, loss0, loss1
+        gc.collect()
+        torch.cuda.empty_cache()
+        sp_pair(torch, D, dev, seed, g, res)
+    store = FileKVStore(str(Path(out) / "contract"))
+    try:
+        flight_recorder.contract(store, rank, D.get_world_size(),
+                                 deadline=120.0)
+        res["contract"] = "agrees"
+    except Exception as e:  # noqa: BLE001 - a gate: recorded as a failure
+        res["contract"] = "mismatch"
+        failures.append(f"collective contract: {str(e)[:400]}")
+
+
+def time_tp_collectives(torch, D, dev, g):
+    """Wall ms (synchronized) of the TP step's two collectives at their
+    shapes on the mp group: a row layer's all-reduce of ``[B, S, h]`` bf16
+    and the embedding's all-gather of ``[B, S, h/mp]`` along h. Reported."""
+    from paddle_tpu_torch.distributed import communication as C
+
+    h = LLAMA_542M["hidden_size"]
+    x = torch.ones(TRAIN_BATCH, TRAIN_SEQ, h, dtype=torch.bfloat16, device=dev)
+    part = torch.ones(TRAIN_BATCH, TRAIN_SEQ, h // g.nranks,
+                      dtype=torch.bfloat16, device=dev)
+    calls = {"all_reduce": lambda: D.all_reduce(x, group=g),
+             "all_gather_into_tensor(axis=2)": lambda: D.all_gather_into_tensor(
+                 x, part, group=g, axis=2)}
+    rows = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        C.reset_staged_bytes()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows[name] = (ms, x.numel() * 2 / ms / 1e6,
+                      sum(C.staged_bytes().values()))
+    return rows
+
+
+def sp_pair(torch, D, dev, seed, g, res):
+    """18(b)'s SP pair on this rank: the sequence-sharded input through
+    ``ColumnSequenceParallelLinear`` and ``RowSequenceParallelLinear``, the
+    output gathered and held against the serial pair on the gathered
+    weights; the row bias's gradient after the hooks."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.distributed import communication as C
+    from paddle_tpu_torch.distributed.fleet.utils import \
+        sequence_parallel_utils as SP
+
+    failures = res["failures"]
+    pt_seed(seed)
+    h, f = SP_SHAPE[2], LLAMA_542M["intermediate_size"]
+    col = SP.ColumnSequenceParallelLinear(h, f, has_bias=False, device=dev,
+                                          dtype=torch.bfloat16)
+    row = SP.RowSequenceParallelLinear(f, h, has_bias=True, device=dev,
+                                       dtype=torch.bfloat16)
+    with torch.no_grad():
+        row.bias.normal_(0.0, 0.02, generator=torch.Generator(dev).manual_seed(seed))
+    pair = torch.nn.Sequential(col, row)
+    SP.register_sequence_parallel_allreduce_hooks(pair)
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    x = torch.randn(SP_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+    c = torch.randn(SP_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+    C.reset_staged_bytes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = SP.GatherOp.apply(pair(SP.ScatterOp.apply(x, g)), g)
+    (y.float() * c.float()).sum().backward()
+    torch.cuda.synchronize()
+    res["sp_ms"] = (time.perf_counter() - t0) * 1e3
+    res["sp_staged"] = C.staged_bytes()
+    with torch.no_grad():
+        wc = tp_gather(torch, D, col.weight, 1, g)
+        wr = tp_gather(torch, D, row.weight, 0, g)
+        want = torch.matmul(torch.matmul(x, wc), wr) + row.bias
+        res["sp_rel"] = float((y.float() - want.float()).norm()
+                              / want.float().norm())
+    if not res["sp_rel"] <= SP_REL:
+        failures.append(f"(b) SP pair norm-rel {res['sp_rel']:.3g} > {SP_REL}")
+    res["sp_bias_equal"] = all_true(D, equal_across(torch, D, [row.bias.grad], g))
+    if not res["sp_bias_equal"]:
+        failures.append("(b) the row bias's gradient differs across ranks "
+                        "after the hooks")
+
+
+def hybrid_rank(torch, np, D, rank, dev, seed, res, out):
+    """18(c) on this rank: dp=2 x mp=2 at HYBRID_DEPTH layers."""
+    from pathlib import Path
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import kernels  # noqa: F401  (built by the parent)
+    from paddle_tpu_torch.utils import load_jax_params
+
+    failures = res["failures"]
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 2, "mp_degree": TP_DEGREE}
+    hcg = fleet.init(strategy=strategy)
+    topo = hcg.topology()
+    dp_g, mp_g = hcg.get_data_parallel_group(), hcg.get_model_parallel_group()
+    res["groups_ok"] = (
+        dp_g.ranks == next(x for x in topo.get_comm_list("dp") if rank in x)
+        and mp_g.ranks == next(x for x in topo.get_comm_list("mp") if rank in x))
+    if not res["groups_ok"]:
+        failures.append(f"groups dp {dp_g.ranks} mp {mp_g.ranks} are not "
+                        "get_comm_list's")
+    arrays = p18_arrays(torch, Path(out) / "serial_c.pt")
+    model, opt = p18_model(torch, dev, HYBRID_DEPTH, seed, False, TP_CLIP_NORM)
+    tp = fleet.distributed_model(model)
+    load_jax_params(model, arrays)
+    opt = fleet.distributed_optimizer(opt)
+    clip = opt._inner_opt._grad_clip
+    ids, labels = p17_batch(torch, np, dev, seed)
+    b = TRAIN_BATCH // 2
+    r = hcg.get_data_parallel_rank()
+    x, y = ids[r * b:(r + 1) * b], labels[r * b:(r + 1) * b]
+    params = list(model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, scales, whole, ms, bitwise = [], [], [], [], [], []
+    split = []  # (forward, backward, optimizer) ms of each step
+    for _ in range(HYBRID_STEPS):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        loss = tp.loss(x, y)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        loss.backward()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        opt.step()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ms.append((t[3] - t[0]) * 1e3)
+        split.append([round((b - a) * 1e3, 1) for a, b in zip(t, t[1:])])
+        losses.append(float(loss.detach()))
+        norms.append(float(clip.last_global_norm))
+        scales.append(float(clip.last_scale))
+        # the same (dp-averaged) gradients whole: their f32 global norm
+        sq = torch.zeros((), dtype=torch.float32, device=dev)
+        for p in params:
+            g = tp_gather(torch, D, p.grad, tp_axis(p), mp_g)
+            sq = sq + g.float().square().sum()
+        whole.append(float(torch.sqrt(sq)))
+        opt.clear_grad()
+        shards = [p for p in params if p.is_distributed]
+        repl = [p for p in params if not p.is_distributed]
+        world = D.collective._get_global_group()
+        bitwise.append(all_true(D, equal_across(torch, D, shards, dp_g)
+                                and equal_across(torch, D, repl, world)))
+    res.update(losses=losses, norms=norms, scales=scales, whole_norms=whole,
+               ms=ms, split=split, bitwise=bitwise,
+               peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    if not all(bitwise):
+        failures.append(f"(c) shards across dp peers or norms across ranks "
+                        f"not bitwise equal: {bitwise}")
+    gathered = []
+    D.all_gather_object(gathered, scales)
+    if any(s != scales for s in gathered):
+        failures.append(f"(c) the clip factors differ across ranks: {gathered}")
+    bad = [(a, b) for a, b in zip(norms, whole) if _rel(a, b) > CLIP_SAME_REL]
+    if bad:
+        failures.append(f"(c) the clip's global norms {norms} are not the "
+                        f"gathered gradients' {whole} (tol {CLIP_SAME_REL})")
+
+
 def kernel_class(name: str) -> str:
     """Bucket a profiled kernel name for the training step's time split."""
     n = name.lower()
@@ -5973,6 +6601,7 @@ def main() -> int:
     ap.add_argument("--rank17", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--parts", default="bc", help=argparse.SUPPRESS)
+    ap.add_argument("--steps", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import numpy as np
@@ -5983,7 +6612,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if args.rank17:
-        return phase17_rank(args.rank17, args.out, args.seed, args.parts)
+        return phase17_rank(args.rank17, args.out, args.seed, args.parts,
+                            args.steps or None)
     try:
         from paddle_tpu_torch import seed as pt_seed
         from paddle_tpu_torch.inference import ContinuousBatchingEngine
@@ -6623,6 +7253,12 @@ def main() -> int:
     starts.append(("17", time.perf_counter() - t_start))
     # -- phase 17: collectives and data-parallel training ----------------------
     collectives_phase(torch, np, dev, args, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    starts.append(("18", time.perf_counter() - t_start))
+    # -- phase 18: tensor parallelism, recompute, sequence parallel ------------
+    tp_phase(torch, np, dev, args, card)
     gc.collect()
     torch.cuda.empty_cache()
 

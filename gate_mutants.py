@@ -179,6 +179,23 @@ of 17(b)-(c) whose gates must refuse it:
   the tracker's rank-offset branch; 17(b)'s cross-rank equality (SR on)
   must refuse it.
 
+Phase 18's tensor-parallel host code, the same way, patched into the
+ranks that ``chip_smoke.tp_ranks`` (two) or ``hybrid_ranks`` (four)
+launch, against this process's serial runs (``P18_MUTANTS``, each with
+its launch in ``P18_RUNS``; 18(a) at one step):
+
+- ``a row-parallel layer skips its forward all-reduce`` and ``a
+  column-parallel layer's backward skips the input-gradient all-reduce``:
+  18(a)'s bitwise equality of the norms across ranks must refuse them;
+- ``ParallelCrossEntropy shifts by the local max``: 18(a)'s per-token
+  gate against the plain cross entropy on the gathered logits;
+- ``a rank loads its neighbour's slice``: 18(a)'s check that the
+  gathered shards are the serial weights;
+- ``the clip counts replicated parameters once per rank``: 18(c)'s clip
+  norm against the gathered gradients' norm;
+- ``recompute's rerun skips its forward all-reduce``: 18(b)'s bitwise
+  gradients against the step without recompute.
+
 Each variant runs through the kernel's own wrapper (``paged_decode`` and
 ``paged_decode_int8`` for the decode, ``fused_adamw_multi_update`` for
 AdamW). It also prints the verdict of the
@@ -673,6 +690,55 @@ P17_PARTS = {
     "stage 3 gathers the parameter from before the update": "c",
     "SR salts come from the local branch": "b",
 }
+# phase 18, in HOST_MUTANTS' form, each with the launch ("tp" with its
+# parts, or "hybrid") whose gates must refuse it; patched into the ranks
+P18_MUTANTS = {
+    "as is": None,
+    "a row-parallel layer skips its forward all-reduce": (
+        "paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers",
+        "RowParallelLinear.forward", [(
+            "y = _ReduceFromMP.apply(y, self.model_parallel_group)",
+            "y = y")]),
+    "a column-parallel layer's backward skips the input-gradient all-reduce": (
+        "paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers",
+        "_CopyToMP.backward", [(
+            "all_reduce(dy, group=ctx.group)", "pass")]),
+    "ParallelCrossEntropy shifts by the local max": (
+        "paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers",
+        "_ParallelCE.forward", [(
+            "all_reduce(gmax, op=ReduceOp.MAX, group=group)", "pass")]),
+    "a rank loads its neighbour's slice": (
+        "paddle_tpu_torch.utils.convert", "_tp_slice", [(
+            "np.split(a, n, axis=axis)[rank]",
+            "np.split(a, n, axis=axis)[(rank + 1) % n]")]),
+    "the clip counts replicated parameters once per rank": (
+        "paddle_tpu_torch.distributed.fleet.meta_optimizers",
+        "HybridParallelClipGrad.__call__", [(
+            'if getattr(p, "is_distributed", False):', "if True:")]),
+    "recompute's rerun skips its forward all-reduce": (
+        "paddle_tpu_torch.distributed.fleet.utils.recompute", "recompute", [(
+            "        with _random.replay_rng(captured):\n"
+            "            return function(*a, **kwargs)",
+            "        from paddle_tpu_torch.distributed.fleet.layers.mpu "
+            "import mp_layers as _m\n"
+            "        _m._ReduceFromMP.apply = lambda x, g: x\n"
+            "        try:\n"
+            "            with _random.replay_rng(captured):\n"
+            "                return function(*a, **kwargs)\n"
+            "        finally:\n"
+            "            del _m._ReduceFromMP.apply")]),
+}
+# the launch each runs through: ("tp", parts, steps) or ("hybrid",)
+P18_RUNS = {
+    "as is": None,
+    "a row-parallel layer skips its forward all-reduce": ("tp", "a", 1),
+    "a column-parallel layer's backward skips the input-gradient all-reduce":
+        ("tp", "a", 1),
+    "ParallelCrossEntropy shifts by the local max": ("tp", "a", 1),
+    "a rank loads its neighbour's slice": ("tp", "a", 1),
+    "the clip counts replicated parameters once per rank": ("hybrid",),
+    "recompute's rerun skips its forward all-reduce": ("tp", "b", 1),
+}
 # control_mutants' trace: phase 15's, shortened (the gates count no requests)
 CONTROL_TRACE = dict(n_requests=30, duration_s=5.0)
 # lowp_mutants' GEMM shapes: a train/prefill shape, a decode's and the odd
@@ -914,6 +980,54 @@ def p17_mutants(torch, np, args, card):
     return ok, refused, len(P17_MUTANTS) - 1
 
 
+def p18_mutants(torch, np, dev, args, card):
+    """Every phase-18 variant through the launch whose gates must refuse it
+    (``chip_smoke.tp_ranks`` or ``hybrid_ranks``, against this process's
+    serial runs); the original through both. Returns (ok, refused,
+    mutants counted)."""
+    import tempfile as _tempfile
+
+    tmp = Path(_tempfile.mkdtemp(prefix="gate_mutants_p18_"))
+    ok, refused = True, []
+    try:
+        serial_a, _ = cs.tp_serial(torch, np, dev, args,
+                                   cs.LLAMA_542M["num_hidden_layers"], 1,
+                                   True, None, tmp / "serial_a.pt")
+        serial_c, norms_c = cs.tp_serial(
+            torch, np, dev, args, cs.HYBRID_DEPTH, cs.HYBRID_STEPS, False,
+            cs.TP_CLIP_NORM, tmp / "serial_c.pt")
+        for name, run in P18_RUNS.items():
+            extra = ("--mutant", name)
+            script = Path(__file__).resolve()
+            bad = []
+            for kind in ((("tp", "ab", 1), ("hybrid",)) if run is None
+                         else (run,)):
+                sub = Path(_tempfile.mkdtemp(dir=tmp))
+                for f in ("serial_a.pt", "serial_c.pt"):
+                    (sub / f).symlink_to(tmp / f)
+                if kind[0] == "tp":
+                    bad += cs.tp_ranks(torch, np, args, card, serial_a[:1],
+                                       sub, script=script,
+                                       extra=(*extra, "--steps", "1"),
+                                       parts=kind[1])
+                else:
+                    bad += cs.hybrid_ranks(torch, np, args, card, serial_c,
+                                           norms_c, sub, script=script,
+                                           extra=extra)
+            if name == "as is":
+                ok &= not bad
+            elif bad:
+                refused.append(f"phase 18: {name}")
+            else:
+                ok = False
+            print(f"p18 {name}: "
+                  f"{'; '.join(b[:300] for b in bad) if bad else 'pass'} -> "
+                  f"{'FAIL' if bad else 'pass'} [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok, refused, len(P18_MUTANTS) - 1
+
+
 def deploy_mutants(torch, np, dev, args, card, ids):
     """Every phase-16 variant through the part of phase 16 whose gates must
     refuse it (``chip_smoke.deploy_serving``, ``control_flow_phase``,
@@ -966,14 +1080,17 @@ def main() -> int:
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--parts", default="bc", help=argparse.SUPPRESS)
     ap.add_argument("--mutant", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--steps", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
 
     if args.rank17:
-        if P17_MUTANTS[args.mutant] is not None:
-            host_variant(args.mutant, P17_MUTANTS)
-        return cs.phase17_rank(args.rank17, args.out, args.seed, args.parts)
+        table = P18_MUTANTS if args.mutant in P18_MUTANTS else P17_MUTANTS
+        if table[args.mutant] is not None:
+            host_variant(args.mutant, table)
+        return cs.phase17_rank(args.rank17, args.out, args.seed, args.parts,
+                               args.steps or None)
 
     if not torch.cuda.is_available():
         print("gate_mutants: CUDA is not available; this script runs on the "
@@ -995,6 +1112,7 @@ def main() -> int:
         # first, while this process holds next to nothing on the card: the
         # two ranks it launches each hold a full-width model
         results.append(p17_mutants(torch, np, args, card))
+        results.append(p18_mutants(torch, np, dev, args, card))
         results.append(fwd_mutants(torch, kernels, libs, dev, gen, card))
         torch.cuda.empty_cache()
         results.append(bwd_mutants(torch, kernels, libs, dev, gen, card))

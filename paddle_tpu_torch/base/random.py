@@ -36,7 +36,7 @@ __all__ = ["seed", "get_generator", "sr_generator", "sr_salts", "Generator",
            "default_generator", "get_rng_state", "set_rng_state", "next_key",
            "encode_rng_state", "serializable_rng_state", "restore_rng_state",
            "RNGStatesTracker", "get_rng_state_tracker",
-           "model_parallel_random_seed"]
+           "model_parallel_random_seed", "capture_rng", "replay_rng"]
 
 # the salt stream's seed differs from the init stream's by this constant
 _SR_STREAM = 0x5A17
@@ -294,3 +294,37 @@ def model_parallel_random_seed(seed_: int, tp_rank: int = 0) -> None:
     _tracker.add(RNGStatesTracker.GLOBAL, seed_)
     _tracker.add(RNGStatesTracker.LOCAL, seed_ + 2718 + tp_rank)
     _reseed_salts()
+
+
+def capture_rng() -> tuple:
+    """The draw position of every stream a forward draws from: the current
+    default generator (the object: a tracker branch inside
+    ``rng_state``) and its state, and the tracker's branches. Recompute
+    takes it before a segment's first run (``fleet.utils.recompute``)."""
+    return (_default_generator, _default_generator.get_state(),
+            _tracker.get_states_dict())
+
+
+@contextlib.contextmanager
+def replay_rng(captured: tuple):
+    """Inside the block every stream draws again from where
+    :func:`capture_rng` found it (a branch added since is absent), and the
+    default generator is the one current then; on exit each stream is back
+    where the block found it, so the replay shifts no later draw."""
+    global _default_generator
+    gen, state, branches = captured
+    prev_default = _default_generator
+    prev_gen_state = gen.get_state()
+    prev_branches = dict(_tracker._states)
+    prev_states = _tracker.get_states_dict()
+    _default_generator = gen
+    gen.set_state(state)
+    _tracker._states = {k: v for k, v in prev_branches.items() if k in branches}
+    _tracker.set_states_dict(branches)
+    try:
+        yield
+    finally:
+        _tracker._states = prev_branches
+        _tracker.set_states_dict(prev_states)
+        gen.set_state(prev_gen_state)
+        _default_generator = prev_default

@@ -7,10 +7,11 @@ stream variants, the watchdog and the flight recorder
 (:mod:`.communication`), the launcher's bring-up (:mod:`.multi_controller`,
 :mod:`.launch`, :mod:`.spawn`), ``init_parallel_env`` and ``DataParallel``
 (:mod:`.parallel`), group-sharded stages 1-3 (:mod:`.sharding`), the
-namespace's small collectives (:mod:`.parity`) and the KV stores
-(:mod:`.store`). The fleet layouts (tensor, sequence and pipeline
-parallelism, MoE), checkpoints, elasticity and ``auto_parallel`` are later
-slices.
+namespace's small collectives and the tensor-parallel ``split``
+(:mod:`.parity`), the KV stores (:mod:`.store`), and :mod:`.fleet`: the
+hybrid topology, tensor and sequence parallelism, recompute. The pipeline,
+MoE, segment parallelism, checkpoints, elasticity and ``auto_parallel``
+are later slices.
 """
 from .collective import (  # noqa: F401
     Group,
@@ -46,6 +47,7 @@ from .parallel import (  # noqa: F401
     init_parallel_env,
     shard_map,
 )
+from . import fleet  # noqa: F401
 from . import sharding  # noqa: F401
 from .sharding import group_sharded_parallel, save_group_sharded_model  # noqa: F401
 from . import store  # noqa: F401
@@ -70,7 +72,7 @@ __all__ = [
     "barrier", "broadcast", "get_rank_in_trace", "p2p_sendrecv", "ppermute",
     "recv", "reduce", "reduce_scatter", "scatter", "send", "DataParallel",
     "ParallelEnv", "get_rank", "get_world_size", "init_parallel_env",
-    "shard_map", "sharding", "group_sharded_parallel",
+    "shard_map", "fleet", "sharding", "group_sharded_parallel",
     "save_group_sharded_model", "store", "KVStore", "MemKVStore",
     "FileKVStore", "TCPStoreServer", "TCPKVStore", "CorruptBlobError",
     "make_store", "launch", "spawn", *_parity_all]

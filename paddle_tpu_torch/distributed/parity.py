@@ -3,9 +3,9 @@ the communication half of ``paddle_tpu/distributed/parity.py``).
 
 Ported here: ``gather``, ``scatter_object_list``, ``broadcast_object_list``,
 ``wait``, ``isend``/``irecv`` with their ``_Work``, ``is_available``,
-``get_backend``, ``ParallelMode``, ``ReduceType`` and the ``gloo_*``
-functions. The rest of the reference's module (the TP ``split``, the PS
-entry policies, the fleet datasets, ``DistAttr``, ``Strategy``,
+``get_backend``, ``ParallelMode``, ``ReduceType``, the ``gloo_*``
+functions and the tensor-parallel ``split`` (over ``fleet``'s mp layers).
+The rest of the reference's module (the PS entry policies, the fleet datasets, ``DistAttr``, ``Strategy``,
 ``DistModel``, ``to_static``, ``shard_dataloader``, ``shard_scaler``, the
 sharding-stage tags, ``unshard_dtensor``) waits for ``fleet`` and
 ``auto_parallel`` (ROADMAP A1).
@@ -21,7 +21,7 @@ from .collective import _get_global_group
 
 __all__ = ["gather", "scatter_object_list", "broadcast_object_list", "wait",
            "isend", "irecv", "is_available", "get_backend", "ParallelMode",
-           "ReduceType", "gloo_init_parallel_env", "gloo_barrier",
+           "ReduceType", "split", "gloo_init_parallel_env", "gloo_barrier",
            "gloo_release"]
 
 
@@ -140,6 +140,37 @@ class ReduceType:
     kRedAvg = 4
     kRedAny = 5
     kRedAll = 6
+
+
+def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,
+          weight_attr=None, bias_attr=None, name=None):
+    """ref: parity.py:171-195 (fleet/layers/mpu/mp_ops.py split): build a
+    row-parallel (``axis=0``) or column-parallel (``axis=1``) linear of
+    ``size = (in, out)``, or a vocab-parallel embedding, over the mp group,
+    on ``x``'s device, and return its output on ``x`` (the reference's
+    functional form; the layer is built from the RNG tracker's global
+    branch, so every rank builds its slice of one weight)."""
+    from .fleet.layers.mpu.mp_layers import (ColumnParallelLinear,
+                                             RowParallelLinear,
+                                             VocabParallelEmbedding)
+
+    kw = dict(device=x.device)
+    if operation == "linear":
+        if axis == 0:
+            layer = RowParallelLinear(size[0], size[1],
+                                      weight_attr=weight_attr,
+                                      has_bias=bias_attr is not False,
+                                      input_is_parallel=False, **kw)
+        else:
+            layer = ColumnParallelLinear(size[0], size[1],
+                                         weight_attr=weight_attr,
+                                         has_bias=bias_attr is not False,
+                                         gather_output=gather_out, **kw)
+        return layer(x)
+    if operation == "embedding":
+        return VocabParallelEmbedding(size[0], size[1],
+                                      weight_attr=weight_attr, **kw)(x)
+    raise ValueError(f"split: unknown operation {operation!r}")
 
 
 def gloo_init_parallel_env(rank_id, rank_num, server_endpoint):

@@ -97,6 +97,10 @@ class LlamaAttention(nn.Module):
         self.k_proj = Linear(h, self.num_kv_heads * self.head_dim, bias=False, **kw)
         self.v_proj = Linear(h, self.num_kv_heads * self.head_dim, bias=False, **kw)
         self.o_proj = Linear(self.num_heads * self.head_dim, h, bias=False, **kw)
+        # TP metadata, as the reference sets it (column: 1, row: 0)
+        for proj in (self.q_proj, self.k_proj, self.v_proj):
+            proj.weight.tp_axis = 1
+        self.o_proj.weight.tp_axis = 0
 
     def forward(self, x, cache=None, cur_len=None):
         """``cache``: a :class:`PagedLayerCache` or a dense ``(k_cache,
@@ -155,6 +159,9 @@ class LlamaMLP(nn.Module):
         self.gate_proj = Linear(h, i, bias=False, **kw)
         self.up_proj = Linear(h, i, bias=False, **kw)
         self.down_proj = Linear(i, h, bias=False, **kw)
+        self.gate_proj.weight.tp_axis = 1
+        self.up_proj.weight.tp_axis = 1
+        self.down_proj.weight.tp_axis = 0
 
     def forward(self, x):
         gate, up = amp_cast("multiply", F.silu(self.gate_proj(x)),
@@ -193,6 +200,7 @@ class LlamaModel(nn.Module):
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       device=device, dtype=dtype,
                                       generator=generator)
+        self.embed_tokens.weight.tp_axis = 1
         self.layers = nn.ModuleList([
             LlamaDecoderLayer(config, device=device, dtype=dtype,
                               generator=generator)
@@ -231,6 +239,8 @@ class LlamaForCausalLM(nn.Module):
                         Linear(config.hidden_size, config.vocab_size,
                                bias=False, device=dev, dtype=dtype,
                                generator=gen))
+        if self.lm_head is not None:
+            self.lm_head.weight.tp_axis = 1
 
     @property
     def device(self) -> torch.device:
@@ -280,10 +290,20 @@ class LlamaForCausalLM(nn.Module):
 
     def loss(self, input_ids, labels):
         """Mean token cross entropy of ``self(input_ids)`` against
-        ``labels`` (``F.cross_entropy`` on ``[B*S, V]``)."""
+        ``labels`` (``F.cross_entropy`` on ``[B*S, V]``). Under tensor
+        parallelism (``fleet``'s ``TensorParallel``) the logits are this
+        rank's vocabulary shard and the loss runs through its
+        ``ParallelCrossEntropy`` (``_parallel_ce``), never gathering them."""
         logits = self(input_ids)
         b, s, v = logits.shape
-        return F.cross_entropy(logits.reshape(b * s, v), labels.reshape(b * s))
+        ce = getattr(self, "_parallel_ce", None)
+        if ce is None:
+            return F.cross_entropy(logits.reshape(b * s, v),
+                                   labels.reshape(b * s))
+        flat = labels.reshape(b * s)
+        per_token = ce(logits.reshape(b * s, v), flat)
+        valid = (flat != ce.ignore_index).to(per_token.dtype).sum()
+        return per_token.sum() / torch.clamp(valid, min=1.0)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -5,6 +5,7 @@ import torch
 from torch import nn
 
 from ..functional.norm import rms_norm
+from .common import tp_meta
 
 __all__ = ["RMSNorm"]
 
@@ -14,8 +15,8 @@ class RMSNorm(nn.Module):
                  device: torch.device, dtype: torch.dtype):
         super().__init__()
         self.epsilon = epsilon
-        self.weight = nn.Parameter(
-            torch.ones(hidden_size, device=device, dtype=dtype))
+        self.weight = tp_meta(nn.Parameter(
+            torch.ones(hidden_size, device=device, dtype=dtype)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.weight, self.epsilon)

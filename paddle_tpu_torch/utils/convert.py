@@ -3,7 +3,10 @@
 The caller builds ``arrays`` from a ``paddle_tpu`` layer's
 ``named_parameters()`` (or ``named_buffers()``) with ``np.asarray``, so this
 package never imports ``paddle_tpu``. Paddle's ``Linear`` weight layout
-``[in, out]`` is kept by the port, so no array is transposed.
+``[in, out]`` is kept by the port, so no array is transposed. A
+tensor-parallel shard (``is_distributed``, with its ``tp_axis``) takes
+its rank's slice of the whole array, so the reference's full arrays load
+into every rank of a tensor-parallel model.
 """
 from __future__ import annotations
 
@@ -13,6 +16,22 @@ import numpy as np
 import torch
 
 __all__ = ["load_jax_params", "load_jax_buffers"]
+
+
+def _tp_slice(t: torch.Tensor, a: np.ndarray) -> np.ndarray:
+    """A tensor-parallel shard's slice of the whole array ``a``: this
+    rank's part along the shard's ``tp_axis`` (``_tp_shard = (rank,
+    degree)``, set where the shard was cut); ``a`` itself otherwise, or
+    where it has the shard's shape already."""
+    shard = getattr(t, "_tp_shard", None)
+    if (shard is None or not getattr(t, "is_distributed", False)
+            or tuple(a.shape) == tuple(t.shape)):
+        return a
+    rank, n = shard
+    axis = t.tp_axis
+    if a.ndim != t.dim() or a.shape[axis] != n * t.shape[axis]:
+        return a  # the caller's shape check names the mismatch
+    return np.split(a, n, axis=axis)[rank]
 
 
 def _load_named(kind: str, named: Mapping[str, torch.Tensor],
@@ -26,12 +45,15 @@ def _load_named(kind: str, named: Mapping[str, torch.Tensor],
         for name, t in named.items():
             # a writable copy numpy can hand torch: f32 for floats (numpy
             # has no bfloat16 torch can read), int64 for integers
-            a = np.array(arrays[name], dtype=(np.float32 if
-                                              t.is_floating_point()
-                                              else np.int64))
+            a = np.asarray(arrays[name])
+            full = tuple(a.shape)
+            a = _tp_slice(t, a)
+            a = np.array(a, dtype=(np.float32 if t.is_floating_point()
+                                   else np.int64))
             if tuple(a.shape) != tuple(t.shape):
-                raise ValueError(f"{name}: shape {tuple(a.shape)} != "
-                                 f"{tuple(t.shape)}")
+                raise ValueError(f"{name}: shape {full} matches neither "
+                                 f"{tuple(t.shape)} nor its tensor-parallel "
+                                 f"whole")
             # in place: the destination keeps its strides and address
             t.copy_(torch.from_numpy(a).to(device=t.device, dtype=t.dtype))
 
@@ -39,8 +61,10 @@ def _load_named(kind: str, named: Mapping[str, torch.Tensor],
 def load_jax_params(module: torch.nn.Module,
                     arrays: Mapping[str, np.ndarray]) -> None:
     """Copy ``arrays[name]`` into every parameter of ``module`` (cast to the
-    parameter's dtype, on its device). Raises ``KeyError`` when a name is
-    missing or left over, ``ValueError`` on a shape mismatch."""
+    parameter's dtype, on its device); a tensor-parallel shard takes its
+    rank's slice of the whole array. Raises ``KeyError`` when a name is
+    missing or left over, ``ValueError`` on a shape that matches neither
+    the parameter nor its whole."""
     _load_named("parameter", dict(module.named_parameters()), arrays)
 
 
