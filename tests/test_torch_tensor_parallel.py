@@ -13,6 +13,9 @@ port's ``tp_axis`` equals the reference's, parameter by parameter; a model
 built at mp=2 from a seed holds the serial model's slices (and an mp layer
 the slices of the one built at mp=1); the reference's whole arrays load
 into the shards; a kv-head count mp does not divide raises.
+``DygraphShardingOptimizer`` at sharding=2 (each rank on its half of the
+batch, stage 1 over the sharding group) against the reference's on its
+mesh: losses to 1e-5, parameters to 1e-4, the moments cut in half.
 """
 import numpy as np
 import pytest
@@ -83,7 +86,58 @@ def case(tmp_path_factory):
              (2, 2): R.run_ranks(T.tp_llama_body, 4, tmp,
                                  args=(2, arrays, ids, labels, STEPS, CLIP))}
     ref = {k: _reference(*k, arrays, ids, labels) for k in ranks}
+    ranks["sharding"] = R.run_ranks(T.sharding_opt_body, 2, tmp,
+                                    args=(arrays, ids, labels, STEPS))
+    ref["sharding"] = _sharding_reference(arrays, ids, labels)
     return arrays, ref_axes, ranks, ref
+
+
+def _sharding_reference(arrays, ids, labels):
+    from paddle_tpu.distributed.fleet.meta_optimizers import \
+        DygraphShardingOptimizer
+
+    strategy = jfleet.DistributedStrategy()
+    strategy.hybrid_configs = {"sharding_degree": 2}
+    hcg = jfleet.init(strategy=strategy)
+    paddle.seed(0)
+    try:
+        jm = JLlama(JConfig.tiny())
+        for n, p in jm.named_parameters():
+            p.set_value(paddle.to_tensor(arrays[n]))
+        opt = DygraphShardingOptimizer(
+            jopt.AdamW(learning_rate=1e-3, parameters=jm.parameters()), hcg)
+
+        def step(x, y):
+            loss = jm.loss(x, y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        compiled = paddle.jit.to_static(step, layers=[jm], optimizers=[opt])
+        with hcg.mesh:
+            losses = [float(compiled(paddle.to_tensor(ids),
+                                     paddle.to_tensor(labels)).numpy())
+                      for _ in range(STEPS)]
+        params = {n: np.asarray(jax.device_get(p._data))
+                  for n, p in jm.named_parameters()}
+    finally:
+        jdist.destroy_process_group()
+        jfleet.set_hybrid_communicate_group(None)
+    return losses, params
+
+
+def test_sharding_optimizer_matches_the_reference(case):
+    arrays, _, ranks, ref = case
+    got = np.mean([r["losses"] for r in ranks["sharding"]], axis=0)
+    np.testing.assert_allclose(got, ref["sharding"][0], atol=LOSS_TOL, rtol=0)
+    for n, want in ref["sharding"][1].items():
+        for r in ranks["sharding"]:
+            np.testing.assert_allclose(r["params"][n], want, atol=PARAM_TOL,
+                                       rtol=0, err_msg=n)
+    shapes = ranks["sharding"][0]["moment_shapes"]
+    assert sum(int(np.prod(v)) for v in shapes.values()) * 2 == \
+        sum(a.size for a in arrays.values())
 
 
 @pytest.mark.parametrize("dims", [(1, 2), (2, 2)], ids=["mp2", "dp2xmp2"])
@@ -124,8 +178,8 @@ def test_shards_heads_and_logits(case):
             assert not dist and shape == full, n
         else:
             assert dist and shape[axis] * 2 == full[axis], n
-    for rs in ranks.values():
-        for r in rs:
+    for dims in ((1, 2), (2, 2)):
+        for r in ranks[dims]:
             assert r["loaded_equal"] and r["seed_slices_equal"]
             assert r["mp_layer_seed_equal"]
 

@@ -363,3 +363,35 @@ def sp_body(rank, world, case):
             "sp_marked": bool(getattr(row.bias, "is_sequence_parallel", False)),
         }
     return res
+
+
+def sharding_opt_body(rank, world, arrays, ids, labels, steps):
+    """``fleet.init(sharding_degree=world)`` and ``DygraphShardingOptimizer``
+    (stage 1 over the sharding group) around the Llama step, each rank on
+    its part of the batch."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import \
+        DygraphShardingOptimizer
+    from paddle_tpu_torch.optimizer import AdamW
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"sharding_degree": world}
+    hcg = fleet.init(strategy=s, device="cpu")
+    model = fleet.distributed_model(_tiny(arrays))
+    opt = DygraphShardingOptimizer(
+        AdamW(learning_rate=1e-3, parameters=model.parameters()), hcg)
+    b = ids.shape[0] // world
+    x = torch.from_numpy(ids[rank * b:(rank + 1) * b])
+    y = torch.from_numpy(labels[rank * b:(rank + 1) * b])
+    losses = []
+    for _ in range(steps):
+        loss = model.loss(x, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    return {"losses": losses,
+            "params": {n: p.detach().numpy().copy()
+                       for n, p in model.named_parameters()},
+            "moment_shapes": {k: tuple(v.shape) for k, v in
+                              opt._accumulators["moment1"].items()}}
