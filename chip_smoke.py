@@ -5978,11 +5978,30 @@ TP_DEGREE, TP_STEPS = 2, 3
 # serial GEMM's 0.5); these errors are unbiased, and the loss, an f32 mean
 # over 8192 tokens' cross entropies, averages them: one ulp of every logit
 # (logits have a std of ~0.36 here) moves a token's loss by at most ~1.4e-3
-# nats, ~1.6e-5 nats averaged with random signs. After a step the two runs'
-# parameters also differ by one bf16 ulp where SR's bits differ (column
-# shards draw other bits). 1e-3 of ~10.4 nats is ~0.01 nats, ~600 times
-# that estimate
-TP_LOSS_REL = 1e-3
+# nats, ~1.6e-5 nats (1.5e-6 rel.) averaged with random signs. After a step
+# the two runs' parameters also differ by one bf16 ulp where SR's bits
+# differ (column shards draw other bits). The card measured 1.95e-5 rel.
+# (a) and 3.7e-6 (c) over two calls: the estimate is ~13x low, as the
+# rounding differences of 8 layers add up in the residual stream, not just
+# at the logits. 2e-4 is ~10x the measured worst: a loss of ~10.4 nats
+# sits ~0.065 nats above ln 32000, so a looser band would hide a sizeable
+# share of the model's whole signal (wrong kv heads, say); the first
+# step's gradients below hold the numbers element by element
+TP_LOSS_REL = 2e-4
+# (a): the first step's gradients, gathered over mp, against the serial
+# step's on the same weights and data: the worst over the 75 parameters of
+# |g - g_serial| / |g_serial| (f32 norms). Reasoned before the first card
+# call: both are bf16 (rounding ~1e-3 rms rel. each); the TP run adds a
+# bf16 rounding of two partial sums at each of the 16 forward all-reduces
+# and 17 backward ones, each ~1e-3 rms rel. of the signal it carries;
+# independent, they add to ~sqrt(33) * 1e-3 ~ 6e-3 (gate then 3e-2). The
+# card measured 2.33e-2, the same in every call: that estimate took no
+# worst-of-75 factor and too small an error per rounding (three bf16
+# roundings against one, ~1.6e-3 rms). 0.1 is ~4x the measured worst and
+# 10x below the nearest fault gate_mutants.py shows (0.98: a column layer
+# whose backward skips its all-reduce; a head paired with the next kv
+# head 1.42, a row layer that skips its all-reduce 1.61)
+TP_GRAD_REL = 0.1
 TP_BYTES_BAND = (0.45, 0.55)  # (a): a rank's parameter bytes / serial's
 # (a): ParallelCrossEntropy over the vocab-sharded logits against the plain
 # cross entropy on the gathered logits, per token, in nats: the same f32
@@ -6025,18 +6044,23 @@ def p18_model(torch, dev, depth, seed, sr, clip=None):
     return m, o
 
 
-def tp_serial(torch, np, dev, args, depth, steps, sr, clip, path):
+def tp_serial(torch, np, dev, args, depth, steps, sr, clip, path,
+              save_grads=False):
     """One process's steps on the global batch, the weights saved to
-    ``path`` first: returns the losses and (with ``clip``) the global
+    ``path`` first (and with ``save_grads`` the first step's gradients to
+    :func:`grads_path`): returns the losses and (with ``clip``) the global
     norms."""
     model, opt = p18_model(torch, dev, depth, args.seed, sr, clip)
     torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
                path)
     ids, labels = p17_batch(torch, np, dev, args.seed)
     losses, norms = [], []
-    for _ in range(steps):
+    for i in range(steps):
         loss = model.loss(ids, labels)
         loss.backward()
+        if save_grads and i == 0:
+            torch.save({n: p.grad.cpu() for n, p in model.named_parameters()},
+                       grads_path(path))
         if clip is not None:
             pg = [(p, p.grad) for p in model.parameters() if p.grad is not None]
             norms.append(float(opt._grad_clip.global_norm(pg)))
@@ -6047,6 +6071,11 @@ def tp_serial(torch, np, dev, args, depth, steps, sr, clip, path):
     gc.collect()
     torch.cuda.empty_cache()
     return losses, norms
+
+
+def grads_path(path):
+    """Where :func:`tp_serial` saves the first step's gradients."""
+    return path.with_name(path.stem + "_grads.pt")
 
 
 def tp_phase(torch, np, dev, args, card):
@@ -6060,7 +6089,8 @@ def tp_phase(torch, np, dev, args, card):
     try:
         serial_a, _ = tp_serial(torch, np, dev, args,
                                 LLAMA_542M["num_hidden_layers"], TP_STEPS,
-                                True, None, tmp / "serial_a.pt")
+                                True, None, tmp / "serial_a.pt",
+                                save_grads=True)
         serial_c, norms_c = tp_serial(torch, np, dev, args, HYBRID_DEPTH,
                                       HYBRID_STEPS, False, TP_CLIP_NORM,
                                       tmp / "serial_c.pt")
@@ -6082,7 +6112,8 @@ def tp_ranks(torch, np, args, card, serial, tmp, script=None, extra=(),
     failures. ``serial``: the serial step's losses (None: not held)."""
     out = tmp / f"tp-{parts}"
     out.mkdir()
-    (out / "serial_a.pt").symlink_to((tmp / "serial_a.pt").resolve())
+    for f in ("serial_a.pt", "serial_a_grads.pt"):
+        (out / f).symlink_to((tmp / f).resolve())
     rc, logs = launch_ranks("tp", out, args, script=script,
                             extra=("--parts", parts, *extra),
                             timeout=P18_RANK_TIMEOUT_S)
@@ -6107,6 +6138,9 @@ def tp_ranks(torch, np, args, card, serial, tmp, script=None, extra=(),
               f"{[round(x, 6) for x in losses]} against the serial step's "
               f"{[round(x, 6) for x in serial or []]} (worst rel "
               f"{max(rel) if rel else float('nan'):.3g}, tol {TP_LOSS_REL}); "
+              f"the first step's gradients, gathered, against the serial "
+              f"step's: worst norm-rel {[r['grad_rel'] for r in ranks]} at "
+              f"{[r['grad_worst'] for r in ranks]} (tol {TP_GRAD_REL}); "
               f"launches per rank {[r['counts'] for r in ranks]}; "
               f"ParallelCrossEntropy against the plain one on the gathered "
               f"logits {[r['pce_err'] for r in ranks]} nats (tol {PCE_ATOL});"
@@ -6224,6 +6258,21 @@ def tp_gather(torch, D, t, axis, group):
     return whole
 
 
+def grads_rel(torch, D, params, path, group):
+    """The worst over ``params`` (name, parameter) of |g - g_serial| /
+    |g_serial|, each gradient gathered over ``group`` whole, against the
+    serial step's saved at ``path``: (value, the parameter's name)."""
+    serial = torch.load(path)
+    worst, name = 0.0, None
+    for n, p in params:
+        whole = tp_gather(torch, D, p.grad, tp_axis(p), group).float()
+        want = serial.pop(n).to(whole.device).float()
+        rel = float((whole - want).norm() / want.norm())
+        if not rel <= worst:  # a NaN is the worst
+            worst, name = rel, n
+    return worst, name
+
+
 def all_true(D, flag: bool) -> bool:
     flags = []
     D.all_gather_object(flags, bool(flag))
@@ -6274,6 +6323,8 @@ def tp_rank(torch, np, D, rank, dev, seed, parts, res, out, steps=None):
     from paddle_tpu_torch.distributed import communication as C
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.communication import flight_recorder
+    from paddle_tpu_torch.distributed.fleet.layers.mpu import \
+        ParallelCrossEntropy
     from paddle_tpu_torch.distributed.fleet.utils.recompute import recompute
     from paddle_tpu_torch.distributed.store import FileKVStore
     from paddle_tpu_torch.nn import functional as F
@@ -6321,7 +6372,8 @@ def tp_rank(torch, np, D, rank, dev, seed, parts, res, out, steps=None):
             torch.cuda.synchronize()
             res["first_fwd_ms"] = (time.perf_counter() - t0) * 1e3
             v = shard.shape[-1]
-            mine = model._parallel_ce(shard.reshape(-1, v), labels.reshape(-1))
+            mine = ParallelCrossEntropy(g)(shard.reshape(-1, v),
+                                           labels.reshape(-1))
             whole = tp_gather(torch, D, shard, 2, g)
             plain = F.cross_entropy(whole.reshape(-1, TP_DEGREE * v),
                                     labels.reshape(-1), reduction="none")
@@ -6342,6 +6394,17 @@ def tp_rank(torch, np, D, rank, dev, seed, parts, res, out, steps=None):
             t0 = time.perf_counter()
             loss = tp.loss(ids, labels)
             loss.backward()
+            if i == 0:  # held against the serial step's, off the clock
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                res["grad_rel"], res["grad_worst"] = grads_rel(
+                    torch, D, params, Path(out) / "serial_a_grads.pt", g)
+                t0 += time.perf_counter() - t1
+                if not res["grad_rel"] <= TP_GRAD_REL:
+                    failures.append(
+                        f"the first step's gradients are {res['grad_rel']:.3g}"
+                        f" (norm-rel., {res['grad_worst']}) from the serial "
+                        f"step's (tol {TP_GRAD_REL})")
             opt.step()
             opt.clear_grad()
             torch.cuda.synchronize()

@@ -2,7 +2,9 @@
 """Shows that ``chip_smoke.py``'s gates refuse wrong kernels and wrong
 serving host code.
 
-    python3 gate_mutants.py [--seed N]
+    python3 gate_mutants.py [--seed N] [--phase18]
+
+(``--phase18``: only phase 18's tensor-parallel mutants, below.)
 
 Builds four kernel sources as they are and in broken forms, each form
 from its own copy of the kernel sources in a temporary directory (the
@@ -191,6 +193,8 @@ its launch in ``P18_RUNS``; 18(a) at one step):
   gate against the plain cross entropy on the gathered logits;
 - ``a rank loads its neighbour's slice``: 18(a)'s check that the
   gathered shards are the serial weights;
+- ``each query head attends with the next kv head``: 18(a)'s first-step
+  gradients against the serial step's (the loss moves too little);
 - ``the clip counts replicated parameters once per rank``: 18(c)'s clip
   norm against the gathered gradients' norm;
 - ``recompute's rerun skips its forward all-reduce``: 18(b)'s bitwise
@@ -711,6 +715,11 @@ P18_MUTANTS = {
         "paddle_tpu_torch.utils.convert", "_tp_slice", [(
             "np.split(a, n, axis=axis)[rank]",
             "np.split(a, n, axis=axis)[(rank + 1) % n]")]),
+    "each query head attends with the next kv head": (
+        "paddle_tpu_torch.models.llama", "LlamaAttention.forward", [(
+            "theta = self.config.rope_theta",
+            "theta = self.config.rope_theta\n"
+            "    k, v = k.roll(1, 2), v.roll(1, 2)")]),
     "the clip counts replicated parameters once per rank": (
         "paddle_tpu_torch.distributed.fleet.meta_optimizers",
         "HybridParallelClipGrad.__call__", [(
@@ -736,6 +745,7 @@ P18_RUNS = {
         ("tp", "a", 1),
     "ParallelCrossEntropy shifts by the local max": ("tp", "a", 1),
     "a rank loads its neighbour's slice": ("tp", "a", 1),
+    "each query head attends with the next kv head": ("tp", "a", 1),
     "the clip counts replicated parameters once per rank": ("hybrid",),
     "recompute's rerun skips its forward all-reduce": ("tp", "b", 1),
 }
@@ -992,7 +1002,8 @@ def p18_mutants(torch, np, dev, args, card):
     try:
         serial_a, _ = cs.tp_serial(torch, np, dev, args,
                                    cs.LLAMA_542M["num_hidden_layers"], 1,
-                                   True, None, tmp / "serial_a.pt")
+                                   True, None, tmp / "serial_a.pt",
+                                   save_grads=True)
         serial_c, norms_c = cs.tp_serial(
             torch, np, dev, args, cs.HYBRID_DEPTH, cs.HYBRID_STEPS, False,
             cs.TP_CLIP_NORM, tmp / "serial_c.pt")
@@ -1003,7 +1014,7 @@ def p18_mutants(torch, np, dev, args, card):
             for kind in ((("tp", "ab", 1), ("hybrid",)) if run is None
                          else (run,)):
                 sub = Path(_tempfile.mkdtemp(dir=tmp))
-                for f in ("serial_a.pt", "serial_c.pt"):
+                for f in ("serial_a.pt", "serial_a_grads.pt", "serial_c.pt"):
                     (sub / f).symlink_to(tmp / f)
                 if kind[0] == "tp":
                     bad += cs.tp_ranks(torch, np, args, card, serial_a[:1],
@@ -1081,6 +1092,8 @@ def main() -> int:
     ap.add_argument("--parts", default="bc", help=argparse.SUPPRESS)
     ap.add_argument("--mutant", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--steps", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--phase18", action="store_true",
+                    help="only phase 18's tensor-parallel mutants")
     args = ap.parse_args()
 
     import torch
@@ -1105,6 +1118,13 @@ def main() -> int:
     gen_cpu = torch.Generator(device="cpu").manual_seed(args.seed)
     import numpy as np
 
+    if args.phase18:
+        kernels.build()  # the ranks use the parent's build
+        ok, refused, n = p18_mutants(torch, np, dev, args, card)
+        print(card)
+        print(f"gate_mutants --phase18: {'ok' if ok else 'FAIL'}; refused "
+              f"{len(refused)} of {n} mutants: {'; '.join(refused)}")
+        return 0 if ok else 1
     tmp = Path(tempfile.mkdtemp(prefix="gate_mutants_"))
     results = []
     try:

@@ -6,11 +6,13 @@ python/paddle/distributed/fleet/fleet.py:99,166,598).
 the hybrid topology's groups from ``strategy.hybrid_configs``;
 ``distributed_model`` wraps the model by parallel mode (precedence pp > mp
 > sep > sharding > dp, ``:58-82``): tensor parallelism
-(``meta_parallel.TensorParallel``), or ``DataParallel`` over the dp group;
-``distributed_optimizer`` wraps the optimizer
-(``meta_optimizers.HybridParallelOptimizer``). Pipeline (pp) and segment
-(sep) parallelism and ``elastic`` are later slices (ROADMAP A1): asking
-for them raises.
+(``meta_parallel.TensorParallel``, with ``DataParallel`` over the dp group
+when dp > 1), or ``DataParallel`` over the dp group; ``distributed_optimizer``
+wraps the optimizer (``meta_optimizers.HybridParallelOptimizer``, which
+shards it over the sharding group when sharding > 1). Pipeline (pp) and
+segment (sep) parallelism, group sharding beside tensor or data
+parallelism, and ``elastic`` are later slices (ROADMAP A1): asking for
+them raises.
 """
 from __future__ import annotations
 
@@ -75,12 +77,26 @@ def get_strategy() -> Optional[DistributedStrategy]:
     return _strategy
 
 
+def _check_sharding(hcg):
+    """Group sharding runs alone: beside mp or dp it raises."""
+    if hcg.get_sharding_parallel_world_size() > 1 and (
+            hcg.get_model_parallel_world_size() > 1
+            or hcg.get_data_parallel_world_size() > 1):
+        raise NotImplementedError(
+            "group sharding beside tensor or data parallelism "
+            "(sharding_degree > 1 with mp_degree or dp_degree > 1) is not "
+            "ported yet: the "
+            "sharded optimizer averages over the sharding group only "
+            "(ROADMAP A1)")
+
+
 def distributed_model(model):
     """Wrap by parallel mode (ref: fleet/model.py:32), pp > mp > sep >
     sharding > dp."""
     hcg = get_hybrid_communicate_group()
     if hcg is None:
         raise RuntimeError("call fleet.init() first")
+    _check_sharding(hcg)
     if hcg.get_pipe_parallel_world_size() > 1:
         raise NotImplementedError(
             "pipeline parallelism (pp_degree > 1) is not ported yet: it comes "
@@ -94,7 +110,7 @@ def distributed_model(model):
             "segment parallelism (sep_degree > 1) is not ported yet: it comes "
             "with ring attention and SegmentParallel (ROADMAP A1)")
     if hcg.get_sharding_parallel_world_size() > 1:
-        return model  # the sharded optimizer places the state
+        return model  # distributed_optimizer shards the optimizer
     if hcg.get_data_parallel_world_size() > 1:
         from ..parallel import DataParallel
 
@@ -108,6 +124,7 @@ def distributed_optimizer(optimizer, strategy: Optional[DistributedStrategy] = N
     hcg = get_hybrid_communicate_group()
     if hcg is None:
         return optimizer
+    _check_sharding(hcg)
     from .meta_optimizers import HybridParallelOptimizer
 
     return HybridParallelOptimizer(optimizer, hcg, strategy or _strategy)

@@ -88,6 +88,27 @@ class _CopyToMP(torch.autograd.Function):
         return dy, None
 
 
+# the last input copied into an mp region: (input, group, grad mode, copy)
+_last_copy = None
+
+
+def _copy_to_mp(x: torch.Tensor, group) -> torch.Tensor:
+    """``_CopyToMP`` once for consecutive column layers fed one tensor
+    (q/k/v, gate/up): they share the copy, so autograd sums their input
+    gradients first and the copy all-reduces the sum once. The last copy
+    is kept until a column layer is fed another tensor (a view of its
+    input: no memory of its own)."""
+    global _last_copy
+    grad = torch.is_grad_enabled()
+    last = _last_copy
+    if last is not None and last[0] is x and last[1] is group \
+            and last[2] == grad:
+        return last[3]
+    y = _CopyToMP.apply(x, group)
+    _last_copy = (x, group, grad, y)
+    return y
+
+
 class _ReduceFromMP(torch.autograd.Function):
     """Leaving a row-parallel region: the partial products all-reduced
     forward; identity backward."""
@@ -293,9 +314,11 @@ class _HiddenParallelEmbedding(_MpLayerBase):
 class ColumnParallelLinear(_MpLayerBase):
     """Linear with ``out_features`` sharded over mp (weight ``[in,
     out/mp]``, ref: mp_layers.py:334). The input enters through
-    :class:`_CopyToMP` (its gradient all-reduced); ``gather_output=True``
-    all-gathers the output along its last dimension, ``False`` leaves it
-    sharded (the input of a :class:`RowParallelLinear`)."""
+    :class:`_CopyToMP` (its gradient all-reduced), one copy for all the
+    column layers fed the same tensor (:func:`_copy_to_mp`);
+    ``gather_output=True`` all-gathers the output along its last
+    dimension, ``False`` leaves it sharded (the input of a
+    :class:`RowParallelLinear`)."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=None, gather_output=True, fuse_matmul_bias=False,
@@ -305,9 +328,6 @@ class ColumnParallelLinear(_MpLayerBase):
         self._init_mp(mp_group, device)
         self._check_divides("out_features", out_features)
         self.gather_output = gather_output
-        # False where the region's input was copied already (one
-        # _CopyToMP for q/k/v together, set by TensorParallel)
-        self._copy_input = True
         self.weight = self._linear_weight(in_features, out_features, dtype, 1)
         self.bias = None
         if has_bias:  # the reference treats None as falsy (mp_layers.py:386)
@@ -317,8 +337,8 @@ class ColumnParallelLinear(_MpLayerBase):
 
     def forward(self, x):
         g = self.model_parallel_group
-        if self.is_mp and self._copy_input:
-            x = _CopyToMP.apply(x, g)
+        if self.is_mp:
+            x = _copy_to_mp(x, g)
         x, w, b = amp_cast("linear", x, self.weight, self.bias)
         y = torch.matmul(x, w)
         if b is not None:

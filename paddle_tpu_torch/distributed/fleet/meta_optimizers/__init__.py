@@ -8,9 +8,11 @@ ranks hold shards, so :class:`HybridParallelOptimizer` replaces a
 ``ClipGradByGlobalNorm`` by :class:`HybridParallelClipGrad`: the squared
 norms of the distributed parameters' gradients are summed over the mp group
 and the replicated ones are counted once, so the clip factor is the whole
-model's and equal on every rank. With dp > 1 beside tensor parallelism the
-gradients are first averaged over the dp group (as ``DataParallel``
-averages: the sum, then / dp).
+model's and equal on every rank. The dp average is ``DataParallel``'s,
+in the backward (``fleet.distributed_model`` wraps the model in it, beside
+tensor parallelism too). With sharding > 1 the optimizer is wrapped in
+:class:`DygraphShardingOptimizer` over the sharding group, as Paddle's
+``HybridParallelOptimizer`` wraps it.
 """
 from __future__ import annotations
 
@@ -96,49 +98,23 @@ class HybridParallelClipGrad:
 
 
 class HybridParallelOptimizer(_OptimizerWrapper):
-    """Wraps the user optimizer for hybrid-parallel training: its
-    ``ClipGradByGlobalNorm`` sees the whole model
-    (:class:`HybridParallelClipGrad`), and beside tensor parallelism (mp >
-    1) ``step`` first averages the gradients over the dp group. A data
-    parallel model alone (mp = 1) is ``DataParallel``'s, which averages in
-    the backward."""
+    """Wraps the user optimizer for hybrid-parallel training: with sharding
+    > 1 in :class:`DygraphShardingOptimizer` (which refuses a clip), else
+    its ``ClipGradByGlobalNorm`` sees the whole model
+    (:class:`HybridParallelClipGrad`). The gradients arrive averaged over
+    the dp group (``DataParallel``'s backward)."""
 
     def __init__(self, optimizer, hcg=None, strategy=None):
         # wrapper-local attrs BEFORE _inner_opt (see _OptimizerWrapper)
         self._hcg = hcg
         self._strategy = strategy
-        self._dp_group = None
         if hcg is not None:
-            if isinstance(optimizer._grad_clip, ClipGradByGlobalNorm):
+            if hcg.get_sharding_parallel_world_size() > 1:
+                optimizer = DygraphShardingOptimizer(optimizer, hcg)
+            elif isinstance(optimizer._grad_clip, ClipGradByGlobalNorm):
                 optimizer._grad_clip = HybridParallelClipGrad(
                     optimizer._grad_clip, hcg)
-            if (hcg.get_model_parallel_world_size() > 1
-                    and hcg.get_data_parallel_world_size() > 1):
-                self._dp_group = hcg.get_data_parallel_group()
         self._inner_opt = optimizer
-
-    @torch.no_grad()
-    def _average_over_dp(self):
-        from ...communication import all_reduce
-
-        g = self._dp_group
-        grads = {}
-        for p in self._inner_opt._parameter_list:
-            if p.grad is not None:
-                grads.setdefault((p.grad.dtype, p.grad.device), []).append(p.grad)
-        for same in grads.values():
-            flat = torch.cat([x.reshape(-1) for x in same])
-            all_reduce(flat, group=g)
-            flat.div_(g.nranks)
-            off = 0
-            for x in same:
-                x.copy_(flat[off:off + x.numel()].view_as(x))
-                off += x.numel()
-
-    def step(self):
-        if self._dp_group is not None:
-            self._average_over_dp()
-        self._inner_opt.step()
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):

@@ -11,10 +11,14 @@ slice and puts the layer that owns it behind its Megatron counterpart (a
 stays sharded, one with ``tp_axis`` 0 a row-parallel layer taking a sharded
 input, an ``Embedding`` with ``tp_axis`` 0 a vocab-parallel one, with
 ``tp_axis`` 1 one sharded on the hidden dimension whose output is
-all-gathered); the rest is replicated. The parameter objects and their
-names stay. :class:`TensorParallel` then fits the Llama family to its
-shards (local head counts, one all-reduce a block each way, the vocab-sharded
-loss) and broadcasts what is replicated.
+all-gathered); the rest is replicated. A parameter with a ``tp_unit``
+(an attention projection's head width) is cut only into whole units, and
+one the degree cannot cut so raises. The parameter objects and their
+names stay, and fleet knows no model: a model reads its shards off its
+parameters' shapes (the Llama's local head counts) and its head's layer
+(the vocab-sharded loss). :class:`TensorParallel` broadcasts what is
+replicated and, with dp > 1, averages the gradients over the dp group
+through ``DataParallel``.
 
 ``SegmentParallel``, the pipeline (``PipelineLayer``, ``PipelineParallel``,
 ``LayerDesc``, ``SharedLayerDesc``) and MoE (``MoELayer``, ``TopKGate``,
@@ -31,7 +35,6 @@ from ..layers.mpu.mp_layers import (  # noqa: F401
     ParallelCrossEntropy,
     RowParallelLinear,
     VocabParallelEmbedding,
-    _CopyToMP,
     _HiddenParallelEmbedding,
     shard_parameter_,
 )
@@ -116,7 +119,7 @@ def _tp_layer(module: nn.Module, group):
     if isinstance(module, Linear):
         if axis == 1:
             layer = ColumnParallelLinear._from_dense(
-                module, group, gather_output=False, _copy_input=True)
+                module, group, gather_output=False)
             if module.bias is not None:
                 shard_parameter_(module.bias, 0, group)
         else:
@@ -134,6 +137,24 @@ def _tp_layer(module: nn.Module, group):
     return None
 
 
+def check_whole_units(layers: nn.Module, degree: int) -> None:
+    """Raise where the mp ``degree`` cannot cut a parameter with a
+    ``tp_unit`` into whole units along its ``tp_axis`` (each rank keeps
+    whole heads; the reference's GSPMD can split inside one, ROADMAP C2)."""
+    for name, p in layers.named_parameters():
+        unit = getattr(p, "tp_unit", None)
+        if unit is None or p.tp_axis is None or \
+                getattr(p, "is_distributed", False):
+            continue
+        n = p.shape[p.tp_axis] // unit
+        if n % degree:
+            raise ValueError(
+                f"tensor parallelism at mp degree {degree}: {name} holds "
+                f"{n} units of {unit} along its tp_axis {p.tp_axis} (heads "
+                "in an attention projection); the degree must divide them, "
+                "as each rank keeps whole units")
+
+
 def place_parameters(layers: nn.Module, mp_group) -> nn.Module:
     """The counterpart of the reference's ``place_parameters_on_mesh``: each
     ``Linear``/``Embedding`` whose weight has a ``tp_axis`` the mp degree
@@ -142,6 +163,7 @@ def place_parameters(layers: nn.Module, mp_group) -> nn.Module:
     is. Returns ``layers``, changed in place."""
     if mp_group is None or mp_group.nranks <= 1:
         return layers
+    check_whole_units(layers, mp_group.nranks)
     swaps = [(parent, name, child) for parent in layers.modules()
              for name, child in parent.named_children()]
     for parent, name, child in swaps:
@@ -154,85 +176,42 @@ def place_parameters(layers: nn.Module, mp_group) -> nn.Module:
     return layers
 
 
-def _copy_input_hook(group):
-    def hook(module, args):
-        return (_CopyToMP.apply(args[0], group),) + tuple(args[1:])
-    return hook
-
-
 class TensorParallel(_MetaParallelBase):
     """ref: meta_parallel/tensor_parallel.py: shard every parameter on its
     ``tp_axis`` (:func:`place_parameters`) and replicate the rest, then
-    broadcast the replicated parameters over the mp group (and every
-    parameter over the dp group when dp > 1) from the group's first rank.
+    broadcast the replicated parameters over the mp group from its first
+    rank. With dp > 1 the layers are also wrapped in ``DataParallel`` over
+    the dp group (its ``_dp``): every parameter broadcast from the group's
+    first rank, the gradients averaged at the end of each backward.
 
     On the port's Llama (q/k/v and gate/up ``tp_axis`` 1, o and down 0, the
     embedding and the untied head 1): each attention keeps ``num_heads /
     mp`` local heads and ``num_key_value_heads / mp`` local kv heads (a kv
-    head count the degree does not divide raises; the reference's GSPMD can
-    split inside a head, ROADMAP C2); the input of each attention and each
-    MLP enters the mp region once (one all-reduce of its gradient), and the
-    o and down projections all-reduce their partial products once, so a
-    block has one all-reduce each way per attention and per MLP; the head
+    head count the degree does not divide raises); the q/k/v and the
+    gate/up layers share one copy of their input into the mp region, and
+    the o and down projections all-reduce their partial products once, so
+    a block has one all-reduce each way per attention and per MLP; the head
     gives vocab-sharded logits (``forward`` returns this rank's shard) and
     ``loss`` runs through ``ParallelCrossEntropy``."""
 
     def _prepare_for_model(self):
-        group = self._hcg.get_model_parallel_group()
+        self._dp = None
         n = self._hcg.get_model_parallel_world_size()
         if n > 1:
-            self._fit_llama_heads(n)
-            place_parameters(self._layers, group)
-            self._region_inputs(group)
-        self._broadcast_replicated()
+            check_whole_units(self._layers, n)
+            mp = self._hcg.get_model_parallel_group()
+            place_parameters(self._layers, mp)
+            self._broadcast_replicated(mp)
+        dp = self._hcg.get_data_parallel_group()
+        if dp is not None and dp.nranks > 1:
+            from ...parallel import DataParallel
 
-    def _fit_llama_heads(self, n):
-        from ....models.llama import LlamaAttention, LlamaForCausalLM
-
-        attns = [m for m in self._layers.modules()
-                 if isinstance(m, LlamaAttention)]
-        for m in attns:
-            if m.num_heads % n or m.num_kv_heads % n:
-                raise ValueError(
-                    f"tensor parallelism at mp degree {n}: the attention has "
-                    f"{m.num_heads} heads and {m.num_kv_heads} kv heads; the "
-                    "degree must divide both (each rank keeps whole heads)")
-        if isinstance(self._layers, LlamaForCausalLM) and \
-                self._layers.lm_head is None:
-            raise NotImplementedError(
-                "tensor parallelism with tie_word_embeddings: the tied head "
-                "would need the embedding sharded on the vocabulary")
-        for m in attns:
-            m.num_heads //= n
-            m.num_kv_heads //= n
-
-    def _region_inputs(self, group):
-        """One ``_CopyToMP`` at the input of each attention and each MLP for
-        all their column layers together (Megatron's copy to the region)."""
-        from ....models.llama import (LlamaAttention, LlamaForCausalLM,
-                                      LlamaMLP)
-
-        for m in self._layers.modules():
-            if isinstance(m, (LlamaAttention, LlamaMLP)):
-                cols = [c for c in m.children()
-                        if isinstance(c, ColumnParallelLinear)]
-                for c in cols:
-                    c._copy_input = False
-                if cols:
-                    m.register_forward_pre_hook(_copy_input_hook(group))
-        if isinstance(self._layers, LlamaForCausalLM) and isinstance(
-                self._layers.lm_head, ColumnParallelLinear):
-            self._layers._parallel_ce = ParallelCrossEntropy(group)
+            self._dp = DataParallel(self._layers, group=dp)
 
     @torch.no_grad()
-    def _broadcast_replicated(self):
+    def _broadcast_replicated(self, mp):
         from ...communication import broadcast
 
-        mp = self._hcg.get_model_parallel_group()
-        dp = self._hcg.get_data_parallel_group()
         for p in self._layers.parameters():
-            if mp is not None and mp.nranks > 1 and \
-                    not getattr(p, "is_distributed", False):
+            if not getattr(p, "is_distributed", False):
                 broadcast(p.data, src=mp.ranks[0], group=mp)
-            if dp is not None and dp.nranks > 1:
-                broadcast(p.data, src=dp.ranks[0], group=dp)

@@ -88,35 +88,40 @@ class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, *, device, dtype, generator):
         super().__init__()
         self.config = config
+        # the model's counts; a tensor-parallel rank holds the share of
+        # heads its projections' widths give, and forward reads them there
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
-        self.head_dim = config.hidden_size // config.num_attention_heads
+        self.head_dim = d = config.hidden_size // config.num_attention_heads
         h = config.hidden_size
         kw = _init_kw(device, dtype, generator)
-        self.q_proj = Linear(h, self.num_heads * self.head_dim, bias=False, **kw)
-        self.k_proj = Linear(h, self.num_kv_heads * self.head_dim, bias=False, **kw)
-        self.v_proj = Linear(h, self.num_kv_heads * self.head_dim, bias=False, **kw)
-        self.o_proj = Linear(self.num_heads * self.head_dim, h, bias=False, **kw)
-        # TP metadata, as the reference sets it (column: 1, row: 0)
+        self.q_proj = Linear(h, self.num_heads * d, bias=False, **kw)
+        self.k_proj = Linear(h, self.num_kv_heads * d, bias=False, **kw)
+        self.v_proj = Linear(h, self.num_kv_heads * d, bias=False, **kw)
+        self.o_proj = Linear(self.num_heads * d, h, bias=False, **kw)
+        # TP metadata, as the reference sets it (column: 1, row: 0); a
+        # shard keeps whole heads (tp_unit)
         for proj in (self.q_proj, self.k_proj, self.v_proj):
             proj.weight.tp_axis = 1
         self.o_proj.weight.tp_axis = 0
+        for proj in (self.q_proj, self.k_proj, self.v_proj, self.o_proj):
+            proj.weight.tp_unit = d
 
     def forward(self, x, cache=None, cur_len=None):
         """``cache``: a :class:`PagedLayerCache` or a dense ``(k_cache,
         v_cache)`` pair ``[B, max_len, Hkv, D]`` with ``cur_len`` valid
         entries; returns ``(out, cache)`` when caching."""
         b, s = x.shape[0], x.shape[1]
-        q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        q = self.q_proj(x).reshape(b, s, -1, self.head_dim)
+        k = self.k_proj(x).reshape(b, s, -1, self.head_dim)
+        v = self.v_proj(x).reshape(b, s, -1, self.head_dim)
         theta = self.config.rope_theta
 
         if cache is None:
             q, k = _rope(q, k, theta)
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                  training=self.training)
-            return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+            return self.o_proj(out.reshape(b, s, -1))
 
         from ..ops.paged_attention import PagedLayerCache, paged_attention_step
 
@@ -131,7 +136,7 @@ class LlamaAttention(nn.Module):
                 out = F.scaled_dot_product_attention(
                     q, kc, vc, attn_mask=mask, is_causal=False,
                     training=self.training)
-            return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim)), cache
+            return self.o_proj(out.reshape(b, s, -1)), cache
 
         from .generation import update_kv_cache
 
@@ -140,7 +145,7 @@ class LlamaAttention(nn.Module):
         k_cache, v_cache, mask = update_kv_cache(k, v, k_cache, v_cache, cur_len, s)
         out = F.scaled_dot_product_attention(q, k_cache, v_cache, attn_mask=mask,
                                              is_causal=False, training=self.training)
-        out = out.reshape(b, s, self.num_heads * self.head_dim)
+        out = out.reshape(b, s, -1)
         return self.o_proj(out), (k_cache, v_cache)
 
 
@@ -255,6 +260,10 @@ class LlamaForCausalLM(nn.Module):
 
     def _head(self, h):
         if self.lm_head is None:
+            if self.llama.embed_tokens.weight.is_distributed:
+                raise NotImplementedError(
+                    "tensor parallelism with tie_word_embeddings: the tied "
+                    "head would need the embedding sharded on the vocabulary")
             h, w = amp_cast("tied_lm_head", h, self.llama.embed_tokens.weight)
             return torch.matmul(h, w.t())
         return self.lm_head(h)
@@ -290,17 +299,22 @@ class LlamaForCausalLM(nn.Module):
 
     def loss(self, input_ids, labels):
         """Mean token cross entropy of ``self(input_ids)`` against
-        ``labels`` (``F.cross_entropy`` on ``[B*S, V]``). Under tensor
-        parallelism (``fleet``'s ``TensorParallel``) the logits are this
-        rank's vocabulary shard and the loss runs through its
-        ``ParallelCrossEntropy`` (``_parallel_ce``), never gathering them."""
+        ``labels`` (``F.cross_entropy`` on ``[B*S, V]``). Where the head is
+        a column-parallel layer that leaves the logits sharded on the
+        vocabulary (``fleet``'s ``TensorParallel``), the loss runs through
+        ``ParallelCrossEntropy`` over its mp group, never gathering them."""
         logits = self(input_ids)
         b, s, v = logits.shape
-        ce = getattr(self, "_parallel_ce", None)
-        if ce is None:
-            return F.cross_entropy(logits.reshape(b * s, v),
-                                   labels.reshape(b * s))
         flat = labels.reshape(b * s)
+        head = self.lm_head
+        if head is None or not head.weight.is_distributed:
+            return F.cross_entropy(logits.reshape(b * s, v), flat)
+        from ..distributed.fleet.layers.mpu import mp_layers as mpu
+
+        if not isinstance(head, mpu.ColumnParallelLinear) or \
+                head.gather_output:
+            return F.cross_entropy(logits.reshape(b * s, v), flat)
+        ce = mpu.ParallelCrossEntropy(head.model_parallel_group)
         per_token = ce(logits.reshape(b * s, v), flat)
         valid = (flat != ce.ignore_index).to(per_token.dtype).sum()
         return per_token.sum() / torch.clamp(valid, min=1.0)

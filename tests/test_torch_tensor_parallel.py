@@ -13,9 +13,12 @@ port's ``tp_axis`` equals the reference's, parameter by parameter; a model
 built at mp=2 from a seed holds the serial model's slices (and an mp layer
 the slices of the one built at mp=1); the reference's whole arrays load
 into the shards; a kv-head count mp does not divide raises.
-``DygraphShardingOptimizer`` at sharding=2 (each rank on its half of the
-batch, stage 1 over the sharding group) against the reference's on its
-mesh: losses to 1e-5, parameters to 1e-4, the moments cut in half.
+``fleet.distributed_optimizer`` at sharding=2 (it wraps
+``DygraphShardingOptimizer``: each rank on its half of the batch, stage 1
+over the sharding group) against the reference's sharding optimizer on its
+mesh: losses to 1e-5, parameters to 1e-4, the moments cut in half; group
+sharding beside mp or dp raises. A step's collectives: one all-reduce each
+way per attention and per MLP on the mp group, one bucket on the dp group.
 """
 import numpy as np
 import pytest
@@ -129,6 +132,8 @@ def _sharding_reference(arrays, ids, labels):
 
 def test_sharding_optimizer_matches_the_reference(case):
     arrays, _, ranks, ref = case
+    assert [r["inner"] for r in ranks["sharding"]] == \
+        ["DygraphShardingOptimizer"] * 2
     got = np.mean([r["losses"] for r in ranks["sharding"]], axis=0)
     np.testing.assert_allclose(got, ref["sharding"][0], atol=LOSS_TOL, rtol=0)
     for n, want in ref["sharding"][1].items():
@@ -208,6 +213,56 @@ def test_kv_heads_mp_does_not_divide_raise():
 
     model = LlamaForCausalLM(LlamaConfig.tiny(num_key_value_heads=1),
                              device="cpu")
-    with pytest.raises(ValueError, match="kv heads"):
+    with pytest.raises(ValueError, match=r"k_proj\.weight holds 1 units"):
         TensorParallel(model, TwoWay())
     assert model.llama.layers[0].self_attn.num_kv_heads == 1  # untouched
+
+
+@pytest.mark.parametrize("other", ["mp_degree", "dp_degree"])
+def test_sharding_beside_mp_or_dp_raises(other):
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    degrees = {"sharding_degree": 2, other: 2}
+
+    class Hcg:  # the degrees alone: raises before any group is used
+        def get_sharding_parallel_world_size(self):
+            return degrees.get("sharding_degree", 1)
+
+        def get_model_parallel_world_size(self):
+            return degrees.get("mp_degree", 1)
+
+        def get_data_parallel_world_size(self):
+            return degrees.get("dp_degree", 1)
+
+        def get_pipe_parallel_world_size(self):
+            return 1
+
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    fleet.set_hybrid_communicate_group(Hcg())
+    try:
+        with pytest.raises(NotImplementedError, match="group sharding"):
+            fleet.distributed_model(model)
+        with pytest.raises(NotImplementedError, match="group sharding"):
+            fleet.distributed_optimizer(
+                AdamW(learning_rate=1e-3, parameters=model.parameters()))
+    finally:
+        fleet.set_hybrid_communicate_group(None)
+
+
+@pytest.mark.parametrize("dims", [(1, 2), (2, 2)], ids=["mp2", "dp2xmp2"])
+def test_one_all_reduce_each_way_per_block(case, dims):
+    # per decoder layer: the o and down projections' all-reduces forward,
+    # one copy of the attention's and the MLP's input backward; the head's
+    # input copy, ParallelCrossEntropy's three (a max, two sums), the
+    # clip's one; the
+    # embedding's all-gather. dp: one bucket of the tiny model's gradients
+    _, _, ranks, _ = case
+    layers = JConfig.tiny().num_hidden_layers
+    want = {"mp": {"all_reduce[sum]": 4 * layers + 1 + 2 + 1,
+                   "all_reduce[max]": 1, "all_gather_into_tensor": 1}}
+    if dims[0] > 1:
+        want["dp"] = {"all_reduce[sum]": 1}
+    for r in ranks[dims]:
+        assert r["step_collectives"] == want

@@ -13,6 +13,12 @@ import numpy as np
 import torch
 
 
+def _recorder():
+    from paddle_tpu_torch.distributed.communication import flight_recorder
+
+    return flight_recorder.recorder()
+
+
 def _fleet(dp: int, mp: int):
     from paddle_tpu_torch.distributed import fleet
 
@@ -276,7 +282,9 @@ def tp_llama_body(rank, world, dp, arrays, ids, labels, steps, clip_norm):
     x = torch.from_numpy(ids[r * b:(r + 1) * b])
     y = torch.from_numpy(labels[r * b:(r + 1) * b])
     losses, norms = [], []
-    for _ in range(steps):
+    for i in range(steps):
+        if i == steps - 1:
+            seq0 = _recorder().snapshot()[-1].seq
         loss = tp.loss(x, y)
         loss.backward()
         opt.step()
@@ -284,9 +292,17 @@ def tp_llama_body(rank, world, dp, arrays, ids, labels, steps, clip_norm):
         opt.clear_grad()
         losses.append(float(loss.detach()))
     res["losses"], res["norms"] = losses, norms
+    # the last step's collectives by group: {"mp"|"dp": {op: count}}
+    ids_ = {str(g.id): "mp", str(hcg.get_data_parallel_group().id): "dp"}
+    res["step_collectives"] = {}
+    for e in _recorder().snapshot():
+        if e.seq > seq0 and e.group in ids_:
+            ops = res["step_collectives"].setdefault(ids_[e.group], {})
+            ops[e.op] = ops.get(e.op, 0) + 1
     res["params"] = {n: _full(p, g) for n, p in model.named_parameters()}
-    res["heads"] = (model.llama.layers[0].self_attn.num_heads,
-                    model.llama.layers[0].self_attn.num_kv_heads)
+    attn = model.llama.layers[0].self_attn  # the rank's heads
+    res["heads"] = (attn.q_proj.weight.shape[1] // attn.head_dim,
+                    attn.k_proj.weight.shape[1] // attn.head_dim)
     res["logits_shape"] = tuple(tp(x).shape)
     res["tp_axis"] = {n: (p.tp_axis, p.is_distributed, tuple(p.shape))
                       for n, p in model.named_parameters()}
@@ -366,20 +382,19 @@ def sp_body(rank, world, case):
 
 
 def sharding_opt_body(rank, world, arrays, ids, labels, steps):
-    """``fleet.init(sharding_degree=world)`` and ``DygraphShardingOptimizer``
-    (stage 1 over the sharding group) around the Llama step, each rank on
+    """``fleet.init(sharding_degree=world)``, ``distributed_model`` and
+    ``distributed_optimizer`` (which wraps ``DygraphShardingOptimizer``:
+    stage 1 over the sharding group) around the Llama step, each rank on
     its part of the batch."""
     from paddle_tpu_torch.distributed import fleet
-    from paddle_tpu_torch.distributed.fleet.meta_optimizers import \
-        DygraphShardingOptimizer
     from paddle_tpu_torch.optimizer import AdamW
 
     s = fleet.DistributedStrategy()
     s.hybrid_configs = {"sharding_degree": world}
-    hcg = fleet.init(strategy=s, device="cpu")
+    fleet.init(strategy=s, device="cpu")
     model = fleet.distributed_model(_tiny(arrays))
-    opt = DygraphShardingOptimizer(
-        AdamW(learning_rate=1e-3, parameters=model.parameters()), hcg)
+    opt = fleet.distributed_optimizer(
+        AdamW(learning_rate=1e-3, parameters=model.parameters()))
     b = ids.shape[0] // world
     x = torch.from_numpy(ids[rank * b:(rank + 1) * b])
     y = torch.from_numpy(labels[rank * b:(rank + 1) * b])
@@ -390,7 +405,7 @@ def sharding_opt_body(rank, world, arrays, ids, labels, steps):
         opt.step()
         opt.clear_grad()
         losses.append(float(loss.detach()))
-    return {"losses": losses,
+    return {"losses": losses, "inner": type(opt._inner_opt).__name__,
             "params": {n: p.detach().numpy().copy()
                        for n, p in model.named_parameters()},
             "moment_shapes": {k: tuple(v.shape) for k, v in
