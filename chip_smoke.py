@@ -55,7 +55,13 @@ layers against it; and tensor parallelism (phase 18): ``fleet.init`` with
 (``--rank17 tp``) against a serial run's losses on the same weights, then
 recompute on every layer and the sequence-parallel pair at the MLP's
 widths, then dp=2 x mp=2 in four ranks (``--rank17 hybrid``) with the
-hybrid clip. Each main path runs
+hybrid clip; and the rest of meta_parallel (phase 19): the flagship as a
+``PipelineLayer`` at pp=2 (V=1, then V=2) through
+``fleet.distributed_model`` (``PipelineParallel``, point-to-point sends
+between two gloo ranks, ``--rank17 pp``) against phase 18's serial run,
+ring attention and a ``SegmentParallel`` step at sep=2, MoE with its
+experts over ep=2 in both dispatch modes, then dp=2 x pp=2 in four ranks
+(``--rank17 ppdp``) with the clip over the stages. Each main path runs
 with every kernel launch count set to 0 just before it and read just
 after; a kernel
 of the path that did not launch, or launched another number of times than
@@ -347,7 +353,7 @@ def row_rel_err(a, b, floor: float = 0.0) -> float:
     row's norm counted as at least ``floor`` of the RMS row norm."""
     a, b = a.float(), b.float()
     norms = b.norm(dim=-1)
-    least = max(floor * float(norms.pow(2).mean().sqrt()), 1e-30)
+    least = max(floor * float(norms.pow(2).mean().sqrt().detach()), 1e-30)
     return float(((a - b).norm(dim=-1) / norms.clamp_min(least)).max())
 
 
@@ -5784,6 +5790,10 @@ def phase17_rank(mode, out, seed, parts="bc", steps=None):
         tp_rank(torch, np, D, rank, dev, seed, parts, res, out, steps)
     elif mode == "hybrid":
         hybrid_rank(torch, np, D, rank, dev, seed, res, out)
+    elif mode == "pp":
+        pp_rank(torch, np, D, rank, dev, seed, parts, res, out, steps)
+    elif mode == "ppdp":
+        ppdp_rank(torch, np, D, rank, dev, seed, res, out)
     else:
         train_rank(torch, np, D, group, rank, dev, seed, parts, res, out)
     with open(f"{out}/rank{rank}.json", "w") as f:
@@ -6078,28 +6088,22 @@ def grads_path(path):
     return path.with_name(path.stem + "_grads.pt")
 
 
-def tp_phase(torch, np, dev, args, card):
+def tp_phase(torch, np, dev, args, card, tmp):
     """Phase 18: the serial runs here, then (a)+(b) in two launched ranks
-    and (c) in four."""
-    import shutil
-    import tempfile
-    from pathlib import Path
-
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p18_"))
-    try:
-        serial_a, _ = tp_serial(torch, np, dev, args,
-                                LLAMA_542M["num_hidden_layers"], TP_STEPS,
-                                True, None, tmp / "serial_a.pt",
-                                save_grads=True)
-        serial_c, norms_c = tp_serial(torch, np, dev, args, HYBRID_DEPTH,
-                                      HYBRID_STEPS, False, TP_CLIP_NORM,
-                                      tmp / "serial_c.pt")
-        failures = tp_ranks(torch, np, args, card, serial_a, tmp, parts="ab")
-        failures += hybrid_ranks(torch, np, args, card, serial_c, norms_c, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    and (c) in four. The serial run of (a) stays in ``tmp`` (weights and
+    first-step gradients) for phase 19; returns its losses."""
+    serial_a, _ = tp_serial(torch, np, dev, args,
+                            LLAMA_542M["num_hidden_layers"], TP_STEPS,
+                            True, None, tmp / "serial_a.pt",
+                            save_grads=True)
+    serial_c, norms_c = tp_serial(torch, np, dev, args, HYBRID_DEPTH,
+                                  HYBRID_STEPS, False, TP_CLIP_NORM,
+                                  tmp / "serial_c.pt")
+    failures = tp_ranks(torch, np, args, card, serial_a, tmp, parts="ab")
+    failures += hybrid_ranks(torch, np, args, card, serial_c, norms_c, tmp)
     if failures:
         fail("phase 18: " + "; ".join(failures))
+    return serial_a
 
 
 def _rel(a, b):
@@ -6639,6 +6643,702 @@ def hybrid_rank(torch, np, D, rank, dev, seed, res, out):
     if bad:
         failures.append(f"(c) the clip's global norms {norms} are not the "
                         f"gathered gradients' {whole} (tol {CLIP_SAME_REL})")
+
+
+# -- phase 19: the pipeline, ring attention and sep, MoE and ep ----------------
+# __graft_entry__.py's pp, sep and ep axes on the port, launched as phase
+# 18's ranks (gloo on cuda:0). (a) The flagship (8 layers, full width) as a
+# PipelineLayer([embedding, 8 x LayerDesc(decoder), norm, head]) at pp=2
+# through fleet.distributed_model (PipelineParallel: point-to-point sends
+# between the two stages), accumulate_steps 4, B=4, S=2048, bench.py's
+# AdamW (bf16, SR on), 3 steps at V=1 then 3 at V=2, each from phase 18's
+# serial weights, against 18(a)'s serial steps on the same weights and
+# data; (b) ring attention at sep=2 (S=2048, 1024 a rank) against plain f32
+# attention over the whole sequence, and a SegmentParallel step of the
+# reference tests' attention block at width 2048; (c) MoE at ep=2 in both
+# dispatch modes against the serial layer; (d) dp=2 x pp=2 in four ranks at
+# PP_DP_DEPTH layers with the clip over the stages.
+PP_DEGREE, PP_MICRO = 2, 4
+# (a): each step's loss against the serial step's, relative. The pipeline
+# runs the serial model's bf16 ops on a microbatch of one sequence instead
+# of four: the GEMMs see 2048 rows, not 8192 (cuBLAS may pick other tiles,
+# so other f32 sums before the bf16 rounding, ~0.5 bf16 ulp where they
+# differ), and each stage's weight gradients add four microbatches' bf16
+# gradients. Between steps SR draws other bits (a stacked parameter's
+# elements have other flat indices than the layers'). So the losses differ
+# as 18(a)'s do, by rounding that averages over 8192 tokens: predicted
+# ~1e-5 rel. (18(a) measured 1.95e-5 with the extra partial sums of TP). 2e-4
+# is TP_LOSS_REL's reasoning: a looser band would hide a share of the
+# model's ~0.065-nat signal above ln 32000
+PP_LOSS_REL = 2e-4
+# (a): the first step's gradients of each stage against the serial step's,
+# the worst over the parameters of |g - g_serial| / |g_serial| (f32 norms,
+# a stacked row held against its layer's). Predicted: the sum of four bf16
+# microbatch gradients rounds three more times than the serial GEMM's one
+# (~sqrt(3) * 2**-9 rms rel. ~3e-3), plus the GEMMs' other tiles (~1e-3):
+# ~5e-3 at most; measured 3.6e-3 to 3.8e-3 on an H100 over three runs (the
+# worst parameter a norm's weight, which sums all 8192 tokens' bf16
+# products). 1.5e-2 is three times the predicted bound: a gradient path
+# rounded to bf16 once more per microbatch stays under it, a partial
+# gradient (a microbatch's output gradient sent as zeros moves a stage's
+# gradients by a quarter or more) or an f16/fp8 path does not
+PP_GRAD_REL = 1.5e-2
+# (b): B, S, heads, head dim of the ring; the worst row of the output and
+# of dq/dk/dv (bf16) against plain f32 attention over the whole sequence,
+# norm-relative, each row's norm counted as at least RING_ROW_FLOOR of the
+# RMS row norm. The ring is f32 from bf16 inputs and rounds once, to bf16:
+# 2**-9 rel. per element, ~2e-3 a row; gate 1e-2
+RING_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 16, 128)
+RING_ROW_REL, RING_ROW_FLOOR = 1e-2, 0.1
+# (b): the SegmentParallel step of the attention block (width 2048, 16
+# heads, bf16, SGD) against the serial block's (plain attention through the
+# flash kernels): each parameter's gradient, norm-relative (a bf16
+# parameter's update is too coarse to compare). The two attentions differ
+# by the flash kernel's bf16 P (2**-9 rel.) against the ring's f32:
+# predicted ~5e-3, measured 3.84e-3 on an H100; gate 1.5e-2, three times
+# the prediction
+SEP_WIDTH, SEP_HEADS, SEP_LR, SEP_REL = 2048, 16, 0.1, 1.5e-2
+# (c): benchmarks/moe_bench.py's sizing: top-2 at the dense FFN's FLOPs
+# (d_hidden half of 5632), over B*S = 8192 tokens, bf16. The ep layer runs
+# the serial layer's ops on its half of the experts and gathers them: its
+# output and gradients against the serial layer's, norm-relative, 1e-5.
+# With top_k <= 2 a token's two slots add in one order whatever the
+# atomics' order, and each expert's GEMMs see the rows the serial layer's
+# do: measured bitwise equal on an H100 in every run, both modes (bitwise
+# is reported). 1e-5 leaves room only for a GEMM that picks other tiles
+# for the half batch of experts; one bf16 rounding more (2**-9) fails it.
+# The MoE clip's factor against the serial dense clip's, relative, 1e-6
+# (the same squares summed in another order)
+MOE = dict(d_model=2048, d_hidden=2816, num_experts=8, top_k=2,
+           capacity_factor=1.25)
+MOE_REL, MOE_CLIP_REL, MOE_CLIP_NORM = 1e-5, 1e-6, 1e-3
+PP_DP_DEPTH, PP_DP_STEPS = 4, 2  # (d)
+P19_RANK_TIMEOUT_S = 600
+_PRE_POST = {"_pre.0.weight": "llama.embed_tokens.weight",
+             "_post.0.weight": "llama.norm.weight",
+             "_post.1.weight": "lm_head.weight"}
+
+
+def pp_loss(logits, labels):
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1))
+
+
+def pp_llama(torch, dev, depth, V, seed):
+    """The flagship at ``depth`` layers as a ``PipelineLayer`` (the
+    embedding, the decoder layers, the final norm and the head, built in
+    ``LlamaForCausalLM``'s order from ``seed``)."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.base.random import get_generator
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, PipelineLayer)
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.models.llama import LlamaDecoderLayer
+    from paddle_tpu_torch.nn import Embedding, Linear, RMSNorm
+
+    pt_seed(seed)
+    cfg = LlamaConfig(**dict(LLAMA_542M, max_position_embeddings=2048,
+                             num_hidden_layers=depth))
+    gen = get_generator(dev)
+    kw = dict(device=dev, dtype=torch.bfloat16)
+    h = cfg.hidden_size
+    return PipelineLayer(
+        [LayerDesc(Embedding, cfg.vocab_size, h, generator=gen, **kw)]
+        + [LayerDesc(LlamaDecoderLayer, cfg, generator=gen, **kw)
+           for _ in range(depth)]
+        + [LayerDesc(RMSNorm, h, cfg.rms_norm_eps, **kw),
+           LayerDesc(Linear, h, cfg.vocab_size, bias=False, generator=gen,
+                     **kw)],
+        num_virtual_pipeline_stages=V, loss_fn=pp_loss)
+
+
+def pp_serial_name(pipe, name, row):
+    """The serial model's name of stacked parameter ``name``'s ``row`` (of
+    the reference layout's ``[S*V, ...]``), or of a prologue/epilogue
+    parameter."""
+    if not name.startswith("pipeline_stacked_"):
+        return _PRE_POST[name]
+    S, V = pipe._num_stages, pipe._num_virtual
+    per = pipe._num_layers_per_stage // V
+    i, rest = pipe._template_names[int(name.rsplit("_", 1)[1])].split(".", 1)
+    v, s = row % V, row // V
+    return f"llama.layers.{(v * S + s) * per + int(i)}.{rest}"
+
+
+def pp_arrays(np, pipe, serial):
+    """The serial model's arrays in the reference pipeline's layout (every
+    stacked parameter whole, ``[S*V, ...]``), for ``load_jax_params``."""
+    S, V = pipe._num_stages, pipe._num_virtual
+    out = {}
+    for n, _ in pipe.named_parameters():
+        if n.startswith("pipeline_stacked_"):
+            out[n] = np.stack([serial[pp_serial_name(pipe, n, j)]
+                               for j in range(S * V)])
+        else:
+            out[n] = serial[_PRE_POST[n]]
+    out.update({n: serial[m] for n, m in _PRE_POST.items()})
+    return out
+
+
+def pp_rows(pipe):
+    """The reference-layout rows this stage holds."""
+    V = pipe._num_virtual
+    return [pipe._stage * V + v for v in range(V)]
+
+
+def pp_grads_rel(torch, pipe, path):
+    """The worst over this stage's parameters (a stacked row each) of
+    |g - g_serial| / |g_serial| against the serial step's gradients saved
+    at ``path``: (value, the serial name)."""
+    serial = torch.load(path)
+    worst, name = 0.0, None
+    for n, p in pipe.named_parameters():
+        rows = (list(enumerate(pp_rows(pipe)))
+                if n.startswith("pipeline_stacked_") else [(None, None)])
+        for i, j in rows:
+            g = (p.grad if i is None else p.grad[i]).float()
+            sn = pp_serial_name(pipe, n, j)
+            want = serial[sn].to(g.device).float()
+            rel = float((g - want).norm() / want.norm())
+            if not rel <= worst:  # a NaN is the worst
+                worst, name = rel, sn
+    return worst, name
+
+
+class _CheckFirstStep:
+    """The optimizer as ``train_batch`` sees it: before the first step it
+    runs ``check`` on the step's gradients, and keeps the check's time in
+    ``off_ms`` (off the step's clock)."""
+
+    def __init__(self, torch, opt, check):
+        self.torch, self.opt, self.check = torch, opt, check
+        self.calls, self.off_ms = 0, 0.0
+
+    def step(self):
+        if self.calls == 0:
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.check()
+            self.torch.cuda.synchronize()
+            self.off_ms = (time.perf_counter() - t0) * 1e3
+        self.calls += 1
+        self.opt.step()
+
+    def clear_grad(self, set_to_zero=False):
+        self.opt.clear_grad(set_to_zero)
+
+
+def pp_model(torch, np, dev, seed, depth, V, arrays, sr, clip=None):
+    """The pipeline at ``depth`` layers and V chunks a stage on this rank,
+    the serial weights ``arrays`` loaded into its stage, wrapped by fleet
+    (model and optimizer, ``bench.py``'s AdamW); ``loaded``: whether the
+    stage holds the serial weights bitwise."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.utils import load_jax_params
+
+    pipe = pp_llama(torch, dev, depth, V, seed)
+    whole = pp_arrays(np, pipe, arrays)
+    load_jax_params(pipe, whole)
+    rows = pp_rows(pipe)
+    loaded = all(torch.equal(p, torch.from_numpy(
+        whole[n][rows] if n.startswith("pipeline_stacked_") else whole[n]
+    ).to(dev, p.dtype)) for n, p in pipe.named_parameters())
+    del whole
+    model = fleet.distributed_model(pipe)
+    opt = fleet.distributed_optimizer(AdamW(
+        learning_rate=TRAIN_LR, parameters=pipe.parameters(),
+        moment_dtype="bfloat16", use_stochastic_rounding=sr, fused=True,
+        grad_clip=None if clip is None else ClipGradByGlobalNorm(clip)))
+    return pipe, model, opt, loaded
+
+
+def pp_train(torch, np, D, dev, seed, V, arrays, out, steps, res):
+    """19(a) at V chunks a stage on this rank: a dict of results; appends
+    to ``res['failures']``."""
+    from pathlib import Path
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import kernels
+
+    failures = res["failures"]
+    L = LLAMA_542M["num_hidden_layers"]
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"pp_degree": PP_DEGREE}
+    s.pipeline_configs = {"accumulate_steps": PP_MICRO}
+    fleet.init(strategy=s)
+    pipe, model, opt, loaded = pp_model(torch, np, dev, seed, L, V, arrays,
+                                        True)
+    r = {"loaded": loaded,
+         "bytes_ratio": sum(p.numel() * p.element_size()
+                            for p in pipe.parameters())
+         / sum(a.size * 2 for a in arrays.values())}
+    tag = f"(a) V={V}"
+    if not loaded:
+        failures.append(f"{tag}: the stage's parameters are not the serial "
+                        "weights")
+    if not TP_BYTES_BAND[0] <= r["bytes_ratio"] <= TP_BYTES_BAND[1]:
+        failures.append(f"{tag}: parameter bytes {r['bytes_ratio']:.4f} of "
+                        f"the serial model's (band {TP_BYTES_BAND})")
+
+    def check():
+        r["grad_rel"], r["grad_worst"] = pp_grads_rel(
+            torch, pipe, Path(out) / "serial_a_grads.pt")
+
+    probe = _CheckFirstStep(torch, opt, check)
+    ids, labels = p17_batch(torch, np, dev, seed)
+    n_steps = steps or TP_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, ms, hops, mb = [], [], [], []
+    for i in range(n_steps):
+        h0, b0 = model.hops, model.hop_bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.train_batch((ids, labels), probe)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3
+                  - (probe.off_ms if i == 0 else 0.0))
+        losses.append(float(loss))
+        hops.append(model.hops - h0)
+        mb.append(round((model.hop_bytes - b0) / 1e6, 3))
+    counts = kernels.launch_counts()
+    n = L // PP_DEGREE * PP_MICRO * n_steps
+    want = {**flash_fwd_counts(n), **flash_bwd_counts(n),
+            "fused_adamw": ADAMW_GROUPS * n_steps}
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        failures.append(f"{tag}: launches {got} != {want}")
+    if not r["grad_rel"] <= PP_GRAD_REL:
+        failures.append(f"{tag}: the first step's gradients are "
+                        f"{r['grad_rel']:.3g} (norm-rel., {r['grad_worst']}) "
+                        f"from the serial step's (tol {PP_GRAD_REL})")
+    r.update(losses=losses, ms=ms, hops=hops, hop_mb=mb,
+             counts={k: v // n_steps for k, v in step_launches(counts).items()},
+             peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    del pipe, model, opt, probe, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def plain_attention32(torch, q, k, v, causal):
+    """Attention over the whole sequence in f32 (``[B, S, H, D]``)."""
+    q, k, v = (t.float().transpose(1, 2) for t in (q, k, v))
+    s = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if causal:
+        n = s.shape[-1]
+        s = s.masked_fill(~torch.ones(n, n, dtype=torch.bool,
+                                      device=s.device).tril(), float("-inf"))
+    return torch.matmul(torch.softmax(s, -1), v).transpose(1, 2)
+
+
+def ring_check(torch, D, dev, seed, res):
+    """19(b)'s ring: ``sep_parallel_attention`` over the two ranks on the
+    global q/k/v (bf16), the output and dq/dk/dv against plain f32
+    attention over the whole sequence, causal and not."""
+    from paddle_tpu_torch.ops.ring_attention import sep_parallel_attention
+
+    failures = res["failures"]
+    g = D.collective._get_global_group()
+    gen = torch.Generator(dev).manual_seed(seed + 19)
+    q, k, v, c = (torch.randn(RING_SHAPE, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    rows = {}
+    for causal in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sep_parallel_attention(*leaves, g, causal=causal)
+        (got.float() * c.float()).sum().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref = [t.float().requires_grad_() for t in (q, k, v)]
+        want = plain_attention32(torch, *ref, causal)
+        (want * c.float()).sum().backward()
+        errs = {"out": row_rel_err(got, want, RING_ROW_FLOOR)}
+        for name, a, b in zip(("dq", "dk", "dv"), leaves, ref):
+            errs[name] = row_rel_err(a.grad, b.grad, RING_ROW_FLOOR)
+        rows["causal" if causal else "full"] = dict(
+            errs={k_: round(e, 5) for k_, e in errs.items()}, ms=round(ms, 2))
+        bad = {k_: e for k_, e in errs.items() if not e <= RING_ROW_REL}
+        if bad:
+            failures.append(f"(b) ring {'causal' if causal else 'full'}: "
+                            f"worst row {bad} (tol {RING_ROW_REL})")
+        del leaves, ref, got, want
+    res["ring"] = rows
+
+
+def sep_block(torch, width, heads, use_sep, dev):
+    """The reference tests' attention block (tests/test_hybrid_parallel.py
+    SepBlock): qkv, causal attention (over the sep group, or plain), o, the
+    residual."""
+    from paddle_tpu_torch.base.random import get_generator
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.ring_attention import sep_parallel_attention
+
+    class SepBlock(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            kw = dict(device=dev, dtype=torch.bfloat16,
+                      generator=get_generator(dev))
+            self.qkv = Linear(width, 3 * width, **kw)
+            self.o = Linear(width, width, **kw)
+
+        def forward(self, x):
+            b, s, hh = x.shape
+            qkv = self.qkv(x).reshape(b, s, 3, heads, hh // heads)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            if use_sep:
+                out = sep_parallel_attention(q, k, v, causal=True)
+            else:
+                out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                     training=False)
+            return x + self.o(out.reshape(b, s, hh))
+
+    return SepBlock()
+
+
+def sep_check(torch, D, dev, seed, res):
+    """19(b)'s SegmentParallel step: ``fleet.init(sep_degree=2)``,
+    ``distributed_model`` around the attention block, one SGD step, against
+    the serial block on the same weights and data."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.optimizer import SGD
+
+    failures = res["failures"]
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"sep_degree": 2}
+    hcg = fleet.init(strategy=s)
+    pt_seed(seed)
+    blk = sep_block(torch, SEP_WIDTH, SEP_HEADS, True, dev)
+    ser = sep_block(torch, SEP_WIDTH, SEP_HEADS, False, dev)
+    ser.load_state_dict(blk.state_dict())
+    model = fleet.distributed_model(blk)
+    gen = torch.Generator(dev).manual_seed(seed + 20)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, SEP_WIDTH)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    c = torch.randn(shape, generator=gen, device=dev)
+    times, grads = {}, {}
+    for name, net, fwd in (("sep", blk, model), ("serial", ser, ser)):
+        opt = SGD(learning_rate=SEP_LR, parameters=net.parameters())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = (fwd(x).float() * c).mean()
+        loss.backward()
+        grads[name] = [p.grad.clone() for p in net.parameters()]
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        times[name] = round((time.perf_counter() - t0) * 1e3, 2)
+    rel = max(rel_err(a, b) for a, b in zip(grads["sep"], grads["serial"]))
+    same = all_true(D, equal_across(torch, D, list(blk.parameters()),
+                                    hcg.get_sep_parallel_group()))
+    res["sep"] = dict(grad_rel=rel, bitwise=same, ms=times,
+                      wrapper=type(model).__name__)
+    if not rel <= SEP_REL:
+        failures.append(f"(b) the SegmentParallel step's gradients are "
+                        f"{rel:.3g} (norm-rel.) from the serial block's (tol "
+                        f"{SEP_REL})")
+    if not same:
+        failures.append("(b) the block's parameters differ across the sep "
+                        "ranks after the step")
+    del blk, ser, model, x, c, grads
+
+
+def moe_check(torch, D, dev, seed, res):
+    """19(c): ``MoELayer`` with its experts over the two ranks
+    (``place_experts_on_mesh``) against the serial layer from the same seed,
+    in both dispatch modes: output, gradients, the MoE clip's factor."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers import \
+        _all_gather
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ClipGradForMOEByGlobalNorm, MoELayer, place_experts_on_mesh)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    failures = res["failures"]
+    g = D.collective._get_global_group()
+    gen = torch.Generator(dev).manual_seed(seed + 21)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, MOE["d_model"])
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    c = torch.randn(shape, generator=gen, device=dev)
+    res["moe"] = {}
+    for mode in ("einsum", "sort"):
+        runs = {}
+        for name in ("serial", "ep"):
+            pt_seed(seed)
+            moe = MoELayer(**MOE, dispatch_mode=mode, device=dev,
+                           dtype=torch.bfloat16)
+            if name == "ep":
+                place_experts_on_mesh(moe, g)
+            tx = x.clone().requires_grad_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = moe(tx)
+            ((out.float() * c).mean() + 0.01 * moe.l_aux).backward()
+            torch.cuda.synchronize()
+            ms = round((time.perf_counter() - t0) * 1e3, 2)
+            pg = [(p, p.grad) for p in moe.parameters()]
+            if name == "ep":
+                norm = ClipGradForMOEByGlobalNorm(
+                    MOE_CLIP_NORM, moe_group=g).global_norm(pg)
+            else:
+                norm = ClipGradByGlobalNorm(MOE_CLIP_NORM).global_norm(pg)
+            scale = float(torch.clamp(MOE_CLIP_NORM / norm, max=1.0))
+            grads = {n: (_all_gather(p.grad, g, 0) if name == "ep" and
+                         getattr(p, "_ep_shard", None) else p.grad)
+                     for n, p in moe.named_parameters()}
+            grads["x"] = tx.grad
+            runs[name] = dict(out=out.detach(), grads=grads, scale=scale,
+                              ms=ms, shapes={n: list(p.shape) for n, p in
+                                             moe.named_parameters()})
+            del moe, tx, out, pg
+        ser, ep = runs["serial"], runs["ep"]
+        errs = {"out": rel_err(ep["out"], ser["out"])}
+        errs.update({n: rel_err(ep["grads"][n], t)
+                     for n, t in ser["grads"].items()})
+        bitwise = torch.equal(ep["out"], ser["out"]) and all(
+            torch.equal(ep["grads"][n], t) for n, t in ser["grads"].items())
+        clip_rel = abs(ep["scale"] - ser["scale"]) / ser["scale"]
+        res["moe"][mode] = dict(
+            errs={k: round(e, 6) for k, e in errs.items()}, bitwise=bitwise,
+            scale=ep["scale"], serial_scale=ser["scale"], clip_rel=clip_rel,
+            ms={"ep": ep["ms"], "serial": ser["ms"]},
+            experts=ep["shapes"]["experts.w1"][0])
+        bad = {k: e for k, e in errs.items() if not e <= MOE_REL}
+        if bad:
+            failures.append(f"(c) {mode}: the ep layer against the serial "
+                            f"one {bad} (norm-rel., tol {MOE_REL})")
+        if ep["shapes"]["experts.w1"][0] != MOE["num_experts"] // 2:
+            failures.append(f"(c) {mode}: a rank holds "
+                            f"{ep['shapes']['experts.w1'][0]} experts")
+        if not clip_rel <= MOE_CLIP_REL:
+            failures.append(f"(c) {mode}: the MoE clip's factor "
+                            f"{ep['scale']!r} is {clip_rel:.3g} from the "
+                            f"serial clip's {ser['scale']!r} (tol "
+                            f"{MOE_CLIP_REL})")
+        del runs, ser, ep
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def pp_rank(torch, np, D, rank, dev, seed, parts, res, out, steps=None):
+    """19(a)-(c) on this rank; appends to ``res['failures']``."""
+    from pathlib import Path
+
+    from paddle_tpu_torch.distributed.communication import flight_recorder
+    from paddle_tpu_torch.distributed.store import FileKVStore
+
+    if "a" in parts:
+        arrays = p18_arrays(torch, Path(out) / "serial_a.pt")
+        for V in (1, 2):
+            res[f"v{V}"] = pp_train(torch, np, D, dev, seed, V, arrays, out,
+                                    steps, res)
+        del arrays
+    if "b" in parts:
+        ring_check(torch, D, dev, seed, res)
+        sep_check(torch, D, dev, seed, res)
+    if "c" in parts:
+        moe_check(torch, D, dev, seed, res)
+    store = FileKVStore(str(Path(out) / "contract"))
+    try:
+        flight_recorder.contract(store, rank, D.get_world_size(),
+                                 deadline=120.0)
+        res["contract"] = "agrees"
+    except Exception as e:  # noqa: BLE001 - a gate: recorded as a failure
+        res["contract"] = "mismatch"
+        res["failures"].append(f"collective contract: {str(e)[:400]}")
+
+
+def ppdp_rank(torch, np, D, rank, dev, seed, res, out):
+    """19(d) on this rank: dp=2 x pp=2 at PP_DP_DEPTH layers, SR off,
+    ClipGradByGlobalNorm through HybridParallelOptimizer."""
+    from pathlib import Path
+
+    from paddle_tpu_torch.distributed import fleet
+
+    failures = res["failures"]
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 2, "pp_degree": PP_DEGREE}
+    s.pipeline_configs = {"accumulate_steps": 2}
+    hcg = fleet.init(strategy=s)
+    arrays = p18_arrays(torch, Path(out) / "serial_d.pt")
+    pipe, model, opt, loaded = pp_model(torch, np, dev, seed, PP_DP_DEPTH, 1,
+                                        arrays, False, TP_CLIP_NORM)
+    del arrays
+    if not loaded:
+        failures.append("(d) the stage's parameters are not the serial "
+                        "weights")
+    clip = opt._inner_opt._grad_clip
+    ids, labels = p17_batch(torch, np, dev, seed)
+    b = TRAIN_BATCH // 2
+    r = hcg.get_data_parallel_rank()
+    x, y = ids[r * b:(r + 1) * b], labels[r * b:(r + 1) * b]
+    dp_g = hcg.get_data_parallel_group()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, scales, ms, bitwise = [], [], [], [], []
+    for _ in range(PP_DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.train_batch((x, y), opt)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        norms.append(float(clip.last_global_norm))
+        scales.append(float(clip.last_scale))
+        bitwise.append(all_true(D, equal_across(
+            torch, D, list(pipe.parameters()), dp_g)))
+    res.update(losses=losses, norms=norms, scales=scales, ms=ms,
+               bitwise=bitwise, stage=hcg.get_stage_id(), dp_rank=r,
+               n_syncs=model._dp.n_syncs,
+               peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    if not all(bitwise):
+        failures.append(f"(d) the stage's parameters differ across dp peers: "
+                        f"{bitwise}")
+    if model._dp.n_syncs != PP_DP_STEPS:
+        failures.append(f"(d) {model._dp.n_syncs} dp averages in "
+                        f"{PP_DP_STEPS} steps")
+
+
+def pp_phase(torch, np, dev, args, card, tmp, serial_a):
+    """Phase 19: (a)-(c) in two launched ranks (against phase 18's serial
+    run, kept in ``tmp``), then (d)'s serial run here and its four ranks."""
+    t0 = time.perf_counter()
+    failures = pp_ranks(torch, np, args, card, serial_a, tmp, parts="abc")
+    serial_d, norms_d = tp_serial(torch, np, dev, args, PP_DP_DEPTH,
+                                  PP_DP_STEPS, False, TP_CLIP_NORM,
+                                  tmp / "serial_d.pt")
+    failures += ppdp_ranks(torch, np, args, card, serial_d, norms_d, tmp)
+    print(f"phase 19 took {time.perf_counter() - t0:.1f} s [{card}]")
+    if failures:
+        fail("phase 19: " + "; ".join(failures))
+
+
+def pp_ranks(torch, np, args, card, serial, tmp, script=None, extra=(),
+             parts="abc"):
+    """19(a)-(c) through the launcher (two ranks); returns the failures.
+    ``serial``: 18(a)'s serial losses (a prefix of them with ``--steps``)."""
+    out = tmp / f"pp-{parts}"
+    out.mkdir()
+    for f in ("serial_a.pt", "serial_a_grads.pt"):
+        (out / f).symlink_to((tmp / f).resolve())
+    rc, logs = launch_ranks("pp", out, args, script=script,
+                            extra=("--parts", parts, *extra),
+                            timeout=P19_RANK_TIMEOUT_S)
+    if rc != 0:
+        return [f"the two-rank pipeline launch exited {rc}:\n{logs}"]
+    ranks = rank_results(out)
+    failures = [f"rank {r}: {f}" for r, res in enumerate(ranks)
+                for f in res["failures"]]
+    if "a" in parts:
+        for V in (1, 2):
+            a, b = ranks[0][f"v{V}"], ranks[1][f"v{V}"]
+            losses = a["losses"]
+            if b["losses"] != losses:
+                failures.append(f"(a) V={V}: the ranks' losses differ: "
+                                f"{losses} | {b['losses']}")
+            rel = [_rel(x, y) for x, y in zip(losses, serial)]
+            if max(rel) > PP_LOSS_REL:
+                failures.append(f"(a) V={V}: losses {losses} are "
+                                f"{max(rel):.3g} from the serial step's "
+                                f"{serial} (tol {PP_LOSS_REL})")
+            print(f"phase 19(a) PipelineParallel(Llama-542M) at pp="
+                  f"{PP_DEGREE} V={V}, accumulate_steps {PP_MICRO}, two gloo "
+                  f"ranks on the one card, B={TRAIN_BATCH} S={TRAIN_SEQ} bf16 "
+                  f"SR on, {len(losses)} eager steps: losses "
+                  f"{[round(x, 6) for x in losses]} against the serial step's "
+                  f"{[round(x, 6) for x in serial[:len(losses)]]} (worst rel "
+                  f"{max(rel):.3g}, tol {PP_LOSS_REL}); the first step's "
+                  f"gradients against the serial step's: worst norm-rel "
+                  f"{[r[f'v{V}']['grad_rel'] for r in ranks]} at "
+                  f"{[r[f'v{V}']['grad_worst'] for r in ranks]} (tol "
+                  f"{PP_GRAD_REL}); launches a step per rank "
+                  f"{[r[f'v{V}']['counts'] for r in ranks]}; stages loaded "
+                  f"bitwise the serial weights "
+                  f"{[r[f'v{V}']['loaded'] for r in ranks]}; parameter bytes "
+                  f"{[round(r[f'v{V}']['bytes_ratio'], 4) for r in ranks]} of "
+                  f"the serial model's [{card}]")
+            print(f"phase 19(a) V={V} per rank: ms a step "
+                  f"{[[round(t, 1) for t in r[f'v{V}']['ms']] for r in ranks]}"
+                  f", tokens/s "
+                  f"{[round(TRAIN_BATCH * TRAIN_SEQ / (min(r[f'v{V}']['ms']) / 1e3)) for r in ranks]}"
+                  f"; P2P hops sent a step "
+                  f"{[r[f'v{V}']['hops'] for r in ranks]}, MB a step "
+                  f"{[r[f'v{V}']['hop_mb'] for r in ranks]}; peak memory GB "
+                  f"{[r[f'v{V}']['peak_gb'] for r in ranks]}; collective "
+                  f"contract {[r['contract'] for r in ranks]} [{card}]")
+    if "b" in parts:
+        print(f"phase 19(b) ring attention at sep=2, B, S, H, D "
+              f"{list(RING_SHAPE)} bf16 ({RING_SHAPE[1] // 2} a rank), "
+              f"against plain f32 attention over the whole sequence, worst "
+              f"row (floor {RING_ROW_FLOOR}, tol {RING_ROW_REL}) and ms "
+              f"fwd+bwd: {[r['ring'] for r in ranks]}; SegmentParallel step "
+              f"of the attention block (width {SEP_WIDTH}, {SEP_HEADS} heads, "
+              f"SGD lr {SEP_LR}) against the serial block's: "
+              f"{[r['sep'] for r in ranks]} (tol {SEP_REL}) [{card}]")
+    if "c" in parts:
+        for mode in ("einsum", "sort"):
+            scales = [r["moe"][mode]["scale"] for r in ranks]
+            if scales[0] != scales[1]:
+                failures.append(f"(c) {mode}: the MoE clip's factors differ "
+                                f"across ranks: {scales}")
+            print(f"phase 19(c) MoELayer({MOE}) {mode} dispatch over "
+                  f"{TRAIN_BATCH * TRAIN_SEQ} tokens bf16, experts over ep=2 "
+                  f"against the serial layer (norm-rel, tol {MOE_REL}): "
+                  f"{[r['moe'][mode] for r in ranks]} [{card}]")
+    return failures
+
+
+def ppdp_ranks(torch, np, args, card, serial, serial_norms, tmp,
+               script=None, extra=()):
+    """19(d) through the launcher (four ranks); returns the failures."""
+    out = tmp / "ppdp"
+    out.mkdir()
+    (out / "serial_d.pt").symlink_to((tmp / "serial_d.pt").resolve())
+    rc, logs = launch_ranks("ppdp", out, args, script=script, extra=extra,
+                            nproc=4, timeout=P19_RANK_TIMEOUT_S)
+    if rc != 0:
+        return [f"the four-rank dp x pp launch exited {rc}:\n{logs}"]
+    ranks = rank_results(out, 4)
+    failures = [f"rank {r}: {f}" for r, res in enumerate(ranks)
+                for f in res["failures"]]
+    losses = ranks[0]["losses"]
+    if any(r["losses"] != losses for r in ranks):
+        failures.append(f"(d) the ranks' losses differ: "
+                        f"{[r['losses'] for r in ranks]}")
+    rel = [_rel(a, b) for a, b in zip(losses, serial)]
+    if max(rel) > PP_LOSS_REL:
+        failures.append(f"(d) losses {losses} are {max(rel):.3g} from the "
+                        f"serial step's {serial} (tol {PP_LOSS_REL})")
+    norms = ranks[0]["norms"]
+    nrel = [_rel(a, b) for a, b in zip(norms, serial_norms)]
+    if max(nrel) > CLIP_SERIAL_REL:
+        failures.append(f"(d) clip norms {norms} are {max(nrel):.3g} from "
+                        f"the serial step's {serial_norms} (tol "
+                        f"{CLIP_SERIAL_REL})")
+    if not all(s < 1.0 for s in ranks[0]["scales"]):
+        failures.append(f"(d) the clip did not scale: {ranks[0]['scales']}")
+    print(f"phase 19(d) dp=2 x pp={PP_DEGREE}, four gloo ranks on the one "
+          f"card, Llama-542M at {PP_DP_DEPTH} layers, SR off, "
+          f"ClipGradByGlobalNorm({TP_CLIP_NORM}) through "
+          f"HybridParallelOptimizer, {PP_DP_STEPS} steps: losses "
+          f"{[round(x, 6) for x in losses]} against the serial step's "
+          f"{[round(x, 6) for x in serial]} (worst rel {max(rel):.3g}, tol "
+          f"{PP_LOSS_REL}); clip norms {norms} against the serial "
+          f"{serial_norms} (worst rel {max(nrel):.3g}, tol {CLIP_SERIAL_REL})"
+          f"; (stage, dp rank) {[(r['stage'], r['dp_rank']) for r in ranks]}"
+          f", shards bitwise across dp peers "
+          f"{[r['bitwise'] for r in ranks]}, dp averages "
+          f"{[r['n_syncs'] for r in ranks]}; ms a step "
+          f"{[[round(t, 1) for t in r['ms']] for r in ranks]}, peak GB "
+          f"{[r['peak_gb'] for r in ranks]} [{card}]")
+    return failures
 
 
 def kernel_class(name: str) -> str:
@@ -7321,7 +8021,21 @@ def main() -> int:
 
     starts.append(("18", time.perf_counter() - t_start))
     # -- phase 18: tensor parallelism, recompute, sequence parallel ------------
-    tp_phase(torch, np, dev, args, card)
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    p18_tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p18_"))
+    try:
+        serial_a = tp_phase(torch, np, dev, args, card, p18_tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        starts.append(("19", time.perf_counter() - t_start))
+        # -- phase 19: the pipeline, ring attention and sep, MoE and ep --------
+        pp_phase(torch, np, dev, args, card, p18_tmp, serial_a)
+    finally:
+        shutil.rmtree(p18_tmp, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -200,6 +200,32 @@ its launch in ``P18_RUNS``; 18(a) at one step):
 - ``recompute's rerun skips its forward all-reduce``: 18(b)'s bitwise
   gradients against the step without recompute.
 
+Phase 19's pipeline, ring-attention and MoE host code, the same way,
+patched into the ranks that ``chip_smoke.pp_ranks`` (two) or
+``ppdp_ranks`` (four) launch, against this process's serial runs
+(``P19_MUTANTS``, each with its launch in ``P19_RUNS``; 19(a) at one step
+a V):
+
+- ``a microbatch's output gradient sent as zeros``: a stage hands the
+  previous one zeros instead of its input's gradient; 19(a)'s first-step
+  gradients against the serial step's must refuse it;
+- ``stacked rows loaded into the wrong chunk``: ``load_jax_params`` gives
+  a stage the other stage's rows; 19(a)'s check that the stage holds the
+  serial weights;
+- ``the clip without the pp all-reduce``: each stage clips by its own
+  norm; 19(d)'s clip norms against the serial step's;
+- ``the ring's diagonal block treated as full``: the causal ring attends
+  the diagonal block without its mask; 19(b)'s causal ring against plain
+  attention;
+- ``the ring's backward without the reversed ppermute``: each rank keeps
+  the gradient of the kv block it received; 19(b)'s dk/dv against plain
+  attention;
+- ``the MoE clip without moe_group``: the expert squares are not summed
+  over ep; 19(c)'s clip factor against the serial clip's;
+- ``the ep gather's backward summed instead of split``: the experts'
+  output gradient is summed over ep before each rank takes its rows;
+  19(c)'s gradients against the serial layer's.
+
 Each variant runs through the kernel's own wrapper (``paged_decode`` and
 ``paged_decode_int8`` for the decode, ``fused_adamw_multi_update`` for
 AdamW). It also prints the verdict of the
@@ -712,7 +738,7 @@ P18_MUTANTS = {
         "_ParallelCE.forward", [(
             "all_reduce(gmax, op=ReduceOp.MAX, group=group)", "pass")]),
     "a rank loads its neighbour's slice": (
-        "paddle_tpu_torch.utils.convert", "_tp_slice", [(
+        "paddle_tpu_torch.utils.convert", "_cut", [(
             "np.split(a, n, axis=axis)[rank]",
             "np.split(a, n, axis=axis)[(rank + 1) % n]")]),
     "each query head attends with the next kv head": (
@@ -748,6 +774,53 @@ P18_RUNS = {
     "each query head attends with the next kv head": ("tp", "a", 1),
     "the clip counts replicated parameters once per rank": ("hybrid",),
     "recompute's rerun skips its forward all-reduce": ("tp", "b", 1),
+}
+# phase 19, in HOST_MUTANTS' form, each with the launch whose gates must
+# refuse it; patched into the ranks
+P19_MUTANTS = {
+    "as is": None,
+    "a microbatch's output gradient sent as zeros": (
+        "paddle_tpu_torch.distributed.fleet.meta_parallel.pipeline_parallel",
+        "PipelineParallel._backward_ticks", [(
+            "grads.append(torch.zeros_like(outs[t]) if g is None else g)",
+            "grads.append(torch.zeros_like(outs[t]))")]),
+    "stacked rows loaded into the wrong chunk": (
+        "paddle_tpu_torch.utils.convert", "_tp_slice", [(
+            'a = _cut(a, t, getattr(t, "_pp_rows", None), 0)',
+            'pr = getattr(t, "_pp_rows", None)\n'
+            '    a = _cut(a, t, pr and ((pr[0] + 1) % pr[1], pr[1]), 0)')]),
+    "the clip without the pp all-reduce": (
+        "paddle_tpu_torch.distributed.fleet.meta_optimizers",
+        "HybridParallelClipGrad.__call__", [(
+            "all_reduce(total, group=self._pp_group)", "pass")]),
+    "the ring's diagonal block treated as full": (
+        "paddle_tpu_torch.ops.ring_attention", "ring_attention", [(
+            "causal and src == rank)", "False)")]),
+    "the ring's backward without the reversed ppermute": (
+        "paddle_tpu_torch.distributed.communication", "_PPermute.backward", [(
+            "_ppermute(dy, back, ctx.g, ctx.name)", "dy")]),
+    "the MoE clip without moe_group": (
+        "paddle_tpu_torch.distributed.fleet.meta_parallel.moe",
+        "ClipGradForMOEByGlobalNorm._reduce_expert_sq", [(
+            "all_reduce(sq, group=self.moe_group)", "pass")]),
+    "the ep gather's backward summed instead of split": (
+        "paddle_tpu_torch.distributed.fleet.meta_parallel.moe",
+        "ExpertMLP.forward", [(
+            "import _GatherFromMP, _ScatterToMP",
+            "import _CopyToMP, _GatherFromMP, _ScatterToMP"), (
+            "_GatherFromMP.apply(out, g, 0)",
+            "_GatherFromMP.apply(_CopyToMP.apply(out, g), g, 0)")]),
+}
+# the launch each runs through: ("pp", parts, steps) or ("ppdp",)
+P19_RUNS = {
+    "as is": None,
+    "a microbatch's output gradient sent as zeros": ("pp", "a", 1),
+    "stacked rows loaded into the wrong chunk": ("pp", "a", 1),
+    "the clip without the pp all-reduce": ("ppdp",),
+    "the ring's diagonal block treated as full": ("pp", "b", 1),
+    "the ring's backward without the reversed ppermute": ("pp", "b", 1),
+    "the MoE clip without moe_group": ("pp", "c", 1),
+    "the ep gather's backward summed instead of split": ("pp", "c", 1),
 }
 # control_mutants' trace: phase 15's, shortened (the gates count no requests)
 CONTROL_TRACE = dict(n_requests=30, duration_s=5.0)
@@ -1039,6 +1112,55 @@ def p18_mutants(torch, np, dev, args, card):
     return ok, refused, len(P18_MUTANTS) - 1
 
 
+def p19_mutants(torch, np, dev, args, card):
+    """Every phase-19 variant through the launch whose gates must refuse it
+    (``chip_smoke.pp_ranks`` or ``ppdp_ranks``, against this process's
+    serial runs); the original through both. Returns (ok, refused, mutants
+    counted)."""
+    import tempfile as _tempfile
+
+    tmp = Path(_tempfile.mkdtemp(prefix="gate_mutants_p19_"))
+    ok, refused = True, []
+    try:
+        serial_a, _ = cs.tp_serial(torch, np, dev, args,
+                                   cs.LLAMA_542M["num_hidden_layers"], 1,
+                                   True, None, tmp / "serial_a.pt",
+                                   save_grads=True)
+        serial_d, norms_d = cs.tp_serial(
+            torch, np, dev, args, cs.PP_DP_DEPTH, cs.PP_DP_STEPS, False,
+            cs.TP_CLIP_NORM, tmp / "serial_d.pt")
+        for name, run in P19_RUNS.items():
+            extra = ("--mutant", name)
+            script = Path(__file__).resolve()
+            bad = []
+            for kind in ((("pp", "abc", 1), ("ppdp",)) if run is None
+                         else (run,)):
+                sub = Path(_tempfile.mkdtemp(dir=tmp))
+                for f in ("serial_a.pt", "serial_a_grads.pt", "serial_d.pt"):
+                    (sub / f).symlink_to(tmp / f)
+                if kind[0] == "pp":
+                    bad += cs.pp_ranks(torch, np, args, card, serial_a, sub,
+                                       script=script,
+                                       extra=(*extra, "--steps", "1"),
+                                       parts=kind[1])
+                else:
+                    bad += cs.ppdp_ranks(torch, np, args, card, serial_d,
+                                         norms_d, sub, script=script,
+                                         extra=extra)
+            if name == "as is":
+                ok &= not bad
+            elif bad:
+                refused.append(f"phase 19: {name}")
+            else:
+                ok = False
+            print(f"p19 {name}: "
+                  f"{'; '.join(b[:300] for b in bad) if bad else 'pass'} -> "
+                  f"{'FAIL' if bad else 'pass'} [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok, refused, len(P19_MUTANTS) - 1
+
+
 def deploy_mutants(torch, np, dev, args, card, ids):
     """Every phase-16 variant through the part of phase 16 whose gates must
     refuse it (``chip_smoke.deploy_serving``, ``control_flow_phase``,
@@ -1094,12 +1216,15 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--phase18", action="store_true",
                     help="only phase 18's tensor-parallel mutants")
+    ap.add_argument("--phase19", action="store_true",
+                    help="only phase 19's pipeline, ring and MoE mutants")
     args = ap.parse_args()
 
     import torch
 
     if args.rank17:
-        table = P18_MUTANTS if args.mutant in P18_MUTANTS else P17_MUTANTS
+        table = next(t for t in (P19_MUTANTS, P18_MUTANTS, P17_MUTANTS)
+                     if args.mutant in t)
         if table[args.mutant] is not None:
             host_variant(args.mutant, table)
         return cs.phase17_rank(args.rank17, args.out, args.seed, args.parts,
@@ -1118,13 +1243,14 @@ def main() -> int:
     gen_cpu = torch.Generator(device="cpu").manual_seed(args.seed)
     import numpy as np
 
-    if args.phase18:
-        kernels.build()  # the ranks use the parent's build
-        ok, refused, n = p18_mutants(torch, np, dev, args, card)
-        print(card)
-        print(f"gate_mutants --phase18: {'ok' if ok else 'FAIL'}; refused "
-              f"{len(refused)} of {n} mutants: {'; '.join(refused)}")
-        return 0 if ok else 1
+    for flag, run in (("phase18", p18_mutants), ("phase19", p19_mutants)):
+        if getattr(args, flag):
+            kernels.build()  # the ranks use the parent's build
+            ok, refused, n = run(torch, np, dev, args, card)
+            print(card)
+            print(f"gate_mutants --{flag}: {'ok' if ok else 'FAIL'}; refused "
+                  f"{len(refused)} of {n} mutants: {'; '.join(refused)}")
+            return 0 if ok else 1
     tmp = Path(tempfile.mkdtemp(prefix="gate_mutants_"))
     results = []
     try:
@@ -1133,6 +1259,7 @@ def main() -> int:
         # two ranks it launches each hold a full-width model
         results.append(p17_mutants(torch, np, args, card))
         results.append(p18_mutants(torch, np, dev, args, card))
+        results.append(p19_mutants(torch, np, dev, args, card))
         results.append(fwd_mutants(torch, kernels, libs, dev, gen, card))
         torch.cuda.empty_cache()
         results.append(bwd_mutants(torch, kernels, libs, dev, gen, card))

@@ -482,9 +482,34 @@ def ppermute(tensor: torch.Tensor, perm: Sequence, group: Optional[Group] = None
              _name: str = "ppermute") -> torch.Tensor:
     """``lax.ppermute``: for each ``(a, b)`` in ``perm`` (group ranks),
     rank b gets rank a's tensor; a rank no pair sends to gets zeros. Every
-    rank of the group calls it with the same ``perm``."""
-    g = _resolve(group)
+    rank of the group calls it with the same ``perm``, in the same order.
+
+    Differentiable, as ``lax.ppermute`` is: the backward is the ppermute
+    of the output's gradient with every pair reversed (:class:`_PPermute`),
+    so each rank gets the gradient of what it sent. Every rank runs those
+    backwards in the same order too: each exchange is one
+    ``batch_isend_irecv``, never two blocking sends facing each other."""
     perm = [(int(a), int(b)) for a, b in perm]
+    return _PPermute.apply(tensor, perm, _resolve(group), _name)
+
+
+class _PPermute(torch.autograd.Function):
+    """``ppermute`` forward; the reversed ``ppermute`` of the gradient
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, perm, g, name):
+        ctx.perm, ctx.g, ctx.name = perm, g, name
+        return _ppermute(x, perm, g, name)
+
+    @staticmethod
+    def backward(ctx, dy):
+        back = [(b, a) for a, b in ctx.perm]  # every pair reversed
+        return _ppermute(dy, back, ctx.g, ctx.name), None, None, None
+
+
+def _ppermute(tensor: torch.Tensor, perm: List, g: Group,
+              _name: str) -> torch.Tensor:
     plan = _Plan(g, _name, [tensor])
     _record(_name, g, tensor, detail=f"perm={perm}")
     me = g.rank

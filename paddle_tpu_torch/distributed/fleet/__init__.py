@@ -5,14 +5,16 @@ python/paddle/distributed/fleet/fleet.py:99,166,598).
 ``init`` initialises the default group (``init_parallel_env``) and builds
 the hybrid topology's groups from ``strategy.hybrid_configs``;
 ``distributed_model`` wraps the model by parallel mode (precedence pp > mp
-> sep > sharding > dp, ``:58-82``): tensor parallelism
-(``meta_parallel.TensorParallel``, with ``DataParallel`` over the dp group
-when dp > 1), or ``DataParallel`` over the dp group; ``distributed_optimizer``
-wraps the optimizer (``meta_optimizers.HybridParallelOptimizer``, which
-shards it over the sharding group when sharding > 1). Pipeline (pp) and
-segment (sep) parallelism, group sharding beside tensor or data
-parallelism, and ``elastic`` are later slices (ROADMAP A1): asking for
-them raises.
+> sep > sharding > dp, ``:58-82``): the pipeline
+(``meta_parallel.PipelineParallel`` over a ``PipelineLayer``, with
+``DataParallel`` over the dp group when dp > 1), tensor parallelism
+(``meta_parallel.TensorParallel``, likewise), segment parallelism
+(``meta_parallel.SegmentParallel``, likewise), or ``DataParallel`` over the
+dp group; ``distributed_optimizer`` wraps the optimizer
+(``meta_optimizers.HybridParallelOptimizer``, which shards it over the
+sharding group when sharding > 1). The pipeline beside mp, sep or
+sharding, group sharding beside tensor or data parallelism, and
+``elastic`` are later slices (ROADMAP A1): asking for them raises.
 """
 from __future__ import annotations
 
@@ -98,17 +100,17 @@ def distributed_model(model):
         raise RuntimeError("call fleet.init() first")
     _check_sharding(hcg)
     if hcg.get_pipe_parallel_world_size() > 1:
-        raise NotImplementedError(
-            "pipeline parallelism (pp_degree > 1) is not ported yet: it comes "
-            "with the pipeline slice (ROADMAP A1)")
+        from .meta_parallel import PipelineParallel
+
+        return PipelineParallel(model, hcg, _strategy)
     if hcg.get_model_parallel_world_size() > 1:
         from .meta_parallel import TensorParallel
 
         return TensorParallel(model, hcg, _strategy)
     if hcg.get_sep_parallel_world_size() > 1:
-        raise NotImplementedError(
-            "segment parallelism (sep_degree > 1) is not ported yet: it comes "
-            "with ring attention and SegmentParallel (ROADMAP A1)")
+        from .meta_parallel import SegmentParallel
+
+        return SegmentParallel(model, hcg, _strategy)
     if hcg.get_sharding_parallel_world_size() > 1:
         return model  # distributed_optimizer shards the optimizer
     if hcg.get_data_parallel_world_size() > 1:

@@ -20,10 +20,14 @@ parameters' shapes (the Llama's local head counts) and its head's layer
 replicated and, with dp > 1, averages the gradients over the dp group
 through ``DataParallel``.
 
-``SegmentParallel``, the pipeline (``PipelineLayer``, ``PipelineParallel``,
-``LayerDesc``, ``SharedLayerDesc``) and MoE (``MoELayer``, ``TopKGate``,
-``ExpertMLP``, ``place_experts_on_mesh``) are later slices: importing one
-raises an ``ImportError`` that says so.
+:class:`SegmentParallel` broadcasts the parameters over the sep group (the
+model splits only its attention's sequence, through
+``ops.ring_attention.sep_parallel_attention``, and computes the rest on
+every sep rank) and, with dp > 1, averages the gradients over the dp group
+through ``DataParallel``. The pipeline (``PipelineLayer``,
+``PipelineParallel``, ``LayerDesc``, ``SharedLayerDesc``) is in
+``pipeline_parallel``, MoE with expert parallelism (``MoELayer``,
+``TopKGate``, ``ExpertMLP``, ``place_experts_on_mesh``) in ``moe``.
 """
 from __future__ import annotations
 
@@ -41,28 +45,10 @@ from ..layers.mpu.mp_layers import (  # noqa: F401
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "ParallelCrossEntropy",
-           "TensorParallel", "place_parameters"]
-
-_LATER = {
-    "SegmentParallel": "sequence (segment) parallelism with ring attention",
-    "PipelineParallel": "the pipeline over point-to-point sends",
-    "PipelineLayer": "the pipeline over point-to-point sends",
-    "LayerDesc": "the pipeline over point-to-point sends",
-    "SharedLayerDesc": "the pipeline over point-to-point sends",
-    "MoELayer": "MoE over alltoall",
-    "TopKGate": "MoE over alltoall",
-    "ExpertMLP": "MoE over alltoall",
-    "place_experts_on_mesh": "MoE over alltoall",
-}
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise ImportError(
-            f"paddle_tpu_torch.distributed.fleet.meta_parallel.{name} is not "
-            f"ported yet: it comes with the slice of {_LATER[name]} "
-            "(ROADMAP A1)")
-    raise AttributeError(name)
+           "TensorParallel", "SegmentParallel", "place_parameters",
+           "LayerDesc", "SharedLayerDesc", "PipelineLayer",
+           "PipelineParallel", "ExpertMLP", "MoELayer", "TopKGate",
+           "place_experts_on_mesh", "ClipGradForMOEByGlobalNorm"]
 
 
 class _MetaParallelBase:
@@ -215,3 +201,41 @@ class TensorParallel(_MetaParallelBase):
         for p in self._layers.parameters():
             if not getattr(p, "is_distributed", False):
                 broadcast(p.data, src=mp.ranks[0], group=mp)
+
+
+class SegmentParallel(_MetaParallelBase):
+    """ref: meta_parallel/segment_parallel.py:26: every parameter broadcast
+    over the sep group from its first rank; with dp > 1 the layers are
+    also wrapped in ``DataParallel`` over the dp group (its ``_dp``). The
+    model's attention runs ``sep_parallel_attention``, whose Megatron
+    pair leaves every other gradient equal over the sep group."""
+
+    def _prepare_for_model(self):
+        from ...communication import broadcast
+
+        self._dp = None
+        sep = self._hcg.get_sep_parallel_group()
+        if sep is not None and sep.nranks > 1:
+            with torch.no_grad():
+                for p in self._layers.parameters():
+                    broadcast(p.data, src=sep.ranks[0], group=sep)
+        dp = self._hcg.get_data_parallel_group()
+        if dp is not None and dp.nranks > 1:
+            from ...parallel import DataParallel
+
+            self._dp = DataParallel(self._layers, group=dp)
+
+
+from .pipeline_parallel import (  # noqa: E402,F401
+    LayerDesc,
+    PipelineLayer,
+    PipelineParallel,
+    SharedLayerDesc,
+)
+from .moe import (  # noqa: E402,F401
+    ClipGradForMOEByGlobalNorm,
+    ExpertMLP,
+    MoELayer,
+    TopKGate,
+    place_experts_on_mesh,
+)

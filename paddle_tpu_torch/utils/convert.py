@@ -6,7 +6,12 @@ package never imports ``paddle_tpu``. Paddle's ``Linear`` weight layout
 ``[in, out]`` is kept by the port, so no array is transposed. A
 tensor-parallel shard (``is_distributed``, with its ``tp_axis``) takes
 its rank's slice of the whole array, so the reference's full arrays load
-into every rank of a tensor-parallel model.
+into every rank of a tensor-parallel model. The same holds for a pipeline
+stage's stacked parameters (``_pp_rows = (stage, S)``: the stage's V rows
+of the reference's ``[S·V, ...]`` array, which are contiguous) and for an
+expert-parallel rank's experts (``_ep_shard = (rank, ep)``: its E/ep rows
+along ``ep_axis``); the names a pipeline stage leaves to the other stages
+(a ``PipelineLayer``'s ``_pp_elsewhere``) are skipped.
 """
 from __future__ import annotations
 
@@ -18,26 +23,46 @@ import torch
 __all__ = ["load_jax_params", "load_jax_buffers"]
 
 
-def _tp_slice(t: torch.Tensor, a: np.ndarray) -> np.ndarray:
-    """A tensor-parallel shard's slice of the whole array ``a``: this
-    rank's part along the shard's ``tp_axis`` (``_tp_shard = (rank,
-    degree)``, set where the shard was cut); ``a`` itself otherwise, or
-    where it has the shard's shape already."""
-    shard = getattr(t, "_tp_shard", None)
-    if (shard is None or not getattr(t, "is_distributed", False)
-            or tuple(a.shape) == tuple(t.shape)):
+def _cut(a: np.ndarray, t: torch.Tensor, shard, axis) -> np.ndarray:
+    """Part ``rank`` of ``n`` of ``a`` along ``axis`` (``shard = (rank,
+    n)``), where ``a`` is ``t``'s whole; ``a`` itself otherwise (the
+    caller's shape check names a mismatch)."""
+    if shard is None or tuple(a.shape) == tuple(t.shape):
         return a
     rank, n = shard
-    axis = t.tp_axis
     if a.ndim != t.dim() or a.shape[axis] != n * t.shape[axis]:
-        return a  # the caller's shape check names the mismatch
+        return a
     return np.split(a, n, axis=axis)[rank]
 
 
+def _tp_slice(t: torch.Tensor, a: np.ndarray) -> np.ndarray:
+    """A sharded tensor's slice of the whole array ``a``: a
+    tensor-parallel shard's part along its ``tp_axis`` (``_tp_shard =
+    (rank, degree)``), a pipeline stage's stacked rows (``_pp_rows``), an
+    expert-parallel rank's experts (``_ep_shard``); ``a`` itself
+    otherwise, or where it has the tensor's shape already."""
+    shard = getattr(t, "_tp_shard", None)
+    if shard is not None and getattr(t, "is_distributed", False):
+        a = _cut(a, t, shard, t.tp_axis)
+    a = _cut(a, t, getattr(t, "_pp_rows", None), 0)
+    return _cut(a, t, getattr(t, "_ep_shard", None),
+                getattr(t, "ep_axis", None) or 0)
+
+
+def _elsewhere(module: torch.nn.Module) -> set:
+    """The parameter names a pipeline stage in ``module`` leaves to the
+    other stages (prefixed with the stage's own name)."""
+    out = set()
+    for prefix, m in module.named_modules():
+        for n in getattr(m, "_pp_elsewhere", ()):
+            out.add(f"{prefix}.{n}" if prefix else n)
+    return out
+
+
 def _load_named(kind: str, named: Mapping[str, torch.Tensor],
-                arrays: Mapping[str, np.ndarray]) -> None:
+                arrays: Mapping[str, np.ndarray], elsewhere=()) -> None:
     missing = sorted(set(named) - set(arrays))
-    extra = sorted(set(arrays) - set(named))
+    extra = sorted(set(arrays) - set(named) - set(elsewhere))
     if missing or extra:
         raise KeyError(f"{kind} names differ: missing {missing}, "
                        f"unexpected {extra}")
@@ -52,8 +77,7 @@ def _load_named(kind: str, named: Mapping[str, torch.Tensor],
                                    else np.int64))
             if tuple(a.shape) != tuple(t.shape):
                 raise ValueError(f"{name}: shape {full} matches neither "
-                                 f"{tuple(t.shape)} nor its tensor-parallel "
-                                 f"whole")
+                                 f"{tuple(t.shape)} nor its sharded whole")
             # in place: the destination keeps its strides and address
             t.copy_(torch.from_numpy(a).to(device=t.device, dtype=t.dtype))
 
@@ -62,10 +86,13 @@ def load_jax_params(module: torch.nn.Module,
                     arrays: Mapping[str, np.ndarray]) -> None:
     """Copy ``arrays[name]`` into every parameter of ``module`` (cast to the
     parameter's dtype, on its device); a tensor-parallel shard takes its
-    rank's slice of the whole array. Raises ``KeyError`` when a name is
-    missing or left over, ``ValueError`` on a shape that matches neither
-    the parameter nor its whole."""
-    _load_named("parameter", dict(module.named_parameters()), arrays)
+    rank's slice of the whole array, a pipeline stage its rows, an
+    expert-parallel rank its experts; a pipeline stage skips the names
+    other stages hold. Raises ``KeyError`` when a name is missing or left
+    over, ``ValueError`` on a shape that matches neither the parameter nor
+    its whole."""
+    _load_named("parameter", dict(module.named_parameters()), arrays,
+                _elsewhere(module))
 
 
 def load_jax_buffers(module: torch.nn.Module,

@@ -64,11 +64,15 @@ def _rank_main(module, name, store, out, args):
     os.environ["RANK_OUT_DIR"] = out
     try:
         body = getattr(importlib.import_module(module), name)
-        from paddle_tpu_torch.distributed import init_parallel_env
+        from paddle_tpu_torch.distributed import (destroy_process_group,
+                                                  init_parallel_env)
 
         init_parallel_env("cpu", init_method=f"file://{store}")
         res = body(rank, world, *args)
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+        # the process groups go down here, while the interpreter is whole,
+        # and an error in their teardown fails the rank like any other
+        destroy_process_group()
     except BaseException:
         with open(os.path.join(out, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
