@@ -87,12 +87,15 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import random
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
@@ -5725,6 +5728,10 @@ def phase17_rank(mode, out, seed, parts="bc", steps=None):
     import paddle_tpu_torch.distributed as D
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    if mode == "tf":  # 20(b): a dp replica of its own, no process group
+        res = {"failures": []}
+        tf_rank(torch, np, out, seed, res)
+        return 0
     if mode == "nccl2":  # two ranks, NCCL, one device
         try:
             D.init_parallel_env()
@@ -5794,6 +5801,8 @@ def phase17_rank(mode, out, seed, parts="bc", steps=None):
         pp_rank(torch, np, D, rank, dev, seed, parts, res, out, steps)
     elif mode == "ppdp":
         ppdp_rank(torch, np, D, rank, dev, seed, res, out)
+    elif mode == "elastic":
+        elastic_rank(torch, np, D, rank, dev, seed, parts, res, out)
     else:
         train_rank(torch, np, D, group, rank, dev, seed, parts, res, out)
     with open(f"{out}/rank{rank}.json", "w") as f:
@@ -7341,6 +7350,925 @@ def ppdp_ranks(torch, np, args, card, serial, serial_norms, tmp,
     return failures
 
 
+# -- phase 20: fault-tolerant training ---------------------------------------
+P20_DEPTH = LLAMA_542M["num_hidden_layers"]  # (a) and (b)'s disk tier: full
+P20_STEPS, P20_SNAP = 8, 2  # (a): steps of each run, snapshot interval
+P20_WARMUP = 3  # (a)-(c): the detector's warm-up before its spike gate arms
+# (a): executed-step indices of the injected NaN and spike (chaos sites fire
+# once per executed step, replays included): NaN at step 4 rolls back to the
+# step-2 snapshot, the spike lands on step 5's first run and rolls back to 4
+P20_NAN_AT, P20_SPIKE_AT = 4, 7
+P20_POISON = 3  # (a): the poison run's data index with NaN loss weights
+P20_POISON_STEPS = 5
+P20_SAVE_AT = 5  # (a)'s clean eager run saves its disk checkpoint here
+P20_QUIET_STEPS = 5  # (a)'s timed steps with nothing else running
+P20_PEER_DEPTH = 1  # (b): the peer tier's layers (its payload rides the store)
+P20_CORRUPT_BIT = 8 * 4096 + 3  # (b): a bit of the payload, past its header
+P20_TF_STEPS, P20_TF_SNAP, P20_TF_WAIT = 6, 2, 4  # (b): steps, interval, drain
+P20_TF_PEER = 4  # (b): peer publishes (at 0 and 4: a payload is ~1.1 GB)
+P20_TF_NAN, P20_TF_KILL = 3, 5  # (b): rank 0's NaN, rank 1's kill (executed)
+P20_SHARD_DEPTH = 2  # (c): layers (as 17(c))
+# (c): snapshot and peer intervals; the cut (the last publish before the
+# kill, where the file checkpoint is written too); the last step of both
+# the two-rank wave and the relaunch. The relaunch resumes the cut and runs
+# steps 5 and 6, which the wave ran uninterrupted before the kill: step 5's
+# loss reads the restored parameters, step 6's also the restored moments,
+# step count, SR salts and generator offsets through step 5's update.
+# Both hold every parameter whole in the forward, take identical gradients
+# (each rank runs the same batch: the mean of two equal values is exact)
+# and draw the SR salts by global element index, so the losses must agree
+# bitwise (step 5 alone read 0.0 apart on the card).
+P20_SHARD_SNAP, P20_SHARD_PEER, P20_SHARD_CUT, P20_SHARD_STEPS = 2, 4, 4, 6
+# (c): rank 0's SDC and rank 1's kill, as executed steps: 1, 2, 3 (flagged,
+# rolled back), 3, 4, 5, 6, then step 7's start
+P20_SDC_AT, P20_KILL_AT = 3, 8
+P20_SETTLE_S = 1.5  # (c): the relaunch waits out the dead wave's heartbeats
+P20_RANK_TIMEOUT_S = 600
+
+
+def p20_batch(np, seed, index, vocab=None, poison=None):
+    """Data index ``index``'s batch, pure in the index: per-token loss
+    weights (ones; NaN at the poison index), input ids, labels, the index."""
+    rng = np.random.RandomState((seed * 7919 + int(index)) % 2 ** 31)
+    toks = rng.randint(0, vocab or LLAMA_542M["vocab_size"],
+                       (TRAIN_BATCH, TRAIN_SEQ + 1))
+    w = np.ones((TRAIN_BATCH, TRAIN_SEQ), np.float32)
+    if poison is not None and int(index) == poison:
+        w *= np.float32("nan")
+    return (w, toks[:, :-1].astype(np.int64), toks[:, 1:].astype(np.int64),
+            np.array([int(index)]))
+
+
+def p20_step(torch, model, opt, dev, captured, rec):
+    """A supervised flagship step: the per-token cross entropy weighted by
+    the batch's loss weights (the chaos sites corrupt the first float leaf
+    of a batch), one AdamW step, and the packed health word (one 20-byte
+    host read a step; ``float(loss)`` would be a graph break in the
+    capture). ``rec`` collects each data index's word (a replay overwrites
+    it), the executed steps, and the captured program's graphs and pool."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.training import pack_health
+
+    def body(w, ids, labels):
+        logits = model(ids)
+        b, s, v = logits.shape
+        ce = F.cross_entropy(logits.reshape(b * s, v), labels.reshape(b * s),
+                             reduction="none")
+        loss = (ce * w.reshape(b * s)).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return pack_health(loss)
+
+    fn = jit.to_static(body, layers=[model], optimizers=[opt]) \
+        if captured else body
+
+    def step(batch):
+        w, ids, labels, idx = batch
+        word = fn(*(torch.from_numpy(a).to(dev) for a in (w, ids, labels)))
+        rec["words"][int(idx[0])] = word
+        rec["first"].setdefault(int(idx[0]), word)
+        rec["executed"] += 1
+        if captured:
+            rec["graphs"].append((len(fn._graphs), graph_pool_bytes(torch, fn)))
+        return word
+
+    return step, fn
+
+
+def p20_record():
+    return {"words": {}, "first": {}, "executed": 0, "graphs": []}
+
+
+def p20_losses(rec) -> dict:
+    """Data index -> the f32 loss of its last run, as the word holds it."""
+    return {i: float(w[0]) for i, w in sorted(rec["words"].items())}
+
+
+def p20_sup(step, batch_fn, model, opt, **kw):
+    from paddle_tpu_torch.training import AnomalyDetector, TrainingSupervisor
+
+    kw.setdefault("snapshot_interval", P20_SNAP)
+    return TrainingSupervisor(
+        step, batch_fn, layers=[model], optimizers=[opt],
+        detector=AnomalyDetector(warmup_steps=P20_WARMUP), **kw)
+
+
+def p20_ledger() -> dict:
+    """A rank process's supervisor's goodput ledger (s), read from the
+    registry series it keeps (``training_wall_seconds``)."""
+    from paddle_tpu_torch import obs
+
+    return {b: obs.registry().value("training_wall_seconds", {"bucket": b})
+            for b in ("productive", "rollback", "checkpoint", "stall")}
+
+
+def p20_want_counts(n_steps: int, depth: int) -> dict:
+    return {**flash_fwd_counts(depth * n_steps),
+            **flash_bwd_counts(depth * n_steps), "fused_adamw": n_steps,
+            "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+
+
+def bitwise_same(a: dict, b: dict, keys) -> bool:
+    import numpy as np
+
+    return all(np.float32(a[k]).tobytes() == np.float32(b[k]).tobytes()
+               for k in keys)
+
+
+def p20_rollback_runs(torch, np, dev, args, card, tmp,
+                      modes=("eager", "captured"), extras=True):
+    """20(a): rollback at full depth in ``modes`` (eager, captured) against
+    clean runs; with ``extras``, the clean eager run also saves (b)'s
+    full-depth disk checkpoint and times a snapshot and a restore, and the
+    poison batch runs. Returns (failures, the clean eager run's losses,
+    the checkpoint dir, the clean eager run)."""
+    from paddle_tpu_torch.incubate.checkpoint import AutoCheckpoint
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.testing import chaos
+
+    failures, clean, runs = [], {}, {}
+    ckpt_dir = tmp / "p20_disk"
+    batch_fn = lambda i: p20_batch(np, args.seed, i)  # noqa: E731
+    for mode in modes:
+        for kind in ("clean", "injected"):
+            model, opt = p17_model(torch, dev, P20_DEPTH, args.seed, True)
+            rec = p20_record()
+            step, fn = p20_step(torch, model, opt, dev, mode == "captured", rec)
+            kw = {}
+            if extras and (mode, kind) == ("eager", "clean"):
+                kw["auto_checkpoint"] = AutoCheckpoint(
+                    str(ckpt_dir), layers=[model], optimizers=[opt],
+                    save_interval_steps=P20_SAVE_AT, keep_last_k=1)
+            sup = p20_sup(step, batch_fn, model, opt, **kw)
+            sched = chaos.ChaosSchedule()
+            if kind == "injected":
+                sched = (sched.at("train.nan", P20_NAN_AT, "drop")
+                         .at("train.spike", P20_SPIKE_AT, "drop"))
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with chaos.active(sched):
+                rep = sup.run(P20_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            losses = p20_losses(rec)
+            r = {"rep": rep, "losses": losses, "executed": rec["executed"],
+                 "counts": counts, "wall": wall, "graphs": rec["graphs"],
+                 "wall_seconds": sup.health()["wall_seconds"]}
+            runs[(mode, kind)] = r
+            if kind == "clean":
+                clean[mode] = losses
+            want = p20_want_counts(rec["executed"], P20_DEPTH)
+            if torch.cuda.is_available() and counts != want:
+                failures.append(f"(a) {mode} {kind}: launch counts {counts} "
+                                f"!= {want} ({rec['executed']} executed "
+                                f"steps x {P20_DEPTH} layers)")
+            del model, opt, step, fn, sup, rec
+            gc.collect()
+            torch.cuda.empty_cache()
+    for mode in modes:
+        c, i = runs[(mode, "clean")], runs[(mode, "injected")]
+        if c["rep"]["rollbacks"] != 0:
+            failures.append(f"(a) {mode}: the clean run rolled back: "
+                            f"{c['rep']['anomalies']}")
+        kinds = [a[1].split(":")[0] for a in i["rep"]["anomalies"]]
+        if i["rep"]["rollbacks"] != 2 or kinds != ["loss_nonfinite",
+                                                   "loss_spike"]:
+            failures.append(f"(a) {mode}: rollbacks {i['rep']['rollbacks']} "
+                            f"(want 2: a NaN then a spike): "
+                            f"{i['rep']['anomalies']}")
+        keys = list(range(1, P20_STEPS + 1))
+        if sorted(i["losses"]) != keys or sorted(c["losses"]) != keys or \
+                not bitwise_same(i["losses"], c["losses"], keys):
+            failures.append(f"(a) {mode}: the injected run's losses "
+                            f"{i['losses']} are not bitwise the clean run's "
+                            f"{c['losses']}")
+        print(f"phase 20(a) {mode}, Llama-542M full depth ({P20_DEPTH} "
+              f"layers) B={TRAIN_BATCH} S={TRAIN_SEQ} bf16 SR on, "
+              f"{P20_STEPS} supervised steps, snapshot every {P20_SNAP}: "
+              f"NaN at executed step {P20_NAN_AT}, spike at "
+              f"{P20_SPIKE_AT}: rollbacks {i['rep']['rollbacks']} "
+              f"({kinds}), executed {i['executed']} steps; losses bitwise "
+              f"the clean run's at every step "
+              f"{bitwise_same(i['losses'], c['losses'], keys)}: "
+              f"{[round(c['losses'][k], 5) for k in keys]}; wall "
+              f"{c['wall']:.2f} s clean, {i['wall']:.2f} s injected; launches "
+              f"{i['counts'].get('flash_attention_fwd')} fwd "
+              f"{i['counts'].get('flash_attention_bwd_dq')} dq "
+              f"{i['counts'].get('flash_attention_bwd_dkv')} dkv "
+              f"{i['counts'].get('fused_adamw')} AdamW for "
+              f"{i['executed']} executed steps; goodput ledger (s) "
+              f"{i['wall_seconds']} [{card}]")
+    if "captured" in modes:
+        cap = runs[("captured", "injected")]["graphs"]
+        after = cap[1:]  # the warm-up call is eager
+        flat = bool(after) and after[0][0] == 1 and all(
+            g == after[0] for g in after)
+        if not flat:
+            failures.append(f"(a) captured: graphs and pool bytes per "
+                            f"executed step {cap} are not flat at one graph")
+        print(f"phase 20(a) captured: (graphs, pool bytes) per executed step "
+              f"{cap}: flat at one graph across both rollbacks {flat} "
+              f"[{card}]")
+    if not extras:
+        return failures, None, ckpt_dir, None
+    # the poison batch: its NaN weights come back on every replay
+    model, opt = p17_model(torch, dev, P20_DEPTH, args.seed, True)
+    rec = p20_record()
+    step, _ = p20_step(torch, model, opt, dev, False, rec)
+    sup = p20_sup(step, lambda i: p20_batch(np, args.seed, i,
+                                            poison=P20_POISON), model, opt)
+    rep = sup.run(P20_POISON_STEPS)
+    ok = (rep["quarantined"] == [P20_POISON]
+          and rep["rollbacks"] == sup.max_rollback_retries + 1
+          and math.isfinite(rep["final_loss"]))
+    if not ok:
+        failures.append(f"(a) poison batch: {rep}")
+    print(f"phase 20(a) poison batch at data index {P20_POISON}: "
+          f"quarantined {rep['quarantined']} after {rep['rollbacks']} "
+          f"rollbacks (max_rollback_retries {sup.max_rollback_retries}), "
+          f"final loss {rep['final_loss']:.5f}, executed {rec['executed']} "
+          f"steps [{card}]")
+    del model, opt, step, sup, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures, clean["eager"], ckpt_dir, runs[("eager", "clean")]
+
+
+def p20_quiet_costs(torch, np, dev, args, card):
+    """20(a)'s costs, taken after (b)'s and (c)'s processes have ended, so
+    that nothing else runs on the card or in this process: a supervised
+    eager step's wall at full depth, a snapshot's device time (CUDA events
+    around the supervisor's capture) and a restore's wall (the rollback's
+    copies into the live tensors and the generators' reset)."""
+    model, opt = p17_model(torch, dev, P20_DEPTH, args.seed, True)
+    step, _ = p20_step(torch, model, opt, dev, False, p20_record())
+    sup = p20_sup(step, lambda i: p20_batch(np, args.seed, i), model, opt,
+                  snapshot_interval=10 ** 6)
+    sup.run(P20_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sup.run(P20_WARMUP + P20_QUIET_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / P20_QUIET_STEPS
+    ev0, ev1 = torch.cuda.Event(True), torch.cuda.Event(True)
+    ev0.record()
+    snap = sup._capture(P20_WARMUP + P20_QUIET_STEPS)
+    ev1.record()
+    torch.cuda.synchronize()
+    snap_ms = ev0.elapsed_time(ev1)
+    snap_gb = sum(t.numel() * t.element_size() for part in
+                  (snap["model"], snap["optim"]) for sd in part
+                  for t in sd.values() if torch.is_tensor(t)) / 1e9
+    t0 = time.perf_counter()
+    sup._restore(snap)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    print(f"phase 20(a) with nothing else running: a snapshot of the full "
+          f"state ({snap_gb:.3f} GB: parameters and moments, bf16) device "
+          f"time {snap_ms:.3f} ms; a rollback's restore (copies into the "
+          f"live tensors, generators reset) {restore_ms:.3f} ms wall; a "
+          f"supervised eager step {step_ms:.1f} ms wall (the mean of "
+          f"{P20_QUIET_STEPS}) [{card}]")
+    del model, opt, step, sup, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def p20_disk_resume(torch, np, dev, args, card, clean, ckpt_dir, clean_run):
+    """20(b), the full-depth disk tier: a fresh model resumes (a)'s clean
+    eager run's async checkpoint of step P20_SAVE_AT (written while steps
+    5-8 changed the state in place) and must continue bitwise."""
+    from paddle_tpu_torch.incubate.checkpoint import AutoCheckpoint
+
+    failures = []
+    model, opt = p17_model(torch, dev, P20_DEPTH, args.seed + 1, True)
+    rec = p20_record()
+    step, _ = p20_step(torch, model, opt, dev, False, rec)
+    ac = AutoCheckpoint(str(ckpt_dir), layers=[model], optimizers=[opt],
+                        save_interval_steps=10 ** 6)
+    sup = p20_sup(step, lambda i: p20_batch(np, args.seed, i), model, opt,
+                  auto_checkpoint=ac)
+    t0 = time.perf_counter()
+    nxt = sup.resume()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    sup.run(P20_STEPS)
+    got = p20_losses(rec)
+    keys = list(range(P20_SAVE_AT + 1, P20_STEPS + 1))
+    tier = [d for k, d in sup.events if k == "resume"]
+    if nxt != P20_SAVE_AT + 1 or not tier or "disk" not in tier[0] or \
+            sorted(got) != keys or not bitwise_same(got, clean, keys):
+        failures.append(f"(b) disk tier: resumed {nxt} ({tier}), losses "
+                        f"{got} against the uninterrupted run's {clean}")
+    payload = sum(os.path.getsize(os.path.join(r, f))
+                  for r, _, fs in os.walk(ckpt_dir) for f in fs)
+    print(f"phase 20(b) disk tier at full depth: (a)'s clean run saved step "
+          f"{P20_SAVE_AT} asynchronously ({payload / 1e9:.3f} GB on disk; the "
+          f"run's goodput ledger, whose checkpoint bucket holds its "
+          f"snapshots and the save's drain at its end: "
+          f"{clean_run['wall_seconds']} s, over {clean_run['wall']:.2f} s of "
+          f"wall) and a fresh model resumed "
+          f"{tier} in {restore_s:.2f} s; losses of steps {keys} bitwise the "
+          f"uninterrupted run's {bitwise_same(got, clean, keys)} [{card}]")
+    del model, opt, step, sup, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures
+
+
+def p20_corrupt_peer(torch, np, dev, args, card, tmp, out=None):
+    """20(b), the fallback: the newest peer publish is corrupted on its way
+    into the store (``ckpt.peer``); resume() must reject it, see that the
+    older verified replica is staler than the verified disk checkpoint, and
+    take the disk tier; the continued losses equal a clean run's."""
+    from paddle_tpu_torch.distributed.store import MemKVStore
+    from paddle_tpu_torch.incubate.checkpoint import AutoCheckpoint
+    from paddle_tpu_torch.testing import chaos
+    from paddle_tpu_torch.training import PeerReplicator
+
+    failures = []
+    batch_fn = lambda i: p20_batch(np, args.seed, i)  # noqa: E731
+    runs = {}
+    store = MemKVStore()
+    for kind in ("clean", "faulted", "resumed"):
+        model, opt = p17_model(torch, dev, P20_PEER_DEPTH, args.seed, True)
+        rec = p20_record()
+        step, _ = p20_step(torch, model, opt, dev, False, rec)
+        kw = {}
+        if kind != "clean":
+            kw = dict(peer=PeerReplicator(store, 0, 1, tag="p20b"),
+                      auto_checkpoint=AutoCheckpoint(
+                          str(tmp / "p20b_disk"), layers=[model],
+                          optimizers=[opt], save_interval_steps=P20_TF_WAIT,
+                          async_save=False))
+        sup = p20_sup(step, batch_fn, model, opt, **kw)
+        # publishes at steps 0, 2, 4: two legs each (data, meta); the
+        # step-4 publish's data leg is corrupted
+        sched = chaos.ChaosSchedule().at("ckpt.peer", 5, "corrupt",
+                                         P20_CORRUPT_BIT) \
+            if kind == "faulted" else chaos.ChaosSchedule()
+        with chaos.active(sched):
+            if kind == "resumed":
+                nxt = sup.resume()
+                tier = [d for k, d in sup.events if k.startswith("resume")]
+            sup.run(P20_TF_WAIT if kind == "faulted" else P20_TF_STEPS)
+        if sup.peer is not None:
+            sup.peer.wait()
+        runs[kind] = p20_losses(rec)
+        del model, opt, step, sup, rec
+        gc.collect()
+    keys = list(range(P20_TF_WAIT + 1, P20_TF_STEPS + 1))
+    ok = (nxt == P20_TF_WAIT + 1 and any("disk" in d for d in tier)
+          and any("stale" in d or "step 2" in d for d in tier)
+          and bitwise_same(runs["resumed"], runs["clean"], keys))
+    if not ok:
+        failures.append(f"(b) corrupt peer: resumed {nxt} via {tier}, "
+                        f"losses {runs['resumed']} against {runs['clean']}")
+    if out is not None:
+        out["clean"] = runs["clean"]
+    print(f"phase 20(b) a corrupt newest peer publish (ckpt.peer corrupt on "
+          f"step {P20_TF_WAIT}'s data leg, {P20_PEER_DEPTH} layer): resume() "
+          f"-> {tier}, next step {nxt}; losses of steps {keys} bitwise a "
+          f"clean run's {ok} [{card}]")
+    return failures
+
+
+def p20_tf_ranks(torch, np, args, card, tmp, script=None, extra=()):
+    """20(b), two tiers and a kill: two dp replicas in processes (one model
+    each, telemetry over a TCPStoreServer here): rank 0 on the disk tier
+    takes a NaN and rolls back; rank 1 on the peer tier is SIGKILLed after
+    a publish and relaunched. Returns (failures, the two final losses' f32
+    hex), for the caller to hold against a clean run."""
+    from paddle_tpu_torch.distributed.store import TCPStoreServer
+
+    out = tmp / "p20_tf"
+    out.mkdir()
+    srv = TCPStoreServer(host="127.0.0.1")
+    here = Path(__file__).resolve()
+
+    def spawn(rank, tier, label, spec=None):
+        env = dict(os.environ)
+        env.pop("PADDLE_CHAOS", None)
+        env.update({"TF_STORE": f"127.0.0.1:{srv.port}", "TF_RANK": str(rank),
+                    "TF_WORLD": "2", "TF_TAG": "fault", "TF_TIER": tier,
+                    "TF_LABEL": label})
+        if spec:
+            env["PADDLE_CHAOS"] = spec
+        log = open(out / f"{label}.log", "w")
+        return subprocess.Popen(
+            [sys.executable, str(script or here), "--rank17", "tf", "--out",
+             str(out), "--seed", str(args.seed), *extra],
+            env=env, cwd=here.parent, stdout=log, stderr=subprocess.STDOUT)
+
+    def finish(p, label):
+        try:
+            return p.wait(timeout=P20_RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            return f"timed out ({label})"
+
+    failures = []
+    t0 = time.perf_counter()
+    try:
+        r0 = spawn(0, "disk", "rank0", f"train.nan@{P20_TF_NAN}=drop")
+        r1 = spawn(1, "peer", "rank1", f"train.kill_rank.1@{P20_TF_KILL}=kill")
+        rcs = {"rank1": finish(r1, "rank1")}
+        relaunch = spawn(1, "peer", "rank1b")
+        rcs.update(rank1b=finish(relaunch, "rank1b"), rank0=finish(r0, "rank0"))
+    finally:
+        srv.stop()
+    wall = time.perf_counter() - t0
+    if rcs["rank1"] != -9:
+        failures.append(f"(b) rank 1 was not killed (exit {rcs['rank1']}):\n"
+                        f"{_log_excerpt(out / 'rank1.log')}")
+    for label in ("rank1b", "rank0"):
+        if rcs[label] != 0:
+            failures.append(f"(b) {label} exited {rcs[label]}:\n"
+                            f"{_log_excerpt(out / f'{label}.log')}")
+    if failures:
+        return failures, None
+    res = {k: json.loads((out / f"{k}.json").read_text())
+           for k in ("rank0", "rank1b")}
+    if res["rank1b"]["tier"] != "peer" or \
+            res["rank1b"]["start"] != P20_TF_WAIT + 1:
+        failures.append(f"(b) the relaunched rank 1 resumed "
+                        f"{res['rank1b']['tier']} at {res['rank1b']['start']}"
+                        f" (want peer at {P20_TF_WAIT + 1})")
+    if res["rank0"]["rollbacks"] != 1 or res["rank0"]["disk_step"] != \
+            P20_TF_PEER:
+        failures.append(f"(b) rank 0 rolled back {res['rank0']['rollbacks']} "
+                        f"times (want 1), disk tier at "
+                        f"{res['rank0']['disk_step']} (want {P20_TF_PEER})")
+    for k in res:
+        failures += [f"(b) {k}: {f}" for f in res[k]["failures"]]
+    print(f"phase 20(b) two tiers and a kill, Llama-542M widths at "
+          f"{P20_PEER_DEPTH} layer, two dp replicas in processes (telemetry "
+          f"over a TCPStoreServer here), {P20_TF_STEPS} steps, snapshot "
+          f"every {P20_TF_SNAP}: rank 0 (disk tier, an async save every "
+          f"{P20_TF_PEER}) NaN at executed step {P20_TF_NAN} -> rollbacks "
+          f"{res['rank0']['rollbacks']}, goodput ledger (s; checkpoint: "
+          f"snapshots and the save's drain) {res['rank0']['ledger']}; "
+          f"rank 1 (peer tier, a publish every {P20_TF_PEER}) SIGKILLed at "
+          f"executed step {P20_TF_KILL} (exit {rcs['rank1']}), relaunched: "
+          f"resumed tier={res['rank1b']['tier']} at step "
+          f"{res['rank1b']['start']} in {res['rank1b']['restore_s']:.2f} s; "
+          f"before the kill (its ledger's checkpoint: snapshots and the "
+          f"publishes' drains) {_log_publishes(out / 'rank1.log')}; "
+          f"final losses "
+          f"{res['rank0']['final_loss']!r} (rank 0) and "
+          f"{res['rank1b']['final_loss']!r} (rank 1); {wall:.1f} s for the "
+          f"processes [{card}]")
+    return failures, [res["rank0"]["final_hex"], res["rank1b"]["final_hex"]]
+
+
+def _log_publishes(path):
+    """What a killed rank printed of its publishes before it died."""
+    return [json.loads(line.split("PUBLISHED ", 1)[1])
+            for line in path.read_text(errors="replace").splitlines()
+            if line.startswith("PUBLISHED ")]
+
+
+def tf_rank(torch, np, out, seed, res, dev=None):
+    """One process of 20(b) (``--rank17 tf``, the TF_* environment): a dp
+    replica of the flagship at P20_PEER_DEPTH layers under a supervisor
+    with telemetry over the parent's TCP store and one recovery tier
+    (``TF_TIER``: ``peer``, whose publishes it prints as it makes them, or
+    ``disk``), resumed from it, trained to the end."""
+    from paddle_tpu_torch.distributed.store import TCPKVStore
+    from paddle_tpu_torch.incubate.checkpoint import AutoCheckpoint
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.training import PeerReplicator, TrainTelemetry
+    from paddle_tpu_torch.utils.retries import Deadline
+
+    host, port = os.environ["TF_STORE"].rsplit(":", 1)
+    rank, world = int(os.environ["TF_RANK"]), int(os.environ["TF_WORLD"])
+    tag, label = os.environ["TF_TAG"], os.environ["TF_LABEL"]
+    dev = dev or torch.device("cuda", 0)
+    store = TCPKVStore(host, int(port), timeout=120.0)
+    store.wait_alive(deadline=Deadline(60.0))
+    model, opt = p17_model(torch, dev, P20_PEER_DEPTH, seed, True)
+    rec = p20_record()
+    step, _ = p20_step(torch, model, opt, dev, False, rec)
+    kw = dict(telemetry=TrainTelemetry(store, rank, world, tag=tag,
+                                       straggler_patience=10 ** 4),
+              telemetry_interval=2)
+    if os.environ["TF_TIER"] == "peer":
+        kw.update(peer=PeerReplicator(store, rank, world, tag=tag,
+                                      deadline_s=300.0),
+                  peer_interval=P20_TF_PEER)
+    else:
+        kw.update(auto_checkpoint=AutoCheckpoint(
+            str(Path(out) / f"disk{rank}"), layers=[model], optimizers=[opt],
+            save_interval_steps=P20_TF_PEER))
+    sup = p20_sup(step, lambda i: p20_batch(np, seed, i), model, opt,
+                  snapshot_interval=P20_TF_SNAP, **kw)
+    t0 = time.perf_counter()
+    start = sup.resume()
+    res["restore_s"] = time.perf_counter() - t0
+    done = [d for k, d in sup.events if k == "resume"]
+    res["tier"] = ("peer" if done and "peer RAM" in done[-1] else
+                   "disk" if done and "disk" in done[-1] else "fresh")
+    res["start"] = start
+    print(f"resumed step={start} tier={res['tier']}", flush=True)
+    kernels.reset_launch_counts()
+    if start <= P20_TF_WAIT:
+        # run() drains the step-4 publish at its end: whole before the kill
+        sup.run(P20_TF_WAIT)
+        if sup.peer is not None:
+            meta = json.loads(store.get(f"{tag}/snap/{rank}/meta"))
+            print("PUBLISHED " + json.dumps({
+                "publishes": sup.peer.n_published, "last": meta["step"],
+                "MB": round(meta["payload_bytes"] / 1e6, 1),
+                "ledger": p20_ledger()}), flush=True)
+    rep = sup.run(P20_TF_STEPS)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = p20_want_counts(rec["executed"], P20_PEER_DEPTH)
+    if dev.type == "cuda" and counts != want:
+        res["failures"].append(f"launch counts {counts} != {want}")
+    res.update(ledger=p20_ledger(), final_loss=rep["final_loss"],
+               final_hex=np.float32(rep["final_loss"]).tobytes().hex(),
+               rollbacks=rep["rollbacks"],
+               disk_step=(sup.auto_checkpoint.latest_step()
+                          if sup.auto_checkpoint is not None else None))
+    with open(Path(out) / f"{label}.json", "w") as f:
+        json.dump(res, f)
+
+
+def p20_shard_ranks(torch, np, args, card, tmp, script=None, extra=()):
+    """20(c): group-sharded stage 3 on two gloo ranks under the elastic
+    manager, telemetry each step and sharded peer payloads: an SDC flagged
+    and healed, the distributed file checkpoint written at the cut, rank 1
+    killed; then the relaunch at world 1 resharding from the peer tier and
+    continuing against the two-rank run."""
+    failures = []
+    t0 = time.perf_counter()
+    base = tmp / "p20_shard"
+    base.mkdir()
+    fault_out, re_out = base / "fault", base / "relaunch"
+    fault_out.mkdir()
+    re_out.mkdir()
+    rc, logs = launch_ranks("elastic", fault_out, args, script=script,
+                            extra=("--parts", "fault", *extra),
+                            timeout=P20_RANK_TIMEOUT_S)
+    # rank 1 dies by SIGKILL; the launcher then stops rank 0
+    fault = [json.loads(p.read_text())
+             for p in sorted(fault_out.glob("progress*.json"))]
+    if rc == 0 or len(fault) != 2:
+        return [f"(c) the faulted launch exited {rc} with {len(fault)} "
+                f"progress records (want rank 1 killed, two records)"
+                f"\n{logs}"]
+    rc, logs = launch_ranks("elastic", re_out, args, script=script, nproc=1,
+                            extra=("--parts", "relaunch", *extra),
+                            timeout=P20_RANK_TIMEOUT_S)
+    if rc != 0:
+        return [f"(c) the relaunch exited {rc}:\n{logs}"]
+    re1 = rank_results(re_out, 1)[0]
+    failures += [f"(c) relaunch: {f}" for f in re1["failures"]]
+    failures += [f"(c) rank {r}: {f}" for r, p in enumerate(fault)
+                 for f in p["failures"]]
+    # the SDC on rank 0: both replicas flagged (two replicas cannot tell
+    # which one is wrong) and rolled back; rank 1's first run of the step
+    # had a clean batch on clean state, so the healed replays must equal it
+    sdc = [p["anomalies"] for p in fault]
+    if not all(any("sdc" in a[1] for a in s) for s in sdc):
+        failures.append(f"(c) the SDC was not flagged on both ranks: {sdc}")
+    k = str(P20_SDC_AT)
+    want = fault[1]["first"][k]
+    healed = [p["losses"][k] for p in fault]
+    if healed != [want, want] or fault[0]["first"][k] == want:
+        failures.append(f"(c) step {k}: first runs "
+                        f"{[p['first'][k] for p in fault]}, replays {healed}"
+                        f" (want both replays {want}, rank 0's first run "
+                        f"apart)")
+    if re1["reshard_resumes"] != 1 or re1["world"] != 1 or \
+            re1["tier_note"] is None:
+        failures.append(f"(c) relaunch: world {re1['world']}, reshard_resumes "
+                        f"{re1['reshard_resumes']}, {re1['tier_note']}")
+    if not re1["cut_bitwise"]:
+        failures.append(f"(c) the restored state is not bitwise the two "
+                        f"ranks' shards at the cut: {re1['cut_detail']}")
+    # the steps after the cut, as the two ranks ran them before the kill
+    after = [str(s) for s in range(P20_SHARD_CUT + 1, P20_SHARD_STEPS + 1)]
+    ref = {s: fault[0]["losses"].get(s) for s in after}
+    same = (re1["losses"] == ref
+            and all(fault[1]["losses"].get(s) == ref[s] for s in after))
+    if not same:
+        failures.append(f"(c) the relaunch's losses {re1['losses']} are not "
+                        f"bitwise the two-rank run's {ref} (rank 1: "
+                        f"{ {s: fault[1]['losses'].get(s) for s in after} })")
+    for name, ok in (("a target layout with no divisible dimension did not "
+                      "raise ReshardLayoutError naming both layouts",
+                      re1["layout_error"]),
+                     ("rank 0's payload alone assembled without raising the "
+                      "coverage error", re1["hole_error"])):
+        if not ok:
+            failures.append(f"(c) {name}")
+    if not re1["distcp_bitwise"]:
+        failures.append(f"(c) load_state_dict at world 1 of the two ranks' "
+                        f"save_state_dict is not the gathered whole state: "
+                        f"{re1['distcp_detail']}")
+    print(f"phase 20(c) elastic group-sharded stage 3 (p_g_os) on two gloo "
+          f"ranks, Llama-542M widths at {P20_SHARD_DEPTH} layers, B="
+          f"{TRAIN_BATCH} S={TRAIN_SEQ} bf16 SR on, telemetry every step "
+          f"(lockstep), sharded peer payloads every {P20_SHARD_PEER}: "
+          f"train.sdc on rank 0 at executed step {P20_SDC_AT} flagged "
+          f"{[len([a for a in s if 'sdc' in a[1]]) for s in sdc]} (per rank) "
+          f"and healed (step {k}: first runs "
+          f"{[p['first'][k] for p in fault]}, replays {healed}); "
+          f"save_state_dict at step {P20_SHARD_CUT}; rank 1 SIGKILLed at "
+          f"executed step {P20_KILL_AT}; the relaunch registered world "
+          f"{re1['world']} (re-mesh), resumed {re1['tier_note']} "
+          f"(reshard_resumes {re1['reshard_resumes']}) in "
+          f"{re1['restore_s']:.2f} s, restored state bitwise the ranks' "
+          f"shards at the cut {re1['cut_bitwise']}; continued losses "
+          f"{re1['losses']} bitwise the two-rank run's {ref} before the "
+          f"kill {same}; one "
+          f"rank's payload alone refused for its holes {re1['hole_error']}; "
+          f"load_state_dict at world 1 bitwise the two ranks' "
+          f"save_state_dict {re1['distcp_bitwise']}; ReshardLayoutError "
+          f"naming both layouts {re1['layout_error']}; launches a step per "
+          f"rank {[p['per_step'] for p in fault]} (two ranks), "
+          f"{re1['per_step']} (relaunch); ms a step "
+          f"{[p['ms'] for p in fault]}; goodput ledger (s; checkpoint: "
+          f"snapshots and the sharded publishes' drains) "
+          f"{[p['ledger'] for p in fault]} (two ranks), {re1['ledger']} "
+          f"(relaunch); "
+          f"{time.perf_counter() - t0:.1f} s for the two launches [{card}]")
+    return failures
+
+
+def elastic_rank(torch, np, D, rank, dev, seed, kind, res, out):
+    """One rank of 20(c) (``--rank17 elastic --parts fault|relaunch``).
+    ``fault``: two ranks, stage 3, the elastic manager, lockstep telemetry
+    each step, sharded peer payloads; rank 0's batch corrupted once (SDC),
+    the live shards and the distributed file checkpoint written at the
+    cut, rank 1 killed after it; progress (losses, first runs, anomalies,
+    launches) written after each step. ``relaunch``: one rank resuming the
+    cut at world 1."""
+    from paddle_tpu_torch.distributed.checkpoint import reshard
+    from paddle_tpu_torch.distributed.fleet.elastic import ElasticManager
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.distributed.store import FileKVStore
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.testing import chaos
+    from paddle_tpu_torch.training import PeerReplicator, TrainTelemetry
+    from paddle_tpu_torch.utils.retries import Deadline
+
+    wave = Path(out).parent / "fault"
+    if kind == "relaunch":
+        time.sleep(P20_SETTLE_S)
+    mgr = ElasticManager(str(wave / "elastic"), node_id=f"n{rank}",
+                         np=("2" if kind == "fault" else "1:2"),
+                         heartbeat_interval=0.2, elastic_timeout=1.2)
+    W = len(mgr.register(deadline=Deadline(120.0)))
+    res["world"] = W
+    store = FileKVStore(str(wave / "store"))
+    peer = PeerReplicator(store, rank, W, tag="p20c", deadline_s=300.0)
+    model, opt = p17_model(torch, dev, P20_SHARD_DEPTH, seed, True)
+    rec = p20_record()
+    step, _ = p20_step(torch, model, opt, dev, False, rec)
+    ms = []
+
+    def timed_step(batch):
+        t0 = time.perf_counter()
+        word = step(batch)
+        torch.cuda.synchronize()
+        ms.append(round((time.perf_counter() - t0) * 1e3, 1))
+        progress()
+        return word
+
+    tele = TrainTelemetry(store, rank, W, tag="p20c", lockstep=True,
+                          lockstep_deadline_s=120.0,
+                          straggler_patience=10 ** 4)
+    sup = p20_sup(timed_step, lambda i: p20_batch(np, seed, i), model, opt,
+                  snapshot_interval=P20_SHARD_SNAP, peer=peer,
+                  peer_interval=P20_SHARD_PEER, telemetry=tele, elastic=mgr,
+                  rank=rank, sharded_state=True,
+                  state_layout={"world": W, "mesh": {"sharding": W}})
+    if kind == "relaunch":
+        # the gather before the placement: the restore writes whole tensors
+        payloads = {}
+        orig_fetch = peer.fetch_at
+
+        def fetch_at(r, s, _o=orig_fetch):
+            payloads[r] = _o(r, s)
+            return payloads[r]
+
+        peer.fetch_at = fetch_at
+        t0 = time.perf_counter()
+        nxt = sup.resume()
+        torch.cuda.synchronize()
+        res["restore_s"] = time.perf_counter() - t0
+        notes = [d for k, d in sup.events if k == "resume"]
+        res["tier_note"] = next((d for d in notes if "sharded" in d), None)
+        res["reshard_resumes"] = sup.reshard_resumes
+        res["cut_bitwise"], res["cut_detail"] = p20_cut_check(
+            torch, wave, nxt - 1, model, opt)
+        try:  # one rank's payload alone leaves holes: refused, not zeros
+            reshard.loads_combined([payloads[0]])
+            res["hole_error"] = False
+        except ValueError as e:
+            res["hole_error"] = "incomplete shard coverage" in str(e)
+        try:
+            reshard.loads_combined([payloads[r] for r in sorted(payloads)],
+                                   target_layout={"world": 1,
+                                                  "mesh": {"sharding": 3}})
+            res["layout_error"] = False
+        except reshard.ReshardLayoutError as e:
+            res["layout_error"] = ("'world': 2" in str(e)
+                                   and "'sharding': 3" in str(e))
+        del payloads
+        res["distcp_bitwise"], res["distcp_detail"] = p20_distcp_check(
+            torch, wave, dev, nxt - 1)
+    else:
+        group_sharded_parallel(model, opt, "p_g_os")
+        # rank 0's batch is corrupted once; rank 1 dies (the site's suffix
+        # names it)
+        sched = chaos.ChaosSchedule().at("train.kill_rank.1", P20_KILL_AT,
+                                         "kill")
+        if rank == 0:
+            sched = sched.at("train.sdc", P20_SDC_AT, "drop")
+        chaos.install(sched)
+    kernels.reset_launch_counts()
+
+    def progress():
+        """Written after each step (the wave's ranks: atomically, as the
+        launcher may stop rank 0 any time after rank 1's death)."""
+        counts = kernels.launch_counts()
+        res["per_step"] = {k: v / max(rec["executed"], 1)
+                           for k, v in counts.items() if v and ":" not in k}
+        want = p20_want_counts(rec["executed"], P20_SHARD_DEPTH)
+        res["failures"] = [] if dev.type != "cuda" or counts == want else [
+            f"launch counts {counts} != {want}"]
+        res.update(losses={str(k): v for k, v in p20_losses(rec).items()},
+                   first={str(k): float(w[0])
+                          for k, w in sorted(rec["first"].items())},
+                   anomalies=sup.anomalies, ms=ms, ledger=p20_ledger())
+        if kind == "fault":
+            tmp_path = Path(out) / f"progress{rank}.json.tmp"
+            tmp_path.write_text(json.dumps(res))
+            os.replace(tmp_path, Path(out) / f"progress{rank}.json")
+
+    if kind == "fault":
+        # run() drains the peer publish at its end: the cut's is whole
+        sup.run(P20_SHARD_CUT)
+        # the cut: the live shards (the step's snapshot) and the file
+        # checkpoint, beside the payloads
+        p20_save_shards(torch, sup, wave, rank, P20_SHARD_CUT)
+        D.save_state_dict(
+            {"model": reshard.place(model.state_dict(),
+                                    reshard.layer_placements(model)),
+             "opt": reshard.place(opt.state_dict(),
+                                  reshard.optimizer_placements(opt,
+                                                               [model]))},
+            str(wave / "distcp"))
+        sup.run(P20_SHARD_STEPS + 1)  # rank 1 dies in it
+    else:
+        sup.run(P20_SHARD_STEPS)
+    peer.wait()
+    torch.cuda.synchronize()
+    progress()
+    mgr.exit()
+    tele.close()
+
+
+def p20_save_shards(torch, sup, wave, rank, tag):
+    """This rank's live local tensors with the dimension group sharding cut
+    them along, saved beside the payloads for the relaunch's bitwise
+    checks."""
+    model, opt = sup.layers[0], sup.optimizers[0]
+    gs = model._group_sharded
+    by_name = {opt._name(p): p for p in opt._parameter_list}
+    named = dict(model.named_parameters())
+    out = {}
+    for k, t in model.state_dict().items():
+        s = gs.shards.get(named.get(k))
+        out[f"model.{k}"] = (t.detach().cpu(), None if s is None else s.dim)
+    for k, t in opt.state_dict().items():
+        if torch.is_tensor(t):
+            s = gs.shards.get(by_name.get(k.rpartition(".")[0]))
+            dim = None if s is None or t.dim() == 0 else s.dim
+            out[f"opt.{k}"] = (t.detach().cpu(), dim)
+    torch.save(out, wave / f"shards_{tag}_rank{rank}.pt")
+
+
+def p20_whole(torch, wave, tag):
+    """The whole state from the two ranks' saved shards: each sharded
+    tensor the concatenation of rank 0's and rank 1's along its dimension,
+    each replicated one rank 0's."""
+    parts = [torch.load(wave / f"shards_{tag}_rank{r}.pt") for r in (0, 1)]
+    whole = {}
+    for k, (t0, dim) in parts[0].items():
+        whole[k] = t0 if dim is None else torch.cat(
+            [t0, parts[1][k][0]], dim)
+    return whole
+
+
+def p20_cut_check(torch, wave, cut, model, opt):
+    """The relaunch's restored tensors (whole, before placement) against the
+    two ranks' shards at the cut, bitwise."""
+    try:
+        whole = p20_whole(torch, wave, cut)
+    except FileNotFoundError as e:
+        return False, f"no shards saved at step {cut}: {e}"
+    got = {f"model.{k}": v for k, v in model.state_dict().items()}
+    got.update({f"opt.{k}": v for k, v in opt.state_dict().items()
+                if torch.is_tensor(v)})
+    bad = [k for k, v in whole.items()
+           if k not in got or not torch.equal(got[k].cpu(), v)]
+    return not bad, f"step {cut}: {len(bad)} of {len(whole)} differ {bad[:4]}"
+
+
+def p20_distcp_check(torch, wave, dev, tag):
+    """``load_state_dict`` at world 1, into whole tensors, of the two-rank
+    ``save_state_dict`` at step ``tag``, against the ranks' own shards
+    saved beside it, bitwise."""
+    from paddle_tpu_torch.distributed import checkpoint as dcp
+
+    try:
+        whole = p20_whole(torch, wave, tag)
+    except FileNotFoundError as e:
+        return False, str(e)
+    target = {"model": {}, "opt": {}}
+    for k, v in whole.items():
+        part, _, key = k.partition(".")
+        target[part][key] = torch.zeros_like(v, device=dev)
+    dcp.load_state_dict(target, str(wave / "distcp"))
+    bad = [k for k, v in whole.items()
+           if not torch.equal(target[k.partition(".")[0]][
+               k.partition(".")[2]].cpu(), v)]
+    return not bad, f"{len(bad)} of {len(whole)} differ {bad[:4]}"
+
+
+def trainfault_phase(torch, np, dev, args, card, tmp):
+    """Phase 20: (a) rollback at full depth, (b) the disk and peer tiers
+    and a kill, (c) elastic sharded training across two gloo ranks. (b)'s
+    rank processes and (c)'s launches run beside (a) and the in-process
+    parts of (b), each waited on by a thread here: their time goes mostly
+    to host work (the peer payloads' base64 through the stores, gloo's
+    staging, process starts), and the card has room for all of them; in
+    turn, the three parts take about twice as long. (a)'s step, snapshot
+    and restore are timed after they end."""
+    import threading
+
+    # whole before the threads start: two threads importing the same
+    # package chain can deadlock on the import locks
+    import paddle_tpu_torch.distributed  # noqa: F401
+    import paddle_tpu_torch.incubate.checkpoint  # noqa: F401
+    import paddle_tpu_torch.testing.chaos  # noqa: F401
+    import paddle_tpu_torch.training  # noqa: F401
+
+    t0 = time.perf_counter()
+    beside = {}
+
+    def run(name, fn):
+        try:
+            beside[name] = fn()
+        except Exception as e:  # noqa: BLE001 - reported as a failure below
+            beside[name] = ([f"({name}) raised {e!r}"], None)
+
+    threads = [threading.Thread(target=run, name=f"p20{name}", args=(
+        name, fn)) for name, fn in (
+        ("b", lambda: p20_tf_ranks(torch, np, args, card, tmp)),
+        ("c", lambda: (p20_shard_ranks(torch, np, args, card, tmp), None)))]
+    for t in threads:
+        t.start()
+    clean_b = {}
+    try:
+        failures, clean, ckpt_dir, clean_run = p20_rollback_runs(
+            torch, np, dev, args, card, tmp)
+        failures += p20_disk_resume(torch, np, dev, args, card, clean,
+                                    ckpt_dir, clean_run)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        failures += p20_corrupt_peer(torch, np, dev, args, card, tmp,
+                                     out=clean_b)
+    finally:
+        for t in threads:
+            t.join()
+    p20_quiet_costs(torch, np, dev, args, card)
+    for name in ("b", "c"):
+        failures += beside[name][0]
+    finals = beside["b"][1]
+    if finals is not None and "clean" in clean_b:
+        want = np.float32(clean_b["clean"][P20_TF_STEPS]).tobytes().hex()
+        ok = finals == [want, want]
+        if not ok:
+            failures.append(f"(b) the ranks' final losses (f32 hex) {finals} "
+                            f"are not bitwise a clean run's {want}")
+        print(f"phase 20(b) both ranks' final losses bitwise the clean "
+              f"in-process run's (step {P20_TF_STEPS}, {P20_PEER_DEPTH} layer)"
+              f" {ok} [{card}]")
+    print(f"phase 20 took {time.perf_counter() - t0:.1f} s [{card}]")
+    if failures:
+        fail("phase 20: " + "; ".join(failures))
+
+
 def kernel_class(name: str) -> str:
     """Bucket a profiled kernel name for the training step's time split."""
     n = name.lower()
@@ -8036,6 +8964,16 @@ def main() -> int:
         pp_phase(torch, np, dev, args, card, p18_tmp, serial_a)
     finally:
         shutil.rmtree(p18_tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    starts.append(("20", time.perf_counter() - t_start))
+    # -- phase 20: fault-tolerant training -----------------------------------
+    p20_tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p20_"))
+    try:
+        trainfault_phase(torch, np, dev, args, card, p20_tmp)
+    finally:
+        shutil.rmtree(p20_tmp, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -2,9 +2,10 @@
 """Shows that ``chip_smoke.py``'s gates refuse wrong kernels and wrong
 serving host code.
 
-    python3 gate_mutants.py [--seed N] [--phase18]
+    python3 gate_mutants.py [--seed N] [--phase18 | --phase19 | --phase20]
 
-(``--phase18``: only phase 18's tensor-parallel mutants, below.)
+(``--phase18``, ``--phase19``, ``--phase20``: only that phase's mutants,
+below.)
 
 Builds four kernel sources as they are and in broken forms, each form
 from its own copy of the kernel sources in a temporary directory (the
@@ -225,6 +226,28 @@ a V):
 - ``the ep gather's backward summed instead of split``: the experts'
   output gradient is summed over ep before each rank takes its rows;
   19(c)'s gradients against the serial layer's.
+
+Phase 20's fault-tolerant training host code (``P20_MUTANTS``, each with
+the part of phase 20 that must refuse it in ``P20_RUNS``; 20(a) without
+its disk checkpoint and poison run):
+
+- ``a snapshot that keeps references``: the in-RAM (and disk) capture
+  keeps the live tensors, which the next steps write in place; 20(a)'s
+  bitwise loss parity after a rollback (eager);
+- ``a restore that rebinds under capture without a recapture``: the
+  rollback binds fresh optimizer accumulators, as the reference does,
+  while the captured graph keeps its old ones; 20(a) captured;
+- ``an RNG restore that misses the graph's generator offsets``: the
+  rollback restores every generator but the SR salts' the graph reads;
+  20(a)'s bitwise parity (eager);
+- ``a peer fetch that skips the inner CRC``: a payload corrupted on its
+  way into the store restores as if intact; 20(b)'s corrupt-peer fallback
+  to the disk tier;
+- ``a resume that prefers a stale peer over fresher disk``: the older
+  verified peer replica wins over the fresher disk checkpoint; the same;
+- ``an assembly that fills a missing rank's shard with zeros``: the
+  coverage check is gone; 20(c)'s relaunch assembling one rank's payload
+  alone (patched into the three launches' ranks).
 
 Each variant runs through the kernel's own wrapper (``paged_decode`` and
 ``paged_decode_int8`` for the decode, ``fused_adamw_multi_update`` for
@@ -822,6 +845,45 @@ P19_RUNS = {
     "the MoE clip without moe_group": ("pp", "c", 1),
     "the ep gather's backward summed instead of split": ("pp", "c", 1),
 }
+# phase 20, in HOST_MUTANTS' form, each with the part of phase 20 whose
+# gates must refuse it: ("a", modes), ("b",) the corrupt-peer fallback,
+# ("c",) the elastic launches (the variant patched into their ranks)
+P20_MUTANTS = {
+    "as is": None,
+    "a snapshot that keeps references": (
+        "paddle_tpu_torch.incubate.checkpoint.auto_checkpoint",
+        "AutoCheckpoint._snapshot", [(
+            "return obj.detach().clone()", "return obj.detach()")]),
+    "a restore that rebinds under capture without a recapture": (
+        "paddle_tpu_torch.training.supervisor", "TrainingSupervisor._restore",
+        [("restore_optimizer(opt, _unplaced(sd))",
+          "opt.set_state_dict(_unplaced(sd))")]),
+    "an RNG restore that misses the graph's generator offsets": (
+        "paddle_tpu_torch.training.supervisor", "TrainingSupervisor._restore",
+        [('_random.restore_rng_state(state["rng"])',
+          '_random.restore_rng_state({**state["rng"], "salts": {}})')]),
+    "a peer fetch that skips the inner CRC": (
+        "paddle_tpu_torch.training.peer_snapshot", "PeerReplicator.fetch", [(
+            "if binascii.crc32(payload) & 0xFFFFFFFF != want:", "if False:")]),
+    "a resume that prefers a stale peer over fresher disk": (
+        "paddle_tpu_torch.training.supervisor",
+        "TrainingSupervisor._resume_tiers", [(
+            "and got[0] < disk_step:", "and False:")]),
+    "an assembly that fills a missing rank's shard with zeros": (
+        "paddle_tpu_torch.distributed.checkpoint.reshard", "_fill", [(
+            "if not covered.all():", "if False:")]),
+}
+P20_RUNS = {
+    "as is": None,
+    "a snapshot that keeps references": ("a", ("eager",)),
+    "a restore that rebinds under capture without a recapture": (
+        "a", ("captured",)),
+    "an RNG restore that misses the graph's generator offsets": (
+        "a", ("eager",)),
+    "a peer fetch that skips the inner CRC": ("b",),
+    "a resume that prefers a stale peer over fresher disk": ("b",),
+    "an assembly that fills a missing rank's shard with zeros": ("c",),
+}
 # control_mutants' trace: phase 15's, shortened (the gates count no requests)
 CONTROL_TRACE = dict(n_requests=30, duration_s=5.0)
 # lowp_mutants' GEMM shapes: a train/prefill shape, a decode's and the odd
@@ -1161,6 +1223,63 @@ def p19_mutants(torch, np, dev, args, card):
     return ok, refused, len(P19_MUTANTS) - 1
 
 
+def p20_mutants(torch, np, dev, args, card):
+    """Every phase-20 variant through the part of phase 20 whose gates
+    must refuse it (``P20_RUNS``); the original through all three. Returns
+    (ok, refused, mutants counted)."""
+    import gc
+    import io
+    import tempfile as _tempfile
+
+    tmp = Path(_tempfile.mkdtemp(prefix="gate_mutants_p20_"))
+    ok, refused = True, []
+    try:
+        for name, run in P20_RUNS.items():
+            bad = []
+            for kind in ((("a", ("eager", "captured")), ("b",), ("c",))
+                         if run is None else (run,)):
+                sub = Path(_tempfile.mkdtemp(dir=tmp))
+                restore = (lambda: None)
+                if kind[0] != "c" and P20_MUTANTS[name] is not None:
+                    restore = host_variant(name, P20_MUTANTS)
+                out = io.StringIO()
+                try:
+                    with contextlib.redirect_stdout(out):
+                        if kind[0] == "a":
+                            bad += cs.p20_rollback_runs(
+                                torch, np, dev, args, card, sub,
+                                modes=kind[1], extras=False)[0]
+                        elif kind[0] == "b":
+                            bad += cs.p20_corrupt_peer(torch, np, dev, args,
+                                                       card, sub)
+                        else:
+                            bad += cs.p20_shard_ranks(
+                                torch, np, args, card, sub,
+                                script=Path(__file__).resolve(),
+                                extra=("--mutant", name))
+                except SystemExit as e:  # chip_smoke.fail: a gate refused it
+                    bad.append(str(e))
+                except Exception as e:  # noqa: BLE001 - a crash refuses too
+                    bad.append(f"{kind[0]} raised {e!r}")
+                finally:
+                    restore()
+                    gc.collect()
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+            if name == "as is":
+                ok &= not bad
+            elif bad:
+                refused.append(f"phase 20: {name}")
+            else:
+                ok = False
+            print(f"p20 {name}: "
+                  f"{'; '.join(b[:300] for b in bad) if bad else 'pass'} -> "
+                  f"{'FAIL' if bad else 'pass'} [{card}]", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok, refused, len(P20_MUTANTS) - 1
+
+
 def deploy_mutants(torch, np, dev, args, card, ids):
     """Every phase-16 variant through the part of phase 16 whose gates must
     refuse it (``chip_smoke.deploy_serving``, ``control_flow_phase``,
@@ -1218,13 +1337,15 @@ def main() -> int:
                     help="only phase 18's tensor-parallel mutants")
     ap.add_argument("--phase19", action="store_true",
                     help="only phase 19's pipeline, ring and MoE mutants")
+    ap.add_argument("--phase20", action="store_true",
+                    help="only phase 20's fault-tolerant training mutants")
     args = ap.parse_args()
 
     import torch
 
     if args.rank17:
-        table = next(t for t in (P19_MUTANTS, P18_MUTANTS, P17_MUTANTS)
-                     if args.mutant in t)
+        table = next(t for t in (P20_MUTANTS, P19_MUTANTS, P18_MUTANTS,
+                                 P17_MUTANTS) if args.mutant in t)
         if table[args.mutant] is not None:
             host_variant(args.mutant, table)
         return cs.phase17_rank(args.rank17, args.out, args.seed, args.parts,
@@ -1243,7 +1364,8 @@ def main() -> int:
     gen_cpu = torch.Generator(device="cpu").manual_seed(args.seed)
     import numpy as np
 
-    for flag, run in (("phase18", p18_mutants), ("phase19", p19_mutants)):
+    for flag, run in (("phase18", p18_mutants), ("phase19", p19_mutants),
+                      ("phase20", p20_mutants)):
         if getattr(args, flag):
             kernels.build()  # the ranks use the parent's build
             ok, refused, n = run(torch, np, dev, args, card)
@@ -1260,6 +1382,7 @@ def main() -> int:
         results.append(p17_mutants(torch, np, args, card))
         results.append(p18_mutants(torch, np, dev, args, card))
         results.append(p19_mutants(torch, np, dev, args, card))
+        results.append(p20_mutants(torch, np, dev, args, card))
         results.append(fwd_mutants(torch, kernels, libs, dev, gen, card))
         torch.cuda.empty_cache()
         results.append(bwd_mutants(torch, kernels, libs, dev, gen, card))

@@ -8,10 +8,11 @@ stream variants, the watchdog and the flight recorder
 :mod:`.launch`, :mod:`.spawn`), ``init_parallel_env`` and ``DataParallel``
 (:mod:`.parallel`), group-sharded stages 1-3 (:mod:`.sharding`), the
 namespace's small collectives and the tensor-parallel ``split``
-(:mod:`.parity`), the KV stores (:mod:`.store`), and :mod:`.fleet`: the
-hybrid topology, tensor and sequence parallelism, recompute. The pipeline,
-MoE, segment parallelism, checkpoints, elasticity and ``auto_parallel``
-are later slices.
+(:mod:`.parity`), the KV stores (:mod:`.store`), :mod:`.fleet` (the
+hybrid topology, tensor and sequence parallelism, recompute, the pipeline,
+MoE, segment parallelism, elasticity), the distributed checkpoint
+(:mod:`.checkpoint`: ``save_state_dict``/``load_state_dict`` and the
+in-RAM reshard) and :mod:`.io`. ``auto_parallel`` is a later slice.
 """
 from .collective import (  # noqa: F401
     Group,
@@ -64,6 +65,9 @@ from .parity import *  # noqa: F401,F403
 from .parity import __all__ as _parity_all
 from . import launch  # noqa: F401
 from .spawn import spawn  # noqa: F401
+from . import checkpoint  # noqa: F401
+from . import io  # noqa: F401
+from .checkpoint import load_state_dict, save_state_dict  # noqa: F401
 
 __all__ = [
     "Group", "ReduceOp", "destroy_process_group", "get_group",
@@ -75,4 +79,5 @@ __all__ = [
     "shard_map", "fleet", "sharding", "group_sharded_parallel",
     "save_group_sharded_model", "store", "KVStore", "MemKVStore",
     "FileKVStore", "TCPStoreServer", "TCPKVStore", "CorruptBlobError",
-    "make_store", "launch", "spawn", *_parity_all]
+    "make_store", "launch", "spawn", "checkpoint", "io", "save_state_dict",
+    "load_state_dict", *_parity_all]

@@ -36,6 +36,7 @@ from .base.topology import (  # noqa: F401
     get_hybrid_communicate_group,
     set_hybrid_communicate_group,
 )
+from . import elastic  # noqa: F401
 
 __all__ = ["init", "get_strategy", "distributed_model",
            "distributed_optimizer", "get_rank", "worker_num", "worker_index",
@@ -46,14 +47,6 @@ __all__ = ["init", "get_strategy", "distributed_model",
            "MultiSlotDataGenerator", "MultiSlotStringDataGenerator"]
 
 _strategy: Optional[DistributedStrategy] = None
-
-
-def __getattr__(name):
-    if name == "elastic":
-        raise ImportError("paddle_tpu_torch.distributed.fleet.elastic is not "
-                          "ported yet: it comes with the checkpoint and "
-                          "elasticity slice (ROADMAP A1)")
-    raise AttributeError(name)
 
 
 def init(role_maker=None, is_collective: bool = True,

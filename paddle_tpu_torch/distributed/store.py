@@ -102,14 +102,16 @@ class KVStore:
     def put_bytes(self, key: str, data: bytes) -> None:
         frame = (struct.pack("!I", len(data)) + data
                  + struct.pack("!I", binascii.crc32(data) & 0xFFFFFFFF))
-        self.set(key, base64.b64encode(frame).decode("ascii"))
+        self._set_text(key, base64.b64encode(frame))
 
     def get_bytes(self, key: str) -> Optional[bytes]:
-        raw = self.get(key)
+        raw = self._get_text(key)
         if raw is None:
             return None
         try:
-            frame = base64.b64decode(raw.encode("ascii"), validate=True)
+            if isinstance(raw, str):
+                raw = raw.encode("ascii")
+            frame = base64.b64decode(raw, validate=True)
         except (ValueError, binascii.Error) as e:
             raise CorruptBlobError(
                 f"blob {key!r}: not a base64 frame ({e})") from None
@@ -129,6 +131,17 @@ class KVStore:
                 f"blob {key!r}: CRC32 mismatch (stored {want:#010x}, "
                 f"computed {got:#010x})")
         return payload
+
+    # a blob's base64 text as bytes: the stored value is the same string,
+    # and a backend that can move bytes without a str round trip (the TCP
+    # client) overrides these
+    def _set_text(self, key: str, text: bytes) -> None:
+        self.set(key, text.decode("ascii"))
+
+    def _get_text(self, key: str):
+        """The value as ``str``, or as ``bytes`` where the backend read
+        it as bytes; None when unset."""
+        return self.get(key)
 
 
 class MemKVStore(KVStore):
@@ -196,6 +209,19 @@ class FileKVStore(KVStore):
     def get(self, key: str) -> Optional[str]:
         try:
             with open(self._path(key)) as f:
+                return f.read()
+        except OSError:
+            return None
+
+    def _set_text(self, key: str, text: bytes) -> None:
+        tmp = self._path(key) + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(text)
+        os.replace(tmp, self._path(key))
+
+    def _get_text(self, key: str) -> Optional[bytes]:
+        try:
+            with open(self._path(key), "rb") as f:
                 return f.read()
         except OSError:
             return None
@@ -390,6 +416,65 @@ class FileKVStore(KVStore):
             os.remove(tmp)
 
 
+# the socket files' buffer: a line (a request or a reply) is read in
+# buffer-sized receives, each of which gives up the GIL and must win it
+# back; at the default 8 KiB a 1.5 GB value (a peer snapshot in base64) is
+# ~190,000 of them, which a busy Python thread in the same process turns
+# into minutes
+_LINE_BUFFER = 1 << 22
+
+# Large values (a blob's base64 text) skip the JSON codec, whose scan of a
+# 1.5 GB string costs seconds, and the lines stay the bytes json.dumps
+# writes, so either package's client and server read them. A string of
+# "plain" characters (printable ASCII but the quote and the backslash) is
+# its own JSON text between quotes: json.dumps escapes nothing in it, and
+# json.loads reads the same characters back.
+_PLAIN = bytes(c for c in range(0x20, 0x7F) if c not in b'"\\')
+_SET_HEAD, _SET_VALUE, _TAIL = b'{"op": "set", "k": ', b', "v": "', b'"}\n'
+_GOT_HEAD = b'{"ok": true, "v": "'
+
+
+def _is_plain(text: bytes) -> bool:
+    return not text.translate(None, _PLAIN)
+
+
+def _set_line(key: str, text: bytes) -> bytes:
+    """``json.dumps({"op": "set", "k": key, "v": text})`` plus its newline,
+    for plain ``text``, without scanning it."""
+    return _SET_HEAD + json.dumps(key).encode("ascii") + _SET_VALUE + text \
+        + _TAIL
+
+
+def _parse_line(line: bytes):
+    """A request line as json.loads reads it; a set of a plain value is
+    taken apart without the codec."""
+    if line.startswith(_SET_HEAD) and line.endswith(_TAIL):
+        # an unescaped '"v": "' ends the key: a JSON string holds a quote
+        # only as an escape
+        at = line.find(_SET_VALUE, len(_SET_HEAD))
+        text = line[at + len(_SET_VALUE):-len(_TAIL)] if at > 0 else None
+        if text is not None and _is_plain(text):
+            try:
+                key = json.loads(line[len(_SET_HEAD):at])
+            except ValueError:
+                key = None  # not json.dumps' layout: the codec decides
+            if isinstance(key, str):
+                return {"op": "set", "k": key, "v": text.decode("ascii")}
+    return json.loads(line)
+
+
+def _reply_line(resp: dict) -> bytes:
+    """``json.dumps(resp)`` plus its newline; a reply holding one plain
+    string value is written without scanning it."""
+    v = resp.get("v")
+    if list(resp) == ["ok", "v"] and resp["ok"] is True and \
+            isinstance(v, str) and v.isascii():
+        text = v.encode("ascii")
+        if _is_plain(text):
+            return _GOT_HEAD + text + _TAIL
+    return json.dumps(resp).encode("ascii") + b"\n"
+
+
 class TCPStoreServer:
     """Line-JSON KV server. Start on the master, stop() when done."""
 
@@ -440,9 +525,9 @@ class TCPStoreServer:
         with self._lock:
             self._conns.add(conn)
         try:
-            with conn, conn.makefile("rwb") as f:
+            with conn, conn.makefile("rwb", buffering=_LINE_BUFFER) as f:
                 for line in f:
-                    req = json.loads(line)
+                    req = _parse_line(line)
                     op = req.get("op")
                     now = time.time()
                     try:
@@ -450,7 +535,7 @@ class TCPStoreServer:
                     except Exception as e:  # noqa: BLE001 — to the client
                         resp = {"ok": False,
                                 "err": f"{type(e).__name__}: {e}"}
-                    f.write(json.dumps(resp).encode("ascii") + b"\n")
+                    f.write(_reply_line(resp))
                     f.flush()
         except (OSError, ValueError):
             pass
@@ -549,14 +634,19 @@ class TCPKVStore(KVStore):
         # request reached a healthy server and the op itself failed.
         return isinstance(exc, (OSError, ValueError))
 
-    def _req_once(self, payload: dict, timeout: Optional[float]):
+    def _req_once(self, payload: dict, timeout: Optional[float],
+                  line: Optional[bytes] = None, text: bool = False):
+        """One request: ``payload`` as its JSON line, or ``line`` as it
+        is. With ``text``, a reply holding a plain string value gives it
+        as bytes, read without the JSON codec."""
         if not _chaos.inject("store.request"):
             # a dropped request is a LOST MESSAGE, not an empty reply:
             # surface it as a transient error so the retry layer (and
             # wait_alive) see a failure, never a fabricated response
             raise ConnectionResetError(
                 "chaos: store request dropped (lost message)")
-        line = json.dumps(payload).encode("ascii") + b"\n"
+        if line is None:
+            line = json.dumps(payload).encode("ascii") + b"\n"
         with self._io_lock:
             # the kept connection first; a fresh one if the server has
             # closed the kept one since the last request
@@ -566,7 +656,8 @@ class TCPKVStore(KVStore):
                     self._close()
                     self._conn = socket.create_connection(
                         (self.host, self.port), timeout=timeout)
-                    self._file = self._conn.makefile("rb")
+                    self._file = self._conn.makefile(
+                        "rb", buffering=_LINE_BUFFER)
                 try:
                     self._conn.settimeout(timeout)
                     self._conn.sendall(line)
@@ -581,6 +672,11 @@ class TCPKVStore(KVStore):
                     continue
                 if raw or fresh:
                     break
+            if text and raw.startswith(_GOT_HEAD) and raw.endswith(_TAIL):
+                # json.dumps escapes with a backslash: none, nothing escaped
+                value = raw[len(_GOT_HEAD):-len(_TAIL)]
+                if b"\\" not in value:
+                    return value
             try:
                 resp = json.loads(raw)
             except ValueError:
@@ -599,12 +695,14 @@ class TCPKVStore(KVStore):
                     pass
         self._conn = self._file = None
 
-    def _req(self, _deadline: Optional[Deadline] = None, **payload):
+    def _req(self, _deadline: Optional[Deadline] = None, _line=None,
+             _text=False, **payload):
         dl = (_deadline if _deadline is not None
               else Deadline(self.timeout))
         return self.retry.call(
             lambda: self._req_once(payload, dl.timeout(self.timeout,
-                                                       floor=0.05)),
+                                                       floor=0.05),
+                                   _line, _text),
             deadline=dl, describe=f"TCP store {payload.get('op')}")
 
     def set(self, key: str, value: str) -> None:
@@ -612,6 +710,12 @@ class TCPKVStore(KVStore):
 
     def get(self, key: str) -> Optional[str]:
         return self._req(op="get", k=key)
+
+    def _set_text(self, key: str, text: bytes) -> None:
+        self._req(op="set", _line=_set_line(key, text))
+
+    def _get_text(self, key: str):
+        return self._req(op="get", k=key, _text=True)
 
     def keys(self, prefix: str = "") -> List[str]:
         return self._req(op="keys", prefix=prefix)

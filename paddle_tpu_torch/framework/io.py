@@ -48,7 +48,8 @@ def from_numpy(a, bfloat16: bool = False) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         a, bfloat16 = a.view(np.uint16), True
-    t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    # np.array keeps a 0-d array 0-d (np.ascontiguousarray makes it 1-d)
+    t = torch.from_numpy(np.array(a, order="C", copy=True))
     return t.view(torch.bfloat16) if bfloat16 else t
 
 

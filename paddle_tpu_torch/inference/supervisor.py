@@ -56,6 +56,7 @@ import os
 import sys
 import threading
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -116,6 +117,16 @@ class _StepRunner(threading.Thread):
 
     def retire(self):
         self._quit = True
+        # wake the poll: the thread exits now, not at its next timeout
+        self._go.set()
+
+
+def _retire_all(runners: list) -> None:
+    """A dropped supervisor's finalizer: its step threads exit instead of
+    polling (and passing the lock sanitizer's chaos site) for the rest of
+    the process."""
+    for r in runners:
+        r.retire()
 
 
 class _Journal:
@@ -293,7 +304,11 @@ class ServingSupervisor:
         # step warmup_max_steps, and must still get the compile grace)
         self._warmup_grants = 0
         self.engine = engine_factory()
-        self._runner = _StepRunner(self.engine)
+        # every step thread this supervisor started; retired when the
+        # supervisor is collected without close()
+        self._runners: List[_StepRunner] = []
+        weakref.finalize(self, _retire_all, self._runners)
+        self._runner = self._new_runner()
         if self.journal is not None:
             self._resume_from_journal()
 
@@ -583,7 +598,7 @@ class ServingSupervisor:
             self._prior_shed[k] = self._prior_shed.get(k, 0) + v
         self._prior_expired += eng.n_expired
         self.engine = self._factory()
-        self._runner = _StepRunner(self.engine)
+        self._runner = self._new_runner()
         self._warmup_grants = 0  # fresh incarnation: fresh compile grace
         for req in survivors:  # longest-waiting work first
             self.engine.requeue(req)
@@ -596,6 +611,12 @@ class ServingSupervisor:
         for r in self.engine.drain_shed():
             self._finish(r)
         return []
+
+    def _new_runner(self) -> _StepRunner:
+        self._runners[:] = [r for r in self._runners if r.is_alive()]
+        runner = _StepRunner(self.engine)
+        self._runners.append(runner)
+        return runner
 
     def close(self) -> None:
         """Retire the step thread and drop the engine, so its pools and

@@ -60,6 +60,25 @@ def _both(scenario):
     return got["port"]
 
 
+def _retire_step_threads(reps, timeout=5.0):
+    """Retire every replica's step thread and wait for it to end. The
+    reference's ``InProcessReplica.stop`` leaves its thread polling for the
+    rest of the process; one started while the port's lock sanitizer was
+    installed would pass the port's ``thread.preempt`` chaos site on every
+    poll, inside whatever chaos test the worker runs next."""
+    runners = []
+    for rep in reps:
+        rep.stop()
+        runner = getattr(rep.supervisor, "_runner", None)
+        if runner is not None:
+            runner.retire()
+            runner._go.set()
+            runners.append(runner)
+    for runner in runners:
+        runner.join(timeout)
+    assert not any(r.is_alive() for r in runners)
+
+
 def _idle_load():
     return {"queue_depth": 0, "queue_limit": 8, "kv_occupancy": 0.0,
             "est_queue_delay_s": 0.0, "ewma_step_s": None}
@@ -382,6 +401,7 @@ class TestDrainKillZeroLoss:
                    router.events[:dead], len(scaler._live_idxs()),
                    acts.count("scale-down"))
             router.stop()
+            _retire_step_threads(reps)
             return out
 
         locks.reset()

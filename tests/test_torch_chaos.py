@@ -207,3 +207,59 @@ def test_step_chaos_with_deadlines_matches_reference(models):
         res.append(_outcome(eng._completed))
     assert res[0] == res[1]
     assert {r[0] for r in res[1].values()} == {"ok", "expired"}
+
+
+def test_dropped_supervisor_leaves_no_step_thread_at_the_chaos_sites(models):
+    """A supervisor dropped without ``close()`` retires its step thread. The
+    thread used to poll for the rest of the process; one started while the
+    port's lock sanitizer was installed held a traced lock, so each poll
+    passed the ``thread.preempt`` site of whatever chaos monkey a later test
+    installed (the engine-sites test above, in a six-worker run)."""
+    import gc
+    import threading
+    import time
+
+    from paddle_tpu_torch.inference.supervisor import ServingSupervisor
+    from paddle_tpu_torch.utils import locks
+
+    _, tm = models
+    locks.instrument_locks()
+    try:
+        sup = ServingSupervisor(lambda: ContinuousBatchingEngine(
+            tm, max_batch=1, max_len=32, block_size=8, num_blocks=8,
+            prompt_pad=8))
+        runner = sup._runner
+    finally:
+        locks.uninstrument_locks()
+        locks.reset()
+    del sup
+    gc.collect()
+    with tchaos.active(tchaos.ChaosSchedule(seed=1)) as mk:
+        runner.join(2.0)
+        time.sleep(0.6)  # longer than two of the step thread's polls
+    assert not runner.is_alive()
+    assert "thread.preempt" not in mk.counts
+    assert not any(t.name == "paddle_tpu_torch_serving_step"
+                   for t in threading.enumerate())
+
+
+def test_engine_sites_hold_after_the_sanitized_fleet_test():
+    """The order that failed: the autoscale file's sanitized drain-kill case
+    (both packages' fleets, under the port's lock sanitizer) first, then
+    the engine-sites cases, in one process."""
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-p", "no:randomly",
+         "tests/test_torch_autoscale.py::TestDrainKillZeroLoss::"
+         "test_mid_drain_kill_loses_zero_accepted_requests",
+         "tests/test_torch_chaos.py::"
+         "test_engine_sites_submit_and_step_match_reference"],
+        cwd=os.path.dirname(here), capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:]
+    assert "3 passed" in proc.stdout, proc.stdout[-3000:]

@@ -19,7 +19,7 @@ gm = importlib.import_module("gate_mutants")
 
 HOST_TABLES = ("HOST_MUTANTS", "DISAGG_MUTANTS", "LOWP_MUTANTS",
                "CONTROL_MUTANTS", "DEPLOY_MUTANTS", "P17_MUTANTS",
-               "P18_MUTANTS", "P19_MUTANTS")
+               "P18_MUTANTS", "P19_MUTANTS", "P20_MUTANTS")
 
 
 @pytest.mark.parametrize("lib", sorted(gm.MUTANTS))

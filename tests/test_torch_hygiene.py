@@ -52,6 +52,18 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import paddle_tpu_torch.analysis.astutils, paddle_tpu_torch.autograd\n"
         "import paddle_tpu_torch.amp.debugging\n"
         "import paddle_tpu_torch.testing.capture\n"
+        "import paddle_tpu_torch.training, paddle_tpu_torch.training.supervisor\n"
+        "import paddle_tpu_torch.training.anomaly\n"
+        "import paddle_tpu_torch.training.peer_snapshot\n"
+        "import paddle_tpu_torch.training.telemetry\n"
+        "import paddle_tpu_torch.incubate.checkpoint.auto_checkpoint\n"
+        "import paddle_tpu_torch.distributed.checkpoint.reshard\n"
+        "import paddle_tpu_torch.distributed.io\n"
+        "import paddle_tpu_torch.distributed.fleet.elastic\n"
+        "import paddle_tpu_torch.distributed.fleet.utils.fs\n"
+        "import paddle_tpu_torch.testing.trainfault_worker\n"
+        "import paddle_tpu_torch.testing.elastic_worker\n"
+        "import paddle_tpu_torch.testing.elastic_shard_worker\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
         "assert not bad, bad\n"

@@ -188,3 +188,60 @@ def test_tcp_client_keeps_one_connection():
         server.stop()
     with pytest.raises(BudgetExceeded, match="ConnectionRefusedError"):
         c.get("k")
+
+
+_TRICKY = ["", "plain text", 'a "quoted" value', "back\\slash", "tab\tnew\nline",
+           "del\x7f", "café", "☃ snow", "k\u0000nul"]
+
+
+def test_blob_lines_are_the_bytes_json_dumps_writes():
+    """The TCP store writes a blob's base64 text and reads it back without
+    the JSON codec: its set line and its get reply are the bytes json.dumps
+    gives, a line the codec reads the same, and a value the codec would
+    escape takes the codec's path."""
+    import json
+
+    text = base64.b64encode(bytes(range(256)) * 9)
+    for key in ("blob", 'k"ey', "pé/\\x"):
+        line = tstore._set_line(key, text)
+        assert line == json.dumps(
+            {"op": "set", "k": key, "v": text.decode()}).encode() + b"\n"
+        assert tstore._parse_line(line) == json.loads(line)
+    for value in _TRICKY + [text.decode()]:
+        for key in ("k", 'k"', "k, \"v\": \"x"):
+            line = json.dumps({"op": "set", "k": key, "v": value}).encode() \
+                + b"\n"
+            assert tstore._parse_line(line) == json.loads(line)
+        for resp in ({"ok": True, "v": value}, {"v": value, "ok": True},
+                     {"ok": False, "err": value}):
+            assert tstore._reply_line(resp) == \
+                json.dumps(resp).encode() + b"\n"
+    for resp in ({"ok": True, "v": None}, {"ok": True, "v": ["a", "b"]},
+                 {"ok": True, "v": 3}, {"ok": True}):
+        assert tstore._reply_line(resp) == json.dumps(resp).encode() + b"\n"
+
+
+@pytest.mark.parametrize("server_pkg", ["port", "reference"])
+def test_tcp_values_and_blobs_cross_the_fast_path(server_pkg):
+    """Values the codec escapes and blobs larger than the socket buffers
+    go both ways between the port's client and either package's server,
+    and the reference's client reads what the port's client put."""
+    srv_mod = tstore if server_pkg == "port" else jstore
+    server = srv_mod.TCPStoreServer(host="127.0.0.1")
+    try:
+        tc = tstore.TCPKVStore("127.0.0.1", server.port)
+        jc = jstore.TCPKVStore("127.0.0.1", server.port)
+        for i, v in enumerate(_TRICKY):
+            tc.set(f"v{i}", v)
+            assert tc.get(f"v{i}") == v and jc.get(f"v{i}") == v
+        blob = bytes(range(256)) * 24_577  # ~6.3 MB: past the 4 MiB buffer
+        tc.put_bytes("big", blob)
+        assert tc.get_bytes("big") == blob and jc.get_bytes("big") == blob
+        jc.put_bytes("small", b"\x00\x01")
+        assert tc.get_bytes("small") == b"\x00\x01"
+        tc.set("odd", 'not "base64"')
+        with pytest.raises(tstore.CorruptBlobError):
+            tc.get_bytes("odd")
+        assert tc.get_bytes("absent") is None
+    finally:
+        server.stop()
