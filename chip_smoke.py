@@ -61,7 +61,13 @@ hybrid clip; and the rest of meta_parallel (phase 19): the flagship as a
 between two gloo ranks, ``--rank17 pp``) against phase 18's serial run,
 ring attention and a ``SegmentParallel`` step at sep=2, MoE with its
 experts over ep=2 in both dispatch modes, then dp=2 x pp=2 in four ranks
-(``--rank17 ppdp``) with the clip over the stages. Each main path runs
+(``--rank17 ppdp``) with the clip over the stages; and the model zoo
+(phase 21): GPT-3-13B at full depth built on the card and served by
+``generate`` over dense, paged and int8 paged caches, its train step at
+full width and two layers, BERT-base's MLM fine-tune without and with a
+padding mask, the SD UNet's train step at ``UNetConfig()`` (the flash
+kernels at 77-token keys in its cross-attention), and the layers'
+semantics against float64. Each main path runs
 with every kernel launch count set to 0 just before it and read just
 after; a kernel
 of the path that did not launch, or launched another number of times than
@@ -492,12 +498,13 @@ def decode_gate(got, want, want_f32, int8: bool = False):
 
 # -- phase 2: kernels against their plain versions ----------------------
 def paged_inputs(torch, dev, gen, gen_cpu, B, pages=2048 // 64, lo=1,
-                 hi=2048, bs=64):
-    """Phase 2's paged-decode inputs: bf16 pools [16, B*pages + 1, bs, 128]
-    behind shuffled tables (pages past the live ones hold the trash block),
-    lengths drawn from lo..hi with the spread's two ends, bf16 q. Returns
-    ``(q, k_pool, v_pool, tables, cache_len, lengths)``."""
-    H = KVH = 16
+                 hi=2048, bs=64, heads=16):
+    """Phase 2's paged-decode inputs: bf16 pools [heads, B*pages + 1, bs,
+    128] behind shuffled tables (pages past the live ones hold the trash
+    block), lengths drawn from lo..hi with the spread's two ends, bf16 q
+    of ``heads`` heads. Returns ``(q, k_pool, v_pool, tables, cache_len,
+    lengths)``."""
+    H = KVH = heads
     D, BS, P = 128, bs, pages
     nb = B * P + 1
     trash = nb - 1
@@ -591,25 +598,41 @@ def paged_case(torch, dev, gen, gen_cpu, B, int8=False, **shape):
                      splits=splits, bs=BS, device=lambda: device(True))
 
 
-def flash_inputs(torch, dev, gen, hkv, dtype=None):
-    """Phase 2's flash inputs: bf16 (or ``dtype``) randn q ``[4, 2048, 16,
-    128]`` and k/v ``[4, 2048, hkv, 128]``."""
-    B, S, H, D = 4, 2048, 16, 128
+# phase 2's flash shape: [B, Sq, H, D] queries over [B, Sk, Hkv, D] keys
+FLASH_SHAPE = dict(B=4, Sq=2048, Sk=2048, H=16, D=128)
+
+
+def flash_inputs(torch, dev, gen, hkv, dtype=None, shape=None):
+    """Phase 2's flash inputs: bf16 (or ``dtype``) randn q ``[B, Sq, H,
+    D]`` and k/v ``[B, Sk, hkv, D]`` of ``shape`` (FLASH_SHAPE by
+    default)."""
+    sh = shape or FLASH_SHAPE
+    B, Sq, Sk, H, D = sh["B"], sh["Sq"], sh["Sk"], sh["H"], sh["D"]
     dt = dtype or torch.bfloat16
-    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
-    k = torch.randn(B, S, hkv, D, generator=gen, device=dev).to(dt)
-    v = torch.randn(B, S, hkv, D, generator=gen, device=dev).to(dt)
+    q = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, Sk, hkv, D, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, Sk, hkv, D, generator=gen, device=dev).to(dt)
     return q, k, v
 
 
-def flash_case(torch, dev, gen, causal, hkv, dtype=None):
+def attn_pairs(sq: int, sk: int, causal: bool) -> float:
+    """The (query, key) pairs attention computes: under causal masking
+    (offset ``sk - sq``) row i sees ``i + 1 + sk - sq`` keys, at most sk."""
+    if not causal:
+        return float(sq * sk)
+    return float(sum(min(i + 1 + sk - sq, sk) for i in range(sq)
+                     if i + 1 + sk - sq > 0))
+
+
+def flash_case(torch, dev, gen, causal, hkv, dtype=None, shape=None):
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.flash_attention import (
         _fwd_variant, flash_attention_fwd, flash_attention_fwd_plain)
 
-    q, k, v = flash_inputs(torch, dev, gen, hkv, dtype)
-    B, S, H, D = q.shape
+    q, k, v = flash_inputs(torch, dev, gen, hkv, dtype, shape)
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
     out, lse = flash_attention_fwd(q, k, v, causal)
     refs = flash_references(q, k, v, causal)
     torch.cuda.synchronize()
@@ -623,8 +646,8 @@ def flash_case(torch, dev, gen, causal, hkv, dtype=None):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = time_ms(lambda: TF.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=hkv != H), 10)
-    pairs = S * (S + 1) / 2 if causal else S * S
-    nbytes = (2 * B * S * H * D + 2 * B * S * hkv * D) * 2 + B * H * S * 4
+    pairs = attn_pairs(Sq, Sk, causal)
+    nbytes = (2 * B * Sq * H * D + 2 * B * Sk * hkv * D) * 2 + B * H * Sq * 4
     flops = 4.0 * B * H * pairs * D
     b_ms, b_by = bound(nbytes, flops)
     return dict(gate, causal=causal, hkv=hkv,
@@ -634,23 +657,20 @@ def flash_case(torch, dev, gen, causal, hkv, dtype=None):
                 library_ms=library_ms)
 
 
-def flash_bwd_inputs(torch, dev, gen, causal, hkv, dtype=None):
+def flash_bwd_inputs(torch, dev, gen, causal, hkv, dtype=None, shape=None):
     """Phase 2's flash backward inputs: bf16 (or ``dtype``) randn q, dO
-    ``[4, 2048, 16, 128]`` and k, v ``[4, 2048, hkv, 128]``, with the flash
-    forward's out and lse. Returns ``(q, k, v, out, lse, do)``."""
+    ``[B, Sq, H, D]`` and k, v ``[B, Sk, hkv, D]`` of ``shape``
+    (FLASH_SHAPE by default), with the flash forward's out and lse.
+    Returns ``(q, k, v, out, lse, do)``."""
     from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
 
-    B, S, H, D = 4, 2048, 16, 128
-    dt = dtype or torch.bfloat16
-    q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
-             for _ in range(2))
-    k, v = (torch.randn(B, S, hkv, D, generator=gen, device=dev).to(dt)
-            for _ in range(2))
+    q, k, v = flash_inputs(torch, dev, gen, hkv, dtype, shape)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
     out, lse = flash_attention_fwd(q, k, v, causal)
     return q, k, v, out, lse, do
 
 
-def flash_bwd_case(torch, dev, gen, causal, hkv, dtype=None):
+def flash_bwd_case(torch, dev, gen, causal, hkv, dtype=None, shape=None):
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.flash_attention import (
@@ -658,8 +678,9 @@ def flash_bwd_case(torch, dev, gen, causal, hkv, dtype=None):
         flash_attention_bwd_dq, flash_attention_bwd_plain)
 
     q, k, v, out, lse, do = flash_bwd_inputs(torch, dev, gen, causal, hkv,
-                                             dtype)
-    B, S, H, D = q.shape
+                                             dtype, shape)
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
     before = {w: dict(w.variant_launches)
               for w in (flash_attention_bwd_dq, flash_attention_bwd_dkv)}
     got = flash_attention_bwd(q, k, v, out, lse, do, causal)
@@ -687,11 +708,12 @@ def flash_bwd_case(torch, dev, gen, causal, hkv, dtype=None):
     do_t = do.transpose(1, 2)
     library_ms = time_ms(lambda: torch.autograd.grad(
         lib_out, (qt, kt, vt), do_t, retain_graph=True), 10)
-    pairs = S * (S + 1) / 2 if causal else S * S
-    reads = (2 * B * S * H * D + 2 * B * S * hkv * D) * 2 + 2 * B * H * S * 4
+    pairs = attn_pairs(Sq, Sk, causal)
+    reads = ((2 * B * Sq * H * D + 2 * B * Sk * hkv * D) * 2
+             + 2 * B * H * Sq * 4)
     mm = 2.0 * B * H * pairs * D  # one Sq x Sk x D product
-    dq_bound = bound(reads + B * S * H * D * 2, 3 * mm)
-    dkv_bound = bound(reads + 2 * B * S * hkv * D * 2, 4 * mm)
+    dq_bound = bound(reads + B * Sq * H * D * 2, 3 * mm)
+    dkv_bound = bound(reads + 2 * B * Sk * hkv * D * 2, 4 * mm)
     return dict(causal=causal, hkv=hkv, gate=gate,
                 variant=_bwd_variant(q.dtype, D), dq_ms=dq_ms, dkv_ms=dkv_ms,
                 plain_ms=plain_ms, library_ms=library_ms,
@@ -2834,6 +2856,10 @@ def front_door_phase(torch, np, model, loop_runs, card):
 DISAGG = dict(max_batch=8, max_len=4352, block_size=8, prefill_chunk=512,
               num_blocks=8 * (-(-4352 // 8)) + 8)
 DISAGG_SHORT = (12, 128, 48)  # requests, prompt tokens, new tokens
+# Llama-542M's widths at this depth: a handoff is host work in proportion
+# to its pages (a 4096-token prompt's 268 MB at 8 layers, ~0.09 GB/s),
+# which held each of (c)'s process turns near 30 s
+DISAGG_DEPTH = 2
 DISAGG_LONG = (4, 4096, 16)
 DISAGG_STEPS_PER_PUMP = 8  # the source's decode worker (:522)
 # the warm-up prompt spans two chunks, so that each program is called twice
@@ -3345,15 +3371,15 @@ def disagg_processes(torch, np, model, args, card, uni_eng, work):
 
 
 def disagg_phase(torch, np, dev, args, card):
-    """Phase 13: disaggregated prefill/decode serving on Llama-542M in bf16,
-    Part 5's settings: (a) in process, against the unified chunked engine;
-    (b) the same over int8 pools in overlap mode; (c) two worker
-    processes."""
+    """Phase 13: disaggregated prefill/decode serving on Llama-542M's
+    widths at DISAGG_DEPTH layers in bf16, Part 5's settings: (a) in
+    process, against the unified chunked engine; (b) the same over int8
+    pools in overlap mode; (c) two worker processes."""
     from paddle_tpu_torch import seed as pt_seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
-    pt_seed(args.seed)
-    cfg = LlamaConfig(**LLAMA_542M)
+    pt_seed(args.seed)  # the workers draw the same weights from the seed
+    cfg = LlamaConfig(**dict(LLAMA_542M, num_hidden_layers=DISAGG_DEPTH))
     model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
     model.eval()
     work = disagg_work(np, cfg.vocab_size, args.seed)
@@ -5717,6 +5743,21 @@ def dp_ranks(torch, np, args, card, twin_losses, tmp, script=None, extra=(),
                       f"{m['adamw']}, ms a step {[round(t, 1) for t in m['ms']]}"
                       for lv, m in mem.items()) + f" [{card}]")
     return failures
+
+
+def bytecode_cache() -> None:
+    """Keep the compiled bytecode of every module this run imports under
+    ``build/pycache/`` of the checkout, for this process and each one it
+    starts (``PYTHONPYCACHEPREFIX``). Where the interpreter's packages hold
+    no bytecode it can use, every process compiles each module it imports
+    from source: a rank of phase 20(c) compiled 1058 of them in its body,
+    5.5 s (its ``cProfile``; PERF.md §6)."""
+    cache = Path(__file__).resolve().parent / "build" / "pycache"
+    cache.mkdir(parents=True, exist_ok=True)
+    sys.pycache_prefix = str(cache)
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = str(cache)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 
 
 def phase17_rank(mode, out, seed, parts="bc", steps=None):
@@ -8269,6 +8310,499 @@ def trainfault_phase(torch, np, dev, args, card, tmp):
         fail("phase 20: " + "; ".join(failures))
 
 
+# -- phase 21: GPT, BERT and the SD UNet -------------------------------------
+# the attention shapes of phase 21's models ([B, Sq, H, D] over [B, Sk, H,
+# D], MHA), each held per row by phase 2's FLASH_* and BWD_* gates:
+# GPT-3-13B's train step, BERT-base's, and the SD UNet's self- and
+# cross-attention (the 77-token context) at its 32x32 and 16x16 levels
+P21_ATTN = (
+    ("GPT-3-13B", dict(B=2, Sq=2048, Sk=2048, H=40, D=128), True),
+    ("BERT-base", dict(B=8, Sq=512, Sk=512, H=12, D=64), False),
+    ("UNet self 32x32", dict(B=1, Sq=1024, Sk=1024, H=10, D=64), False),
+    ("UNet self 16x16", dict(B=1, Sq=256, Sk=256, H=20, D=64), False),
+    ("UNet cross 32x32", dict(B=1, Sq=1024, Sk=77, H=10, D=64), False),
+    ("UNet cross 16x16", dict(B=1, Sq=256, Sk=77, H=20, D=64), False),
+)
+P21_PROMPTS, P21_PROMPT_LEN, P21_NEW, P21_BLOCK = 4, 512, 32, 64
+# phase 2's paged decode at 21(a)'s shape: its rows' lengths over the decode
+P21_DECODE = dict(B=P21_PROMPTS, heads=40, lo=P21_PROMPT_LEN + 1,
+                  hi=P21_PROMPT_LEN + P21_NEW,
+                  pages=-(-(P21_PROMPT_LEN + P21_NEW) // P21_BLOCK))
+P21_GPT_DEPTH = 2  # 21(b): GPT-3-13B's widths at two layers
+P21_GPT_BATCH, P21_GPT_SEQ = 2, 2048
+P21_BERT_BATCH, P21_BERT_SEQ = 8, 512
+P21_BERT_MASKED = 0.15  # MLM: the share of positions with a label
+P21_UNET_LATENT = (1, 4, 64, 64)  # SD-1.x at 512x512: 4 x 64 x 64 latents
+P21_UNET_CONTEXT = (77, 768)  # SD-1.x's text encoder: 77 tokens of 768
+P21_EAGER_STEPS = 3  # then the captured: a warm-up, the capture, replays
+P21_CAPTURED_STEPS = 3
+# 21(b)-(d): the first step's loss and gradients with the kernels against
+# the same model on the plain paths (naive attention with its autograd
+# backward), as (loss rel, worst gradient rel) per part. Each set from its
+# own readings on the card (the same in four runs) with a 2.5-3.6x margin
+# (PERF.md §6). The masked BERT takes no kernel: both sides run the same
+# operations, bit for bit.
+P21_FIRST_STEP_TOL = {
+    "b": (2e-5, 2e-2),  # read 5.76e-6, 6.4e-3
+    "c": (1.5e-5, 5e-2),  # read 4.69e-6, 2.01e-2
+    "c masked": (0.0, 0.0),  # read 0, 0
+    "d": (2e-3, 5e-2),  # read 5.58e-4, 1.67e-2
+}
+# 21(e): the library's own semantics on the card against independent
+# float64 references: interpolate's sampling and weights, GroupNorm's
+# grouping, and the f32 convolution at full f32 precision (TF32 rounds
+# operands to 10 mantissa bits: a 64-channel 3x3 convolution then moves by
+# ~1e-3 of its norm; f32 by ~1e-7)
+P21_INTERP_ATOL = 1e-5
+P21_GROUPNORM_ATOL = 1e-4
+P21_CONV_REL = 1e-5
+
+
+def unet_flash_calls(cfg, h: int, w: int) -> int:
+    """The flash forward launches of one UNet forward at latents ``h x
+    w``: two (self- and cross-attention) per spatial transformer whose
+    tokens at its level (``h * w / 4**level``) are a multiple of 128 at a
+    head_dim the kernels take (``nn.functional.attention._use_flash``; the
+    key length, 77 for the context, does not enter). Down block i and up
+    block i run at level i, the middle at the last level."""
+    chs = cfg.block_out_channels
+
+    def flash(level, c):
+        heads = max(1, c // cfg.attention_head_dim)
+        return ((h >> level) * (w >> level) % 128 == 0
+                and c // heads in (64, 128, 256))
+
+    n = sum((2 * cfg.layers_per_block + 1) * flash(i, c)
+            for i, c in enumerate(chs) if i in cfg.attn_resolutions)
+    n += flash(len(chs) - 1, chs[-1])
+    return 2 * n
+
+
+def p21_step_counts(flash: int, adamw: int) -> dict:
+    """Launch counts of one train step with ``flash`` attentions on the
+    flash path: each a forward, a dq and a dk/dv, all on the main
+    variants, and ``adamw`` fused AdamW launches."""
+    return {**flash_fwd_counts(flash), **flash_bwd_counts(flash),
+            "fused_adamw": adamw, "paged_decode_attention": 0,
+            "paged_decode_attention_int8": 0}
+
+
+def _scaled(counts: dict, k: int) -> dict:
+    return {n: v * k for n, v in counts.items()}
+
+
+def p21_serving(torch, np, dev, args, card):
+    """21(a): GPT-3-13B at full depth and width (bf16, random weights drawn
+    on the card) through ``generate``: P21_PROMPTS prompts of
+    P21_PROMPT_LEN tokens, P21_NEW greedy tokens, over a dense cache
+    (plain attention), a paged one (the float decode kernel) and an int8
+    paged one (the int8 kernel). Returns the failures."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM, generate
+    from paddle_tpu_torch.models.generation import _get_compiled
+    from paddle_tpu_torch.ops import kernels
+
+    failures = []
+    cfg = GPTConfig.gpt3_13b()
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               args.seed)).eval()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prompts = torch.randint(
+        0, cfg.vocab_size, (P21_PROMPTS, P21_PROMPT_LEN),
+        generator=torch.Generator().manual_seed(args.seed + 21)).to(dev)
+    steps = P21_NEW - 1  # the prefill makes the first token
+    L = cfg.num_hidden_layers
+    runs = {}
+    for kind, kw in (("dense", {}), ("paged", dict(block_size=P21_BLOCK)),
+                     ("int8", dict(block_size=P21_BLOCK, kv_dtype="int8"))):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = generate(model, prompts, max_new_tokens=P21_NEW, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        want = {"paged_decode_attention": L * steps if kind == "paged" else 0,
+                "paged_decode_attention_int8": (L * steps if kind == "int8"
+                                                else 0),
+                "flash_attention_fwd": 0}
+        if any(counts[k] != n for k, n in want.items()):
+            failures.append(f"(a) {kind}: launches "
+                            f"{ {k: counts[k] for k in want} } != {want}")
+        new = out[:, P21_PROMPT_LEN:]
+        if tuple(out.shape) != (P21_PROMPTS, P21_PROMPT_LEN + P21_NEW) or \
+                not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
+            failures.append(f"(a) {kind}: output {tuple(out.shape)} or a "
+                            f"token out of range")
+        # the decode step alone: the captured program's replay
+        with torch.no_grad():
+            _, prefill, decode = _get_compiled(
+                model, P21_PROMPTS, P21_PROMPT_LEN, P21_PROMPT_LEN + P21_NEW,
+                0.0, 0, True, kw.get("block_size"),
+                kv_dtype=kw.get("kv_dtype"))
+            tok = prefill(prompts, torch.zeros((), dtype=torch.int32,
+                                               device=dev))
+            pos = torch.tensor(P21_PROMPT_LEN, dtype=torch.int32, device=dev)
+            step_ms = time_ms(lambda: decode(tok, pos), 10)
+        runs[kind] = dict(tokens=new.cpu().tolist(), wall=wall,
+                          step_ms=step_ms, counts=counts)
+    dense = runs["dense"]["tokens"]
+    for kind in ("paged", "int8"):
+        firsts = []
+        for r, (got, want) in enumerate(zip(runs[kind]["tokens"], dense)):
+            j = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                     None)
+            if j is not None:
+                gap = top2_gaps(torch, model, prompts[r].tolist(), want)[j]
+                firsts.append((r, j, round(gap, 4)))
+        runs[kind]["departures"] = firsts
+        if any(g >= SPEC_GAP_BOUND for _, _, g in firsts):
+            failures.append(f"(a) {kind}: tokens depart from the dense "
+                            f"cache's where its top-2 gap is not a near tie "
+                            f"(row, position, gap): {firsts}")
+    print(f"phase 21(a) GPT-3-13B serving at full depth ({L} layers, hidden "
+          f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, vocab "
+          f"{cfg.vocab_size}; {model.num_params()} params, bf16, built on the "
+          f"card in {build_s:.2f} s): generate {P21_PROMPTS} x "
+          f"{P21_PROMPT_LEN} prompts, {P21_NEW} greedy tokens: " + "; ".join(
+              f"{k} cache wall {r['wall']:.2f} s, a decode step "
+              f"{r['step_ms']:.3f} ms (captured replay), decode launches a "
+              f"step {r['counts']['paged_decode_attention'] / steps:g} float "
+              f"/ {r['counts']['paged_decode_attention_int8'] / steps:g} int8"
+              + (f", departures from dense (row, position, top-2 gap) "
+                 f"{r['departures']} (bound {SPEC_GAP_BOUND})"
+                 if k != "dense" else "")
+              for k, r in runs.items()) + f" [{card}]")
+    model.__dict__.pop("_generation_programs", None)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures
+
+
+def p21_adamw_check(torch, model, make_opt, grads, steps=2):
+    """B4 at the model's own tensor set: ``steps`` steps of a fresh
+    optimizer from ``make_opt()`` on ``grads``, each fused launch's p, m
+    and v copied before it and the plain version run on the copies with
+    the same scalar rows, salts and bases. From the second step on the
+    moments are not zero, and past MAX_TENSORS_PER_LAUNCH tensors the call
+    splits into launches that read their rows at an offset. The parameters
+    are restored after. Returns ``(tensors a call, {step: elements whose
+    bits differ})``."""
+    import paddle_tpu_torch.optimizer.optimizer as O
+    from paddle_tpu_torch.ops.fused_adamw import fused_adamw_multi_update_plain
+
+    fused = O.fused_adamw_multi_update
+    diffs, sizes = {}, []
+
+    def checked(ps, gs, ms, vs, **kw):
+        want = [tuple(t.clone() for t in trio) for trio in zip(ps, ms, vs)]
+        fused(ps, gs, ms, vs, **kw)
+        wp, wm, wv = (list(c) for c in zip(*want))
+        fused_adamw_multi_update_plain(wp, gs, wm, wv, **kw)
+        sizes.append(len(ps))
+        diffs.update({f"{step}:{k}": n for k, n in adamw_multi_diff(
+            torch, list(zip(ps, ms, vs)), list(zip(wp, wm, wv))).items()})
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    saved = [p.detach().clone() for p in params]
+    opt = make_opt()
+    O.fused_adamw_multi_update = checked
+    try:
+        for step in range(steps):
+            for n, p in model.named_parameters():
+                p.grad = grads.get(n)
+            opt.step()
+    finally:
+        O.fused_adamw_multi_update = fused
+        model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for p, s in zip(params, saved):
+                p.copy_(s)
+    return sizes, diffs
+
+
+def p21_train(torch, np, dev, args, card, label, build, batch, flash, tol):
+    """One of 21(b)-(d): ``build()`` gives the model (bf16, on the card,
+    from ``args.seed``), ``batch`` its ``loss`` arguments, ``flash`` the
+    attentions a step takes on the flash path, ``tol`` the first step's
+    (loss, gradient) limits; the fused AdamW launches once a step per
+    MAX_TENSORS_PER_LAUNCH of the tensors with gradients (one group). The
+    first step's loss and gradients with the kernels against the plain
+    paths on the same weights, and two fused AdamW steps on those
+    gradients bit for bit against the plain version
+    (:func:`p21_adamw_check`); then P21_EAGER_STEPS eager steps and
+    P21_CAPTURED_STEPS through ``jit.to_static`` (a warm-up, the capture,
+    replays) with the fused AdamW of phase 7's recipe, counts gated per
+    step, the loss falling. Returns the failures."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.fused_adamw import MAX_TENSORS_PER_LAUNCH
+    from paddle_tpu_torch.optimizer import AdamW
+
+    failures = []
+    loss_tol, grad_tol = tol
+    pt_seed(args.seed)
+    model = build()
+
+    def make_opt():
+        return AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                     moment_dtype="bfloat16", use_stochastic_rounding=True,
+                     fused=True)
+
+    opt = make_opt()
+
+    def loss_and_grads(plain):
+        with plain_paths([opt]) if plain else contextlib.nullcontext():
+            loss = model.loss(*batch)
+            loss.backward()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    kernels.reset_launch_counts()
+    lk, gk = loss_and_grads(False)
+    first = kernels.launch_counts()
+    lp, gp = loss_and_grads(True)
+    loss_rel = abs(lk - lp) / max(abs(lp), 1e-30)
+    worst = max(((rel_err(gk[n], gp[n]), n) for n in gp), key=lambda x: x[0])
+    finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
+    per_step = p21_step_counts(flash, -(-len(gk) // MAX_TENSORS_PER_LAUNCH))
+    del gp
+    kernels.reset_launch_counts()
+    sizes, adamw_diff = p21_adamw_check(torch, model, make_opt, gk)
+    adamw_launches = kernels.launch_counts()["fused_adamw"]
+    if sizes != [len(gk)] * 2 or adamw_diff or \
+            adamw_launches != 2 * per_step["fused_adamw"]:
+        failures.append(f"{label}: two fused AdamW steps over the model's "
+                        f"{len(gk)} tensors (calls of {sizes}, "
+                        f"{adamw_launches} launches) against the plain "
+                        f"version: elements whose bits differ (step:tensor "
+                        f"p|m|v) {adamw_diff}")
+    del gk
+    want_first = {k: v for k, v in per_step.items() if k != "fused_adamw"}
+    if any(first[k] != v for k, v in want_first.items()):
+        failures.append(f"{label}: the first forward and backward launched "
+                        f"{ {k: first[k] for k in want_first} } != "
+                        f"{want_first}")
+    if not (finite and loss_rel <= loss_tol and worst[0] <= grad_tol):
+        failures.append(f"{label}: first step against the plain paths: loss "
+                        f"rel {loss_rel:.3g} (tol {loss_tol}), worst "
+                        f"gradient rel {worst[0]:.3g} ({worst[1]}; tol "
+                        f"{grad_tol}), finite {finite}")
+
+    def step(*a):
+        loss = model.loss(*a)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    compiled = jit.to_static(step, layers=[model], optimizers=[opt])
+    losses, ms = [], {}
+    for mode, n in (("eager", P21_EAGER_STEPS),
+                    ("captured", P21_CAPTURED_STEPS)):
+        with static_mode(mode == "captured"):
+            kernels.reset_launch_counts()
+            times = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                losses.append(float(compiled(*batch).detach()))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            counts = kernels.launch_counts()
+        ms[mode] = times
+        if counts != _scaled(per_step, n):
+            failures.append(f"{label} {mode}: {n} steps launched {counts} != "
+                            f"{_scaled(per_step, n)}")
+    graphs = len(compiled._graphs)
+    if graphs != 1:
+        failures.append(f"{label}: {graphs} captured graphs (want 1)")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        failures.append(f"{label}: losses {losses} non-finite or not falling")
+    print(f"phase 21{label}, {model.num_params()} params: first step against "
+          f"the plain paths loss {lk:.5f} vs {lp:.5f} (rel {loss_rel:.3g}, "
+          f"tol {loss_tol}), worst gradient rel {worst[0]:.3g} "
+          f"({worst[1]}; tol {grad_tol}); two fused AdamW steps on those "
+          f"gradients over {sizes[0]} tensors ({adamw_launches} launches) "
+          f"bitwise the plain version's: {not adamw_diff}; launches a step "
+          f"{ {k: v for k, v in per_step.items() if v and ':' not in k} }; "
+          f"losses {[round(x, 5) for x in losses]} ({P21_EAGER_STEPS} eager, "
+          f"then captured: warm-up, capture, replay); ms a step eager "
+          f"{[round(t, 1) for t in ms['eager']]}, captured "
+          f"{[round(t, 1) for t in ms['captured']]} (the last a replay) "
+          f"[{card}]")
+    del model, opt, compiled
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures
+
+
+def _np_resize_weights(np, n_in: int, n_out: int, cubic: bool):
+    """``jax.image.resize``'s antialiased weights in float64, ``[n_in,
+    n_out]``, written out independently of the port."""
+    inv = n_in / n_out
+    ks = max(inv, 1.0)
+    sample = (np.arange(n_out) + 0.5) * inv - 0.5
+    x = np.abs(sample[None, :] - np.arange(n_in)[:, None]) / ks
+    if cubic:
+        w = np.where(x >= 2, 0.0, np.where(
+            x >= 1, ((-0.5 * x + 2.5) * x - 4) * x + 2,
+            ((1.5 * x - 2.5) * x) * x + 1))
+    else:
+        w = np.maximum(0.0, 1 - x)
+    w = w / w.sum(0, keepdims=True)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0.0)
+
+
+def p21_semantics(torch, np, dev, card):
+    """21(e): the layers' semantics on the card against float64 references
+    written here: ``interpolate`` (half-pixel nearest and the antialiased
+    bilinear and bicubic weights, up and down, non-integer), ``GroupNorm``
+    (contiguous channel groups, channels first and last) and the f32
+    convolution with ``cudnn.allow_tf32`` set globally (the library must
+    keep TF32 off). Returns the failures."""
+    import paddle_tpu_torch.nn as tnn
+    from paddle_tpu_torch.nn import functional as F
+
+    failures, shown = [], []
+    rs = np.random.RandomState(21)
+    x = rs.randn(2, 3, 10, 12)
+    xt = torch.from_numpy(x).float().to(dev)
+    for size, mode in (([14, 18], "nearest"), ([7, 5], "nearest"),
+                       ([20, 24], "nearest"), ([15, 17], "bilinear"),
+                       ([6, 7], "bilinear"), ([13, 9], "bicubic")):
+        got = F.interpolate(xt, size=size, mode=mode).double().cpu().numpy()
+        if mode == "nearest":
+            iy = np.floor((np.arange(size[0]) + 0.5) * 10 / size[0]).astype(int)
+            ix = np.floor((np.arange(size[1]) + 0.5) * 12 / size[1]).astype(int)
+            want = x[:, :, iy][:, :, :, ix]
+        else:
+            wy = _np_resize_weights(np, 10, size[0], mode == "bicubic")
+            wx = _np_resize_weights(np, 12, size[1], mode == "bicubic")
+            want = np.einsum("nchw,hy,wx->ncyx", x, wy, wx)
+        err = float(np.abs(got - want).max())
+        shown.append(f"{mode} {size} {err:.2g}")
+        if err > P21_INTERP_ATOL:
+            failures.append(f"(e) interpolate {mode} 10x12 -> {size}: max abs "
+                            f"err {err:.3g} against the half-pixel reference "
+                            f"(tol {P21_INTERP_ATOL})")
+    g = rs.randn(2, 64, 9, 7) * 3 + 1
+    for fmt in ("NCHW", "NHWC"):
+        gn = tnn.GroupNorm(8, 64, data_format=fmt, device=dev)
+        arr = g if fmt == "NCHW" else g.transpose(0, 2, 3, 1)
+        with torch.no_grad():
+            got = gn(torch.from_numpy(np.ascontiguousarray(arr)).float().to(
+                dev)).double().cpu().numpy()
+        if fmt == "NHWC":
+            got = got.transpose(0, 3, 1, 2)
+        grp = g.reshape(2, 8, -1)
+        want = ((grp - grp.mean(-1, keepdims=True))
+                / np.sqrt(grp.var(-1, keepdims=True) + 1e-5)).reshape(g.shape)
+        err = float(np.abs(got - want).max())
+        shown.append(f"GroupNorm {fmt} {err:.2g}")
+        if err > P21_GROUPNORM_ATOL:
+            failures.append(f"(e) GroupNorm(8, 64) {fmt}: max abs err "
+                            f"{err:.3g} against contiguous channel groups "
+                            f"(tol {P21_GROUPNORM_ATOL})")
+    a = torch.from_numpy(rs.randn(1, 64, 32, 32))
+    w = torch.from_numpy(rs.randn(64, 64, 3, 3) / 24)
+    want = torch.nn.functional.conv2d(a, w, padding=1)
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = F.conv2d(a.float().to(dev), w.float().to(dev), padding=1)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    conv_rel = rel_err(got.double().cpu(), want)
+    shown.append(f"f32 conv under a global allow_tf32 {conv_rel:.2g}")
+    if conv_rel > P21_CONV_REL:
+        failures.append(f"(e) f32 conv2d 64->64 3x3 on 32x32 with "
+                        f"cudnn.allow_tf32 set globally: rel err "
+                        f"{conv_rel:.3g} against float64 (tol {P21_CONV_REL};"
+                        f" TF32 took the call)")
+    print(f"phase 21(e) layer semantics on the card against float64 "
+          f"references (max abs err; the conv's norm-relative): "
+          f"{'; '.join(shown)} (tols interpolate {P21_INTERP_ATOL}, GroupNorm "
+          f"{P21_GROUPNORM_ATOL}, conv {P21_CONV_REL}) [{card}]")
+    return failures
+
+
+def models_phase(torch, np, dev, args, card):
+    """Phase 21: (a) GPT-3-13B serving at full depth over three caches;
+    (b) its train step at full width, P21_GPT_DEPTH layers; (c) the
+    BERT-base MLM fine-tune without and with a padding mask; (d) the SD
+    UNet's train step at the JAX package's default ``UNetConfig()``; (e)
+    the layers' semantics. Fails the run on any failure, after all parts
+    have run."""
+    from paddle_tpu_torch.models import (BertConfig, BertForMaskedLM,
+                                         GPTConfig, GPTForCausalLM,
+                                         UNet2DConditionModel, UNetConfig)
+
+    t_phase = time.perf_counter()
+    failures = p21_semantics(torch, np, dev, card)
+    failures += p21_serving(torch, np, dev, args, card)
+    bf16 = dict(device=dev, dtype=torch.bfloat16)
+    rs = np.random.RandomState(args.seed + 21)
+
+    gcfg = GPTConfig.gpt3_13b(num_hidden_layers=P21_GPT_DEPTH)
+    ids = torch.from_numpy(rs.randint(0, gcfg.vocab_size, (
+        P21_GPT_BATCH, P21_GPT_SEQ))).to(dev)
+    failures += p21_train(
+        torch, np, dev, args, card,
+        f"(b) GPT-3-13B train step, full width at {P21_GPT_DEPTH} layers, "
+        f"B={P21_GPT_BATCH} S={P21_GPT_SEQ} bf16, fused AdamW (bf16 "
+        f"moments, SR)", lambda: GPTForCausalLM(gcfg, **bf16),
+        (ids, ids), P21_GPT_DEPTH, P21_FIRST_STEP_TOL["b"])
+
+    bcfg = BertConfig.base()
+    ids = rs.randint(0, bcfg.vocab_size, (P21_BERT_BATCH, P21_BERT_SEQ))
+    labels = np.where(rs.rand(*ids.shape) < P21_BERT_MASKED, ids, -100)
+    mask = np.ones_like(ids)
+    for r in range(1, P21_BERT_BATCH):  # row r padded from 512 - 32 r on
+        mask[r, P21_BERT_SEQ - 32 * r:] = 0
+    ids, labels, mask = (torch.from_numpy(a).to(dev)
+                         for a in (ids, labels, mask))
+    for masked in (False, True):
+        failures += p21_train(
+            torch, np, dev, args, card,
+            f"(c) BERT-base MLM fine-tune ({bcfg.num_hidden_layers} layers), "
+            f"B={P21_BERT_BATCH} S={P21_BERT_SEQ} bf16, "
+            + ("a padding mask (plain attention)" if masked else
+               "no mask (flash)"),
+            lambda: BertForMaskedLM(bcfg, **bf16),
+            (ids, labels) + ((mask,) if masked else ()),
+            0 if masked else bcfg.num_hidden_layers,
+            P21_FIRST_STEP_TOL["c masked" if masked else "c"])
+
+    ucfg = UNetConfig()
+    b, c, h, w = P21_UNET_LATENT
+    gen = torch.Generator().manual_seed(args.seed + 22)
+    sample, noise = (torch.randn(P21_UNET_LATENT, generator=gen).to(
+        dev, torch.bfloat16) for _ in range(2))
+    context = torch.randn((b,) + P21_UNET_CONTEXT, generator=gen).to(
+        dev, torch.bfloat16)
+    t = torch.randint(0, 1000, (b,), generator=gen).to(dev)
+    n_flash = unet_flash_calls(ucfg, h, w)
+    failures += p21_train(
+        torch, np, dev, args, card,
+        f"(d) SD UNet train step, UNetConfig() (channels "
+        f"{ucfg.block_out_channels}), latents {list(P21_UNET_LATENT)}, "
+        f"context {[b, *P21_UNET_CONTEXT]}, bf16, {n_flash} flash attentions "
+        f"a forward", lambda: UNet2DConditionModel(ucfg, **bf16),
+        (sample, t, context, noise), n_flash, P21_FIRST_STEP_TOL["d"])
+    print(f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        fail("phase 21: " + " | ".join(failures))
+
+
 def kernel_class(name: str) -> str:
     """Bucket a profiled kernel name for the training step's time split."""
     n = name.lower()
@@ -8294,6 +8828,7 @@ def main() -> int:
     ap.add_argument("--parts", default="bc", help=argparse.SUPPRESS)
     ap.add_argument("--steps", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    bytecode_cache()
 
     import numpy as np
     import torch
@@ -8339,8 +8874,8 @@ def main() -> int:
 
     starts.append(("2", time.perf_counter() - t_start))
     # -- phase 2 ---------------------------------------------------------
-    def show_paged(label, r, r8):
-        print(f"phase 2 paged_decode {label} H=KVH=16 D=128 bs={r['bs']} "
+    def show_paged(label, r, r8, heads=16):
+        print(f"phase 2 paged_decode {label} H=KVH={heads} D=128 bs={r['bs']} "
               f"live_tokens={r['live_tokens']} splits x pages={r['splits']}: "
               f"max_abs_err={r['max_abs_err']:.3g} "
               f"rel_err={r['rel_err']:.3g} worst row rel_err="
@@ -8353,7 +8888,7 @@ def main() -> int:
               f"{r['call_ms']:.4f} ms, plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
         if r8 is not None:
-            print(f"phase 2 paged_decode_int8 {label} H=KVH=16 D=128 "
+            print(f"phase 2 paged_decode_int8 {label} H=KVH={heads} D=128 "
                   f"bs={r8['bs']} "
                   f"int8 pools, f32 scales, bf16 q, same tables: "
                   f"max_abs_err={r8['max_abs_err']:.3g} "
@@ -8422,6 +8957,32 @@ def main() -> int:
               f"{100 * r['dkv_bound'][0] / r['dkv_ms']:.1f}% of bound; plain "
               f"(dq+dk+dv) ms={r['plain_ms']:.3f}, library_ms(sdpa backward, "
               f"dq+dk+dv)={r['library_ms']:.4f} [{card}]")
+    # phase 21's attention shapes (GPT-3-13B, BERT-base, the UNet's self-
+    # and cross-attention at Sk=77), the same per-row gates
+    for label, shape, causal in P21_ATTN:
+        h, sh = shape["H"], " ".join(f"{k}={v}" for k, v in shape.items())
+        r = flash_case(torch, dev, gen, causal, h, shape=shape)
+        print(f"phase 2 flash_fwd {label} {sh} causal={causal} "
+              f"variant={r['variant']}: max_abs_err={r['max_abs_err']:.3g} "
+              f"rel_err={r['rel_err']:.3g} lse_err={r['lse_err']:.3g}; worst "
+              f"row rel_err against f32={r['row_rel']:.4g} (row rel "
+              f"{FLASH_ROW_REL}) max_abs_err={r['f32_max_abs_err']:.3g}; "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.3f} bound_ms="
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) {r['rate']}, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound, "
+              f"library_ms(sdpa)={r['library_ms']:.4f} [{card}]")
+        r = flash_bwd_case(torch, dev, gen, causal, h, shape=shape)
+        g = r["gate"]
+        rows = " ".join(f"{n}={g[n]['row_rel']:.4g}/{g[n]['f32_max_abs_err']:.3g}"
+                        for n in ("dq", "dk", "dv"))
+        print(f"phase 2 flash_bwd {label} {sh} causal={causal} "
+              f"variant={r['variant']}: worst row rel_err/max_abs_err "
+              f"against f32 {rows} (row rel {BWD_ROW_REL}); dq "
+              f"ms={r['dq_ms']:.4f} bound_ms={r['dq_bound'][0]:.4f} "
+              f"({r['dq_bound'][1]}); dkv ms={r['dkv_ms']:.4f} bound_ms="
+              f"{r['dkv_bound'][0]:.4f} ({r['dkv_bound'][1]}); plain "
+              f"(dq+dk+dv) ms={r['plain_ms']:.3f}, library_ms(sdpa backward, "
+              f"dq+dk+dv)={r['library_ms']:.4f} [{card}]")
     adamw_rows = []
     for sr in (False, True):
         r = adamw_case(torch, dev, gen, sr)
@@ -8474,6 +9035,17 @@ def main() -> int:
     device_rows += [(f"paged_decode {label}", r),
                     (f"paged_decode_int8 {label}", r8)]
     show_paged(label, r, r8)
+    torch.cuda.empty_cache()
+    # phase 21(a)'s decode: GPT-3-13B's 40 heads over its prompts' pages
+    eng = P21_DECODE
+    r, r8 = paged_case(torch, dev, gen, gen_cpu, eng["B"], int8=True,
+                       pages=eng["pages"], lo=eng["lo"], hi=eng["hi"],
+                       heads=eng["heads"])
+    label = (f"GPT-3-13B B={eng['B']}, lengths {eng['lo']}..{eng['hi']}, "
+             f"{eng['pages']}-page tables")
+    device_rows += [(f"paged_decode {label}", r),
+                    (f"paged_decode_int8 {label}", r8)]
+    show_paged(label, r, r8, eng["heads"])
     torch.cuda.empty_cache()
 
     starts.append(("3", time.perf_counter() - t_start))
@@ -8974,6 +9546,12 @@ def main() -> int:
         trainfault_phase(torch, np, dev, args, card, p20_tmp)
     finally:
         shutil.rmtree(p20_tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    starts.append(("21", time.perf_counter() - t_start))
+    # -- phase 21: GPT, BERT and the SD UNet ---------------------------------
+    models_phase(torch, np, dev, args, card)
     gc.collect()
     torch.cuda.empty_cache()
 

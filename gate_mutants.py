@@ -2,10 +2,11 @@
 """Shows that ``chip_smoke.py``'s gates refuse wrong kernels and wrong
 serving host code.
 
-    python3 gate_mutants.py [--seed N] [--phase18 | --phase19 | --phase20]
+    python3 gate_mutants.py [--seed N] [--phase18 | --phase19 | --phase20 |
+                                         --phase21]
 
-(``--phase18``, ``--phase19``, ``--phase20``: only that phase's mutants,
-below.)
+(``--phase18``, ``--phase19``, ``--phase20``, ``--phase21``: only that
+phase's mutants, below.)
 
 Builds four kernel sources as they are and in broken forms, each form
 from its own copy of the kernel sources in a temporary directory (the
@@ -249,6 +250,20 @@ its disk checkpoint and poison run):
   coverage check is gone; 20(c)'s relaunch assembling one rank's payload
   alone (patched into the three launches' ranks).
 
+Phase 21's models (``P21_KERNEL_MUTANTS``, ``P21_MUTANTS``):
+
+- ``dK/dV: the ragged key tile dropped``: the dK/dV kernel's grid stops at
+  the last whole 64-key tile, so a key length of 77 (the UNet's
+  cross-attention over the text context) leaves keys 64..76 unwritten;
+  phase 2's BWD_* gates at ``chip_smoke.P21_ATTN``'s shapes;
+- ``interpolate samples torch's nearest``: ``floor(i * in / out)`` in
+  place of the half-pixel ``floor((i + 0.5) * in / out)``;
+- ``GroupNorm over the wrong axis``: each channel normalized over its own
+  positions, not over its group's channels;
+- ``f32 convolution on TF32``: the f32 convolution lets cuDNN take TF32;
+  these three by 21(e)'s float64 references
+  (``chip_smoke.p21_semantics``).
+
 Each variant runs through the kernel's own wrapper (``paged_decode`` and
 ``paged_decode_int8`` for the decode, ``fused_adamw_multi_update`` for
 AdamW). It also prints the verdict of the
@@ -365,12 +380,12 @@ MUTANTS = {
 FLASH_CONFIGS = ((True, 16), (False, 16), (True, 4))  # (causal, kv heads)
 
 
-def build_variants(kernels, tmp: Path):
-    """``{(library, variant): CDLL}``, one ``nvcc`` per variant, all
-    started together."""
+def build_variants(kernels, tmp: Path, table=None):
+    """``{(library, variant): CDLL}`` of ``table`` (default ``MUTANTS``),
+    one ``nvcc`` per variant, all started together."""
     src_dir = Path(kernels.__file__).resolve().parent
     procs = {}
-    for lib_name, variants in MUTANTS.items():
+    for lib_name, variants in (table or MUTANTS).items():
         source, _ = kernels.SOURCES[lib_name]
         for i, (name, subs) in enumerate(variants.items()):
             d = tmp / f"{lib_name}-{i}"
@@ -412,7 +427,7 @@ def _shown(gate):
 
 
 def flash_mutants(torch, kernels, libs, lib_name, cases, run, gate_of, old,
-                  card):
+                  card, table=None):
     """Every variant of a flash library at every configuration: ``run``
     launches the kernels on a case's inputs, ``gate_of`` grades the result
     against the case's references. A mutant that changes the result
@@ -420,7 +435,8 @@ def flash_mutants(torch, kernels, libs, lib_name, cases, run, gate_of, old,
     mutants counted)."""
     ok, refused, as_is = True, [], {}
     tag = "flash_fwd" if lib_name.endswith("fwd") else "flash_bwd"
-    for name in MUTANTS[lib_name]:
+    variants = (table or MUTANTS)[lib_name]
+    for name in variants:
         kernels._libs[lib_name] = libs[lib_name, name]
         failed_where_changed, changed_any = True, False
         for key, inputs, refs in cases:
@@ -437,7 +453,10 @@ def flash_mutants(torch, kernels, libs, lib_name, cases, run, gate_of, old,
                 changed_any |= changed
                 if changed and gate["ok"]:
                     failed_where_changed = False
-            print(f"{tag} {name}, causal={key[0]} KVH={key[1]}: "
+            where = (f"causal={key[0]} KVH={key[1]}"
+                     if isinstance(key[1], int) else f"{key[1]} "
+                     f"causal={key[0]}")
+            print(f"{tag} {name}, {where}: "
                   f"{_shown(gate)} -> {'pass' if gate['ok'] else 'FAIL'} "
                   f"(the old gate alone, {old}: "
                   f"{'pass' if gate['old_ok'] else 'FAIL'}); "
@@ -446,7 +465,7 @@ def flash_mutants(torch, kernels, libs, lib_name, cases, run, gate_of, old,
             ok &= failed_where_changed and changed_any
             if failed_where_changed and changed_any:
                 refused.append(f"{tag}: {name}")
-    return ok, refused, len(MUTANTS[lib_name]) - 1
+    return ok, refused, len(variants) - 1
 
 
 def fwd_mutants(torch, kernels, libs, dev, gen, card):
@@ -884,6 +903,35 @@ P20_RUNS = {
     "a resume that prefers a stale peer over fresher disk": ("b",),
     "an assembly that fills a missing rank's shard with zeros": ("c",),
 }
+# phase 21: the flash backward with the dK/dV grid one key tile short where
+# the key length is ragged (Sk = 77: its keys 64..76 are never written),
+# held by phase 2's BWD_* gates at phase 21's attention shapes
+P21_KERNEL_MUTANTS = {
+    "flash_attention_bwd": {
+        "as is": None,
+        "dK/dV: the ragged key tile dropped": [(
+            "const int nk = (a.Sk + DKV_BK - 1) / DKV_BK;",
+            "const int nk = a.Sk / DKV_BK;")],
+    },
+}
+# phase 21's layer semantics, in HOST_MUTANTS' form, held by
+# chip_smoke.p21_semantics (21(e))
+P21_MUTANTS = {
+    "as is": None,
+    "interpolate samples torch's nearest": (
+        "paddle_tpu_torch.nn.functional.common", "_nearest_axis", [(
+            "idx = ((torch.arange(n_out, dtype=torch.float32, "
+            "device=x.device) + 0.5)",
+            "idx = ((torch.arange(n_out, dtype=torch.float32, "
+            "device=x.device))")]),
+    "GroupNorm over the wrong axis": (
+        "paddle_tpu_torch.nn.functional.norm", "group_norm", [(
+            "_normalize(g, tuple(range(2, g.dim())), epsilon)",
+            "_normalize(g, tuple(range(3, g.dim())), epsilon)")]),
+    "f32 convolution on TF32": (
+        "paddle_tpu_torch.nn.functional.conv", "_precision", [(
+            "allow_tf32=False", "allow_tf32=True")]),
+}
 # control_mutants' trace: phase 15's, shortened (the gates count no requests)
 CONTROL_TRACE = dict(n_requests=30, duration_s=5.0)
 # lowp_mutants' GEMM shapes: a train/prefill shape, a decode's and the odd
@@ -914,8 +962,15 @@ def host_variant(name, table=None):
         src = src.replace(old, new)
     scope = dict(vars(mod))
     exec(compile(src, f"<{name}>", "exec"), scope)
-    setattr(owner, attr, scope[attr])
-    return lambda: setattr(owner, attr, real)
+    # a module-level function its package re-exports is patched there too
+    owners = [owner]
+    parent = importlib.import_module(module.rpartition(".")[0] or module)
+    if owner is mod and parent is not mod and \
+            parent.__dict__.get(attr) is real:
+        owners.append(parent)
+    for o in owners:
+        setattr(o, attr, scope[attr])
+    return lambda: [setattr(o, attr, real) for o in owners]
 
 
 def host_mutants(torch, np, dev, args, card):
@@ -1280,6 +1335,53 @@ def p20_mutants(torch, np, dev, args, card):
     return ok, refused, len(P20_MUTANTS) - 1
 
 
+def p21_mutants(torch, np, dev, args, card, kernels, gen):
+    """Phase 21's mutants: the flash backward's through phase 2's BWD_*
+    gates at every shape of ``chip_smoke.P21_ATTN`` (a mutant must change
+    the result somewhere and be refused wherever it does), each layer
+    mutant through ``chip_smoke.p21_semantics``. Returns (ok, refused,
+    mutants counted)."""
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    tmp = Path(tempfile.mkdtemp(prefix="gate_mutants_p21_"))
+    try:
+        libs = build_variants(kernels, tmp, P21_KERNEL_MUTANTS)
+        cases = []
+        for label, shape, causal in cs.P21_ATTN:
+            q, k, v, out, lse, do = cs.flash_bwd_inputs(
+                torch, dev, gen, causal, shape["H"], shape=shape)
+            cases.append(((causal, label), (q, k, v, out, lse, do, causal),
+                          cs.bwd_references(q, k, v, out, lse, do, causal)))
+        ok, refused, n = flash_mutants(
+            torch, kernels, libs, "flash_attention_bwd", cases,
+            flash_attention_bwd, lambda got, refs: cs.bwd_gate(got, *refs),
+            f"atol {cs.BWD_ATOL} + rtol {cs.BWD_RTOL}, rel {cs.BWD_REL}",
+            card, P21_KERNEL_MUTANTS)
+        del cases
+        torch.cuda.empty_cache()
+    finally:
+        kernels._libs.pop("flash_attention_bwd", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in P21_MUTANTS:
+        restore = (lambda: None) if P21_MUTANTS[name] is None else \
+            host_variant(name, P21_MUTANTS)
+        try:
+            bad = cs.p21_semantics(torch, np, dev, card)
+        except Exception as e:  # noqa: BLE001 - a crash refuses too
+            bad = [f"raised {e!r}"]
+        finally:
+            restore()
+        if name == "as is":
+            ok &= not bad
+        elif bad:
+            refused.append(f"phase 21: {name}")
+        else:
+            ok = False
+        print(f"p21 {name}: {'; '.join(b[:300] for b in bad) if bad else 'pass'}"
+              f" -> {'FAIL' if bad else 'pass'} [{card}]", flush=True)
+    return ok, refused, n + len(P21_MUTANTS) - 1
+
+
 def deploy_mutants(torch, np, dev, args, card, ids):
     """Every phase-16 variant through the part of phase 16 whose gates must
     refuse it (``chip_smoke.deploy_serving``, ``control_flow_phase``,
@@ -1339,6 +1441,8 @@ def main() -> int:
                     help="only phase 19's pipeline, ring and MoE mutants")
     ap.add_argument("--phase20", action="store_true",
                     help="only phase 20's fault-tolerant training mutants")
+    ap.add_argument("--phase21", action="store_true",
+                    help="only phase 21's attention and layer mutants")
     args = ap.parse_args()
 
     import torch
@@ -1364,6 +1468,13 @@ def main() -> int:
     gen_cpu = torch.Generator(device="cpu").manual_seed(args.seed)
     import numpy as np
 
+    if args.phase21:
+        kernels.build()
+        ok, refused, n = p21_mutants(torch, np, dev, args, card, kernels, gen)
+        print(card)
+        print(f"gate_mutants --phase21: {'ok' if ok else 'FAIL'}; refused "
+              f"{len(refused)} of {n} mutants: {'; '.join(refused)}")
+        return 0 if ok else 1
     for flag, run in (("phase18", p18_mutants), ("phase19", p19_mutants),
                       ("phase20", p20_mutants)):
         if getattr(args, flag):
@@ -1402,6 +1513,7 @@ def main() -> int:
         results.append(host_mutants(torch, np, dev, args, card))
         results.append(disagg_mutants(torch, np, dev, args, card))
         results.append(control_mutants(torch, np, dev, args, card))
+        results.append(p21_mutants(torch, np, dev, args, card, kernels, gen))
     finally:
         for lib_name in MUTANTS:
             kernels._libs.pop(lib_name, None)

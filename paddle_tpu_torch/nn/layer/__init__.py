@@ -1,4 +1,9 @@
-from .common import Embedding, Linear
-from .norm import RMSNorm
+from . import activation, common, container, conv, norm
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .container import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
 
-__all__ = ["Embedding", "Linear", "RMSNorm"]
+__all__ = (activation.__all__ + common.__all__ + container.__all__
+           + conv.__all__ + norm.__all__)

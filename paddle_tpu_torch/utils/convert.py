@@ -2,8 +2,13 @@
 
 The caller builds ``arrays`` from a ``paddle_tpu`` layer's
 ``named_parameters()`` (or ``named_buffers()``) with ``np.asarray``, so this
-package never imports ``paddle_tpu``. Paddle's ``Linear`` weight layout
-``[in, out]`` is kept by the port, so no array is transposed. A
+package never imports ``paddle_tpu``. The port's modules carry the
+reference's names (Llama, GPT, BERT and the SD UNet alike: containers
+index their sub-layers ``"0"``, ``"1"``, ... as the reference's do, and a
+``LayerList`` slot holding ``None`` owns no parameter in either). Paddle's
+``Linear`` weight layout ``[in, out]`` is kept by the port, and a
+convolution's weight is ``[out, in / groups, *kernel]`` (transposed: ``[in,
+out / groups, *kernel]``) in both packages, so no array is transposed. A
 tensor-parallel shard (``is_distributed``, with its ``tp_axis``) takes
 its rank's slice of the whole array, so the reference's full arrays load
 into every rank of a tensor-parallel model. The same holds for a pipeline

@@ -19,19 +19,28 @@ gm = importlib.import_module("gate_mutants")
 
 HOST_TABLES = ("HOST_MUTANTS", "DISAGG_MUTANTS", "LOWP_MUTANTS",
                "CONTROL_MUTANTS", "DEPLOY_MUTANTS", "P17_MUTANTS",
-               "P18_MUTANTS", "P19_MUTANTS", "P20_MUTANTS")
+               "P18_MUTANTS", "P19_MUTANTS", "P20_MUTANTS", "P21_MUTANTS")
 
 
-@pytest.mark.parametrize("lib", sorted(gm.MUTANTS))
-def test_kernel_mutants_find_their_text_once(lib):
+def _kernel_texts_once(table, lib):
     from paddle_tpu_torch.ops import kernels
 
     source = os.path.join(os.path.dirname(kernels.__file__),
                           kernels.SOURCES[lib][0])
     text = open(source).read()
-    for name, subs in gm.MUTANTS[lib].items():
+    for name, subs in table[lib].items():
         for old, _ in subs or ():
             assert text.count(old) == 1, (lib, name, old)
+
+
+@pytest.mark.parametrize("lib", sorted(gm.MUTANTS))
+def test_kernel_mutants_find_their_text_once(lib):
+    _kernel_texts_once(gm.MUTANTS, lib)
+
+
+@pytest.mark.parametrize("lib", sorted(gm.P21_KERNEL_MUTANTS))
+def test_phase21_kernel_mutants_find_their_text_once(lib):
+    _kernel_texts_once(gm.P21_KERNEL_MUTANTS, lib)
 
 
 @pytest.mark.parametrize("table", HOST_TABLES)
