@@ -67,7 +67,12 @@ experts over ep=2 in both dispatch modes, then dp=2 x pp=2 in four ranks
 full width and two layers, BERT-base's MLM fine-tune without and with a
 padding mask, the SD UNet's train step at ``UNetConfig()`` (the flash
 kernels at 77-token keys in its cross-attention), and the layers'
-semantics against float64. Each main path runs
+semantics against float64; and the vision slice (phase 22): ResNet-50 at
+1000 classes and 224 px, B=128 in f32, trained by the reference's SGD
+recipe eager and captured against float64 and an eager twin, its
+gradients through the convergence recipe's fused AdamW, the pools at the
+stem's shape against float64, and ``nms`` and ``roi_align`` at a
+detection-sized input against the CPU. Each main path runs
 with every kernel launch count set to 0 just before it and read just
 after; a kernel
 of the path that did not launch, or launched another number of times than
@@ -6083,6 +6088,20 @@ TP_CLIP_NORM = 0.5
 # first card run), relative
 CLIP_SAME_REL, CLIP_SERIAL_REL = 1e-4, 1e-3
 P18_RANK_TIMEOUT_S = 600
+# (e): TensorParallel on GPT (GPT-3-13B's widths at P18E_GPT_DEPTH layers)
+# and BERT-base (full depth) in f32, each rank's serial model built from
+# the same seed as its TP model: the TP forward against the serial one on
+# the same weights, each rank's shards against the serial tensors' slices. Reasoned before the first card call: both run f32
+# GEMMs with TF32 off; TP splits each row layer's sum into two halves
+# added by the all-reduce, and the loss's logsumexp over two vocabulary
+# shards: reorderings of f32 sums, ~1e-6 relative. Gates at 1e-4 (loss
+# rel) and 1e-4 (logits and the gathered qkv gradients, norm-relative):
+# ~100x that, and far below a wrong cut (a rank holding all of q and half
+# of k mixes heads: an error of the logits' own size)
+P18E_GPT_DEPTH = 2
+P18E_GPT_BATCH, P18E_GPT_SEQ = 1, 1024
+P18E_BERT_BATCH, P18E_BERT_SEQ = 4, 512
+P18E_LOSS_REL, P18E_REL = 1e-4, 1e-4
 
 
 def p18_model(torch, dev, depth, seed, sr, clip=None):
@@ -6149,7 +6168,7 @@ def tp_phase(torch, np, dev, args, card, tmp):
     serial_c, norms_c = tp_serial(torch, np, dev, args, HYBRID_DEPTH,
                                   HYBRID_STEPS, False, TP_CLIP_NORM,
                                   tmp / "serial_c.pt")
-    failures = tp_ranks(torch, np, args, card, serial_a, tmp, parts="ab")
+    failures = tp_ranks(torch, np, args, card, serial_a, tmp, parts="abe")
     failures += hybrid_ranks(torch, np, args, card, serial_c, norms_c, tmp)
     if failures:
         fail("phase 18: " + "; ".join(failures))
@@ -6235,6 +6254,29 @@ def tp_ranks(torch, np, args, card, serial, tmp, script=None, extra=(),
               f"hooks {r0['sp_bias_equal']}, ms fwd+bwd "
               f"{[round(r['sp_ms'], 1) for r in ranks]}, staged bytes "
               f"{r0['sp_staged']} [{card}]")
+    if "e" in parts:
+        shapes = {"GPT": f"GPT-3-13B widths at {P18E_GPT_DEPTH} layers, "
+                         f"B={P18E_GPT_BATCH} S={P18E_GPT_SEQ}",
+                  "BERT": f"BERT-base, 12 layers, MLM B={P18E_BERT_BATCH} "
+                          f"S={P18E_BERT_SEQ}"}
+        for name, shape in shapes.items():
+            rows = [r["qkv_tp"][name] for r in ranks]
+
+            def col(key):
+                return [float(f"{r[key]:.3g}") for r in rows]
+
+            print(f"phase 18(e) TensorParallel({name}) at mp={TP_DEGREE} in "
+                  f"f32 ({shape}) against the serial model on the same "
+                  f"weights: local heads {[r['local_heads'] for r in rows]}; "
+                  f"loss (TP, serial) {[r['loss'] for r in rows]} rel "
+                  f"{col('loss_rel')} (tol {P18E_LOSS_REL}); the rank's "
+                  f"logits shard against the serial slice norm-rel "
+                  f"{col('logits_rel')}, every layer's qkv gradient shard "
+                  f"(weight and bias) against the serial slice of whole "
+                  f"heads of q, k and v worst norm-rel {col('qkv_rel')} "
+                  f"(tol {P18E_REL}) [{card}]")
+        print(f"phase 18(e) took {[round(r['qkv_tp_s'], 1) for r in ranks]} s "
+              f"in the ranks [{card}]")
     return failures
 
 
@@ -6392,8 +6434,9 @@ def tp_rank(torch, np, D, rank, dev, seed, parts, res, out, steps=None):
     g = hcg.get_model_parallel_group()
     L = LLAMA_542M["num_hidden_layers"]
     ids, labels = p17_batch(torch, np, dev, seed)
-    arrays = p18_arrays(torch, Path(out) / "serial_a.pt")
-    serial_bytes = sum(a.size * 2 for a in arrays.values())
+    if "a" in parts or "b" in parts:  # (e) builds its own serial models
+        arrays = p18_arrays(torch, Path(out) / "serial_a.pt")
+        serial_bytes = sum(a.size * 2 for a in arrays.values())
 
     def tp_model(sr):
         model, opt = p18_model(torch, dev, L, seed, sr)
@@ -6533,6 +6576,8 @@ def tp_rank(torch, np, D, rank, dev, seed, parts, res, out, steps=None):
         gc.collect()
         torch.cuda.empty_cache()
         sp_pair(torch, D, dev, seed, g, res)
+    if "e" in parts:
+        qkv_tp_check(torch, np, dev, seed, g, res)
     store = FileKVStore(str(Path(out) / "contract"))
     try:
         flight_recorder.contract(store, rank, D.get_world_size(),
@@ -6541,6 +6586,95 @@ def tp_rank(torch, np, D, rank, dev, seed, parts, res, out, steps=None):
     except Exception as e:  # noqa: BLE001 - a gate: recorded as a failure
         res["contract"] = "mismatch"
         failures.append(f"collective contract: {str(e)[:400]}")
+
+
+def qkv_slice(t, rank: int, n: int, axis: int):
+    """Rank ``rank`` of ``n``'s part of a whole fused qkv tensor ``t`` (or
+    its gradient) along ``axis``: whole heads of each of q, k and v, side
+    by side (written here apart from ``fleet``'s own cut)."""
+    parts = t.unflatten(axis, (3, n, -1)).select(axis + 1, rank)
+    return parts.flatten(axis, axis + 1)
+
+
+def qkv_tp_check(torch, np, dev, seed, g, res):
+    """18(e): ``TensorParallel`` on GPT (GPT-3-13B's widths) and BERT-base
+    against the serial model on the same weights, built on each rank: the
+    rank's vocabulary shard of the logits against the serial logits'
+    slice, the loss through the vocab-sharded head, every layer's qkv
+    gradient shard (weight and bias) against the serial gradient's slice
+    of whole heads of q, k and v. Nothing large crosses gloo. Appends to
+    ``res['failures']``."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import (BertConfig, BertForMaskedLM,
+                                         GPTConfig, GPTForCausalLM)
+
+    t_part = time.perf_counter()
+    rs = np.random.RandomState(seed + 18)
+    gcfg = GPTConfig.gpt3_13b(num_hidden_layers=P18E_GPT_DEPTH)
+    gids = rs.randint(0, gcfg.vocab_size, (P18E_GPT_BATCH, P18E_GPT_SEQ))
+    bcfg = BertConfig.base()
+    bids = rs.randint(0, bcfg.vocab_size, (P18E_BERT_BATCH, P18E_BERT_SEQ))
+    blabels = np.where(rs.rand(*bids.shape) < P21_BERT_MASKED, bids, -100)
+    cases = (
+        ("GPT", lambda: GPTForCausalLM(gcfg, device=dev),
+         lambda m: [b.attn.qkv_proj for b in m.transformer.h],
+         gids, np.roll(gids, -1, axis=1)),
+        ("BERT", lambda: BertForMaskedLM(bcfg, device=dev),
+         lambda m: [layer.qkv for layer in m.bert.encoder], bids, blabels))
+    out = {}
+    for name, build, qkvs, ids, labels in cases:
+        ids = torch.from_numpy(ids).to(dev)
+        labels = torch.from_numpy(labels).to(dev)
+        pt_seed(seed)
+        serial = build()
+        with torch.no_grad():
+            want_logits = serial(ids)
+        loss = serial.loss(ids, labels)
+        loss.backward()
+        want_loss = float(loss.detach())
+        want_qkv = [(q.weight.grad.clone(), q.bias.grad.clone())
+                    for q in qkvs(serial)]
+        del serial, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+        pt_seed(seed)
+        model = build()
+        tp = fleet.distributed_model(model)
+        head_dim = gcfg.hidden_size // gcfg.num_attention_heads \
+            if name == "GPT" else bcfg.hidden_size // bcfg.num_attention_heads
+        heads = qkvs(model)[0].weight.shape[1] // (3 * head_dim)
+        with torch.no_grad():
+            logits = tp(ids)
+        v = logits.shape[-1]
+        want_logits = want_logits[..., g.rank * v:(g.rank + 1) * v]
+        loss = tp.loss(ids, labels)
+        loss.backward()
+        got_loss = float(loss.detach())
+        qkv_rel = 0.0
+        for q, (wg, bg) in zip(qkvs(model), want_qkv):
+            for p, want in ((q.weight, wg), (q.bias, bg)):
+                want = qkv_slice(want, g.rank, g.nranks, p.dim() - 1)
+                rel = rel_err(p.grad, want)
+                qkv_rel = rel if not rel <= qkv_rel else qkv_rel
+        row = dict(loss=(got_loss, want_loss),
+                   loss_rel=abs(got_loss - want_loss) / abs(want_loss),
+                   logits_rel=rel_err(logits, want_logits), qkv_rel=qkv_rel,
+                   local_heads=heads)
+        out[name] = row
+        if not (row["loss_rel"] <= P18E_LOSS_REL
+                and row["logits_rel"] <= P18E_REL
+                and row["qkv_rel"] <= P18E_REL
+                and heads * g.nranks == model.config.num_attention_heads):
+            res["failures"].append(
+                f"(e) {name} at mp={g.nranks} against serial: {row} (tol "
+                f"loss {P18E_LOSS_REL}, logits and qkv gradients "
+                f"{P18E_REL})")
+        del model, tp, logits, loss, want_logits, want_qkv
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["qkv_tp"] = out
+    res["qkv_tp_s"] = time.perf_counter() - t_part
 
 
 def time_tp_collectives(torch, D, dev, g):
@@ -7196,6 +7330,8 @@ def pp_rank(torch, np, D, rank, dev, seed, parts, res, out, steps=None):
         sep_check(torch, D, dev, seed, res)
     if "c" in parts:
         moe_check(torch, D, dev, seed, res)
+    if "e" in parts:
+        qkv_tp_check(torch, np, dev, seed, g, res)
     store = FileKVStore(str(Path(out) / "contract"))
     try:
         flight_recorder.contract(store, rank, D.get_world_size(),
@@ -8803,6 +8939,437 @@ def models_phase(torch, np, dev, args, card):
         fail("phase 21: " + " | ".join(failures))
 
 
+# -- phase 22: ResNet-50 and the pooling layers --------------------------------
+P22_BATCH, P22_IMAGE, P22_CLASSES = 128, 224, 1000
+P22_PARAMS = 25_557_032  # ResNet-50 at 1000 classes (tests/test_vision.py:90)
+P22_SUB = 4  # (a): the float64 gate's sub-batch
+P22_LR = 0.01  # (a): tests/test_vision.py:122's SGD recipe
+P22_EAGER_STEPS = 3  # (a): then the captured: a warm-up, the capture, replays
+P22_CAPTURED_STEPS = 4
+P22_TURNS = ("eager", "replay", "replay", "eager") * 2  # (a): timed steps
+# (b): benchmarks/convergence_resnet.py:60's optimizer, with the fused step
+P22_ADAMW = dict(learning_rate=1e-3, weight_decay=1e-4)
+P22_TENSORS = 161  # 53 convolution weights, 53 BatchNorm pairs, fc's two
+# (a): the first step on P22_SUB images in f32 (TF32 off in every
+# convolution and GEMM) against the same model in float64, the loss
+# relative and each gradient norm-relative. Reasoned before the first card
+# call: f32 rounds each product and sum to ~6e-8 relative; over ~50 layers
+# with BatchNorm renormalizing each, the loss (~7 nats) carries ~1e-6;
+# gradients ~1e-4 at the worst of the 161 tensors (gate then 1e-2). The
+# card read loss 1.76e-6 and worst gradients of 2.67e-2 at a BatchNorm
+# shift (layer1.2.bn1.bias) and 2.16e-2 at a convolution weight
+# (layer1.0.conv2.weight), the same in two calls: each sums its channel's
+# upstream gradient (times the input, for a weight) over 4 x 56 x 56
+# positions, and the next train-mode BatchNorm leaves that gradient nearly
+# zero-mean, so the sum cancels to a few percent of its terms and keeps
+# their absolute rounding (the CPU's f32, in the reference and the port
+# alike, strays as far from float64 at small sizes). 0.1 is ~4x those
+# readings; a wrong backward moves a gradient by its own size
+P22_LOSS_REL = 1e-5
+P22_GRAD_REL = 0.1
+# (c): the pools against float64 on the same f32 inputs: a max and its
+# index exactly (a max of f32 values is one of them); a mean of 9 (avg
+# pool) or 12544 (the global pool) f32 values, summed in f32, to ~1e-6
+P22_AVG_ATOL = 1e-5
+P22_STEM = (P22_BATCH, 64, 112, 112)  # ResNet's stem output
+
+
+def sync(torch, dev):
+    """Wait for the card (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def p22_batch(torch, dev, seed):
+    """Seeded random images ``[B, 3, H, W]`` and labels in [0, classes)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 22)
+    x = torch.randn((P22_BATCH, 3, P22_IMAGE, P22_IMAGE), generator=gen,
+                    device=dev)
+    y = torch.randint(0, P22_CLASSES, (P22_BATCH,), generator=gen,
+                      device=dev)
+    return x, y
+
+
+def p22_resnet(torch, dev, dtype=None):
+    from paddle_tpu_torch.vision.models import resnet50
+
+    return resnet50(num_classes=P22_CLASSES, device=dev,
+                    dtype=dtype or torch.float32)
+
+
+def p22_stats(model):
+    """The BatchNorm running statistics, by name."""
+    return {n: b for n, b in model.named_buffers()
+            if n.endswith(("_mean", "_variance"))}
+
+
+def p22_f64_gate(torch, dev, model, x, y):
+    """(a)'s first step on ``P22_SUB`` images against a float64 twin on the
+    same weights and statistics: (loss rel, {"weights" | "vectors": (worst
+    gradient rel, name)}, tensors with gradients). ``model`` is left as it
+    was."""
+    from paddle_tpu_torch.nn import functional as F
+
+    saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    twin = p22_resnet(torch, dev, torch.float64)
+    twin.load_state_dict({k: v.double() if v.is_floating_point() else v
+                          for k, v in saved.items()})
+    out = []
+    for m, dt in ((model, torch.float32), (twin, torch.float64)):
+        m.train()
+        loss = F.cross_entropy(m(x[:P22_SUB].to(dt)), y[:P22_SUB])
+        loss.backward()
+        out.append((float(loss.detach()),
+                    {n: p.grad.detach().clone() for n, p in
+                     m.named_parameters() if p.grad is not None}))
+        m.zero_grad(set_to_none=True)
+    model.load_state_dict(saved)
+    (l32, g32), (l64, g64) = out
+    worst = {}
+    for kind in ("weights", "vectors"):
+        rows = [(rel_err(g32[n].double(), g64[n]), n) for n in g64
+                if (g64[n].dim() > 1) == (kind == "weights")]
+        worst[kind] = max(rows, key=lambda t: t[0])
+    del twin
+    return abs(l32 - l64) / abs(l64), worst, len(g64)
+
+
+def p22_recipe(torch, np, dev, args, card):
+    """22(a) and (b); returns the failures."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+
+    failures = []
+    pt_seed(args.seed)
+    model = p22_resnet(torch, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != P22_PARAMS:
+        failures.append(f"(a) ResNet-50 holds {n_params} parameters, not "
+                        f"{P22_PARAMS}")
+    x, y = p22_batch(torch, dev, args.seed)
+    loss_rel, worst, n_grads = p22_f64_gate(torch, dev, model, x, y)
+    gate = (f"loss rel {loss_rel:.3g} (tol {P22_LOSS_REL}), worst gradient "
+            f"rel of the weights {worst['weights'][0]:.3g} at "
+            f"{worst['weights'][1]}, of the 1-d tensors (BatchNorm, fc's "
+            f"bias) {worst['vectors'][0]:.3g} at {worst['vectors'][1]} (tol "
+            f"{P22_GRAD_REL}) over {n_grads} tensors")
+    if not (loss_rel <= P22_LOSS_REL
+            and worst["weights"][0] <= P22_GRAD_REL
+            and worst["vectors"][0] <= P22_GRAD_REL
+            and n_grads == P22_TENSORS):
+        failures.append(f"(a) the first step on {P22_SUB} images against "
+                        f"float64: {gate} (want {P22_TENSORS})")
+    twin = p22_resnet(torch, dev)  # the eager twin, on the same state
+    twin.load_state_dict(model.state_dict())
+    opt = SGD(learning_rate=P22_LR, parameters=model.parameters())
+    twin_opt = SGD(learning_rate=P22_LR, parameters=twin.parameters())
+
+    def body(m, o):
+        def step(a, b):
+            loss = F.cross_entropy(m(a), b)
+            loss.backward()
+            o.step()
+            o.clear_grad()
+            return loss
+        return step
+
+    compiled = jit.to_static(body(model, opt), layers=[model],
+                             optimizers=[opt])
+    twin_step = body(twin, twin_opt)
+    losses, stats_equal, worst_stat, losses_equal = [], [], 0.0, True
+    for mode, n in (("eager", P22_EAGER_STEPS),
+                    ("captured", P22_CAPTURED_STEPS)):
+        with static_mode(mode == "captured"):
+            for _ in range(n):
+                loss = compiled(x, y)
+                twin_loss = twin_step(x, y)
+                losses.append(float(loss.detach()))
+                losses_equal &= bool(torch.equal(loss.detach(),
+                                                 twin_loss.detach()))
+                mine, ref = p22_stats(model), p22_stats(twin)
+                stats_equal.append(all(torch.equal(mine[k], ref[k])
+                                       for k in ref))
+                worst_stat = max([worst_stat] + [
+                    float((mine[k] - ref[k]).abs().max()) for k in ref])
+    graphs = len(compiled._graphs)
+    want_graphs = 1 if dev.type == "cuda" else 0
+    if graphs != want_graphs:
+        failures.append(f"(a) {graphs} captured graphs (want {want_graphs})")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        failures.append(f"(a) losses {losses} non-finite or not falling")
+    if not all(stats_equal) or not losses_equal:
+        failures.append(f"(a) the BatchNorm running statistics after each "
+                        f"step bitwise the eager twin's: {stats_equal} "
+                        f"(worst {worst_stat:.3g}); losses bitwise "
+                        f"{losses_equal}")
+    ms = {"eager": [], "replay": []}
+    for turn in P22_TURNS:
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        if turn == "eager":
+            twin_step(x, y)
+        else:
+            compiled(x, y)
+        sync(torch, dev)
+        ms[turn].append((time.perf_counter() - t0) * 1e3)
+    print(f"phase 22(a) ResNet-50 ({n_params} params, {P22_CLASSES} "
+          f"classes) f32, B={P22_BATCH} at {P22_IMAGE} px, SGD lr {P22_LR} "
+          f"over one batch: the first step on {P22_SUB} images against "
+          f"float64 {gate}; losses {[round(v, 5) for v in losses]} "
+          f"({P22_EAGER_STEPS} eager, then captured: warm-up, capture, "
+          f"replays; {graphs} graph); BatchNorm statistics bitwise an eager "
+          f"twin's after each step {stats_equal} (worst {worst_stat:.3g}), "
+          f"losses bitwise {losses_equal}; ms a step eager "
+          f"{[round(t, 2) for t in ms['eager']]}, replayed "
+          f"{[round(t, 2) for t in ms['replay']]} (in turns "
+          f"{'/'.join(t[0] for t in P22_TURNS)}); images/s eager "
+          f"{P22_BATCH / (min(ms['eager']) / 1e3):.1f}, replayed "
+          f"{P22_BATCH / (min(ms['replay']) / 1e3):.1f} [{card}]")
+    del compiled, twin, twin_opt, opt
+
+    # (b): the convergence recipe's optimizer, B4 over the model's tensors
+    loss = F.cross_entropy(model(x), y)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+
+    def make_opt():
+        return AdamW(parameters=model.parameters(), fused=True, **P22_ADAMW)
+
+    kernels.reset_launch_counts()
+    sizes, adamw_diff = p21_adamw_check(torch, model, make_opt, grads)
+    launches = kernels.launch_counts()["fused_adamw"]
+    want_launches = 2 if dev.type == "cuda" else 0
+    if sizes != [P22_TENSORS] * 2 or adamw_diff or launches != want_launches:
+        failures.append(f"(b) two fused AdamW steps: calls over {sizes} "
+                        f"tensors (want {P22_TENSORS} twice), {launches} "
+                        f"launches (want {want_launches}), elements whose "
+                        f"bits differ from the plain version's {adamw_diff}")
+    times = p22_adamw_times(torch, dev, model, grads) \
+        if dev.type == "cuda" else "not measured (no card)"
+    print(f"phase 22(b) AdamW(fused=True, lr {P22_ADAMW['learning_rate']}, "
+          f"weight_decay {P22_ADAMW['weight_decay']}), f32 moments, on "
+          f"ResNet-50's gradients at B={P22_BATCH}: two steps, calls over "
+          f"{sizes} tensors, {launches} launches, bitwise the plain "
+          f"version's: {not adamw_diff}; {times} [{card}]")
+    del model, grads
+    return failures
+
+
+def p22_adamw_times(torch, dev, model, grads):
+    """B4 at ResNet-50's tensor set (f32 p, g, m, v, no SR), on copies: the
+    kernel's device time, a wrapper call's, the plain version's and torch's
+    fused AdamW's (another function, for scale), beside the bound."""
+    from paddle_tpu_torch.ops.fused_adamw import (
+        adamw_scalars_multi, fused_adamw_hbm_bytes, fused_adamw_multi_update,
+        fused_adamw_multi_update_plain)
+
+    named = [(n, p) for n, p in model.named_parameters() if n in grads]
+    ps = [p.detach().clone() for _, p in named]
+    gs = [grads[n] for n, _ in named]
+    ms = [torch.zeros_like(p) for p in ps]
+    vs = [torch.zeros_like(p) for p in ps]
+    t = len(ps)
+    pows = torch.full((t,), 0.9, device=dev), torch.full((t,), 0.999,
+                                                         device=dev)
+    scalars = adamw_scalars_multi(
+        lr=P22_ADAMW["learning_rate"], epsilon=1e-8, beta1_pow=pows[0],
+        beta2_pow=pows[1], weight_decay=P22_ADAMW["weight_decay"])
+
+    def launch():
+        fused_adamw_multi_update(ps, gs, ms, vs, scalars=scalars, beta1=0.9,
+                                 beta2=0.999)
+
+    kernel_ms, how = device_ms(launch, "adamw_multi_kernel", 10)
+    call_ms = time_ms(launch, 10)
+    plain_ms = time_ms(lambda: fused_adamw_multi_update_plain(
+        ps, gs, ms, vs, scalars=scalars, beta1=0.9, beta2=0.999), 1,
+        warmup=1)
+    steps = [torch.tensor(3.0, device=dev) for _ in range(t)]
+    lib_ms = time_ms(lambda: torch._fused_adamw_(
+        ps, gs, ms, vs, [], steps, lr=P22_ADAMW["learning_rate"], beta1=0.9,
+        beta2=0.999, weight_decay=P22_ADAMW["weight_decay"], eps=1e-8,
+        amsgrad=False, maximize=False), 10)
+    n = sum(p.numel() for p in ps)
+    nbytes = fused_adamw_hbm_bytes(n, torch.float32, torch.float32,
+                                   torch.float32)
+    b_ms, b_by = bound(nbytes, 10.0 * n, F32_FLOPS_PER_S)
+    return (f"B4 over these {t} tensors ({n} elements): kernel ms "
+            f"{kernel_ms:.4f} ({how}), a wrapper call {call_ms:.4f}, bound "
+            f"{b_ms:.4f} ({b_by}, {nbytes / 1e9:.3f} GB), "
+            f"{100 * b_ms / kernel_ms:.1f}% of bound; plain ms "
+            f"{plain_ms:.3f}; torch._fused_adamw_ (another function) "
+            f"{lib_ms:.4f}")
+
+
+def p22_pool_reference(torch, x64, k, s, p, ceil_mode, fill):
+    """Windows of ``x64`` (float64) as the reference lays them: padded by
+    ``p`` with ``fill`` (and, in ceil mode, on the high side to the last
+    partial window), ``[N, C, oh, ow, k*k]``."""
+    h, w = x64.shape[-2:]
+    hi = []
+    for size in (h, w):
+        rem = (size + 2 * p - k) % s
+        hi.append(p + (s - rem if ceil_mode and rem else 0))
+    xp = torch.nn.functional.pad(x64, (p, hi[1], p, hi[0]), value=fill)
+    win = xp.unfold(2, k, s).unfold(3, k, s)
+    return win.reshape(*win.shape[:4], k * k)
+
+
+def p22_pools(torch, np, dev, args, card):
+    """22(c): the pools at ResNet's stem shape on signed inputs against
+    float64; returns the failures."""
+    from paddle_tpu_torch.nn import functional as F
+
+    failures = []
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 23)
+    x = torch.randn(P22_STEM, generator=gen, device=dev)
+    x64 = x.double()
+    res = {}
+    # max_pool2d(3, 2, 1) with its mask: padded with -inf, first max wins
+    out, mask = F.max_pool2d(x, 3, 2, 1, return_mask=True)
+    win = p22_pool_reference(torch, x64, 3, 2, 1, False, float("-inf"))
+    want, arg = win.max(-1)
+    oy = torch.arange(want.shape[2], device=dev).reshape(1, 1, -1, 1)
+    ox = torch.arange(want.shape[3], device=dev).reshape(1, 1, 1, -1)
+    idx = (oy * 2 + arg // 3 - 1) * x.shape[3] + (ox * 2 + arg % 3 - 1)
+    res["max"] = int((out.double() != want).sum())
+    res["mask"] = int((mask.long() != idx).sum())
+    del win, want, arg, idx, out, mask
+    # the global average (ResNet's head) and a ceil-mode average both ways
+    g = F.adaptive_avg_pool2d(x, 1)
+    res["adaptive"] = float((g.double() - x64.mean((2, 3), keepdim=True))
+                            .abs().max())
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=torch.float64,
+                      device=dev)
+    sums = p22_pool_reference(torch, x64, 3, 2, 1, True, 0.0).sum(-1)
+    counts = p22_pool_reference(torch, ones, 3, 2, 1, True, 0.0).sum(-1)
+    for exclusive in (True, False):
+        got = F.avg_pool2d(x, 3, 2, 1, ceil_mode=True, exclusive=exclusive)
+        want = sums / (counts if exclusive else 9.0)
+        if got.shape != want.shape:
+            res[f"avg_exclusive={exclusive}"] = float("inf")
+            continue
+        res[f"avg_exclusive={exclusive}"] = float(
+            (got.double() - want).abs().max())
+    exact = res["max"] == 0 and res["mask"] == 0
+    close = all(res[k] <= P22_AVG_ATOL for k in res if k not in
+                ("max", "mask"))
+    if not (exact and close):
+        failures.append(f"(c) pools at {list(P22_STEM)} against float64: "
+                        f"{res} (max and mask exactly, averages to "
+                        f"{P22_AVG_ATOL})")
+    print(f"phase 22(c) pools at ResNet's stem shape {list(P22_STEM)} on "
+          f"signed inputs against float64: max_pool2d(3, 2, 1) elements "
+          f"off {res['max']}, mask indices off {res['mask']}; "
+          f"adaptive_avg_pool2d(1) max err {res['adaptive']:.3g}; "
+          f"avg_pool2d(3, 2, 1, ceil_mode) exclusive max err "
+          f"{res['avg_exclusive=True']:.3g}, inclusive "
+          f"{res['avg_exclusive=False']:.3g} (tol {P22_AVG_ATOL}) [{card}]")
+    return failures
+
+
+def vision_phase(torch, np, dev, args, card):
+    """Phase 22: (a) ResNet-50 at full width through the reference's SGD
+    recipe, eager and captured; (b) the convergence recipe's fused AdamW
+    on its gradients; (c) the pools at the stem's shape; (d) ``nms`` and
+    ``roi_align`` at a detection-sized input against the CPU. Fails the
+    run on any failure, after all parts have run. The phase runs with
+    cuDNN's deterministic algorithms (restored after)."""
+    t_phase = time.perf_counter()
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        failures = p22_recipe(torch, np, dev, args, card)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        failures += p22_pools(torch, np, dev, args, card)
+        failures += p22_detection(torch, np, dev, args, card)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    print(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        fail("phase 22: " + " | ".join(failures))
+
+
+P22_NMS_BOXES = 4000  # (d): an RPN's proposals before NMS (pre_nms_top_n)
+P22_NMS_IOU = 0.7
+P22_FPN = (2, 256, 200, 272)  # (d): an FPN level at stride 4 of 800 x 1088
+P22_ROIS = 512  # (d): boxes an image, roi_align to 7 x 7
+# (d): card against CPU. The card divides by a scalar as a product with its
+# reciprocal, so a sample's coordinate (up to 272 here, where an f32 ulp is
+# 3.05e-5) can land one ulp off the CPU's; a bilinear sample then moves by
+# that ulp times its neighbours' difference (up to ~8 for N(0, 1) inputs).
+# The first card call read 6.32e-5 (tol then 1e-5); 3e-4 bounds an ulp of
+# every coordinate at the largest neighbour step
+P22_ROI_ATOL = 3e-4
+
+
+def p22_detection(torch, np, dev, args, card):
+    """22(d): ``nms`` and ``roi_align`` at a detection-sized input on the
+    card against the same functions on the CPU; returns the failures."""
+    from paddle_tpu_torch.vision import ops
+
+    failures = []
+    rng = np.random.RandomState(args.seed + 24)
+    n, c, h, w = P22_FPN
+    xy = rng.rand(P22_NMS_BOXES, 2) * [w * 4, h * 4]
+    wh = rng.rand(P22_NMS_BOXES, 2) * 200 + 8
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    scores = rng.permutation(P22_NMS_BOXES).astype(np.float32)
+    scores /= P22_NMS_BOXES
+    cats = rng.randint(0, 4, P22_NMS_BOXES)
+    b_d, s_d = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+    res, ms = {}, {}
+    for label, kw in (("plain", {}), ("categories", dict(
+            category_idxs=torch.from_numpy(cats).to(dev),
+            categories=[0, 1, 2, 3]))):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        keep = ops.nms(b_d, P22_NMS_IOU, s_d, **kw)
+        sync(torch, dev)
+        ms[f"nms {label}"] = (time.perf_counter() - t0) * 1e3
+        cpu_kw = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                  for k, v in kw.items()}
+        want = ops.nms(torch.from_numpy(boxes), P22_NMS_IOU,
+                       torch.from_numpy(scores), **cpu_kw)
+        res[f"nms {label}"] = (int(keep.numel()), bool(torch.equal(
+            keep.cpu(), want)))
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 25)
+    x = torch.randn(P22_FPN, generator=gen, device=dev)
+    rxy = rng.rand(n * P22_ROIS, 2) * [w * 4 - 64, h * 4 - 64]
+    rwh = rng.rand(n * P22_ROIS, 2) * 256 + 16
+    rois = np.concatenate([rxy, rxy + rwh], 1).astype(np.float32)
+    num = np.full(n, P22_ROIS, np.int64)
+    args_d = (x, torch.from_numpy(rois).to(dev), torch.from_numpy(num).to(dev))
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    got = ops.roi_align(*args_d, output_size=7, spatial_scale=0.25)
+    sync(torch, dev)
+    ms["roi_align"] = (time.perf_counter() - t0) * 1e3
+    want = ops.roi_align(x.cpu(), torch.from_numpy(rois),
+                         torch.from_numpy(num), output_size=7,
+                         spatial_scale=0.25)
+    err = float((got.cpu() - want).abs().max())
+    if not all(same for _, same in res.values()) or not err <= P22_ROI_ATOL:
+        failures.append(f"(d) card against CPU: nms (kept, equal) {res}; "
+                        f"roi_align max err {err:.3g} (tol {P22_ROI_ATOL})")
+    print(f"phase 22(d) nms over {P22_NMS_BOXES} boxes at IoU "
+          f"{P22_NMS_IOU}, plain and over 4 categories: (kept, indices equal "
+          f"to the CPU's) {res}; roi_align of {n} x {P22_ROIS} boxes to 7x7 "
+          f"on {list(P22_FPN)} at scale 1/4: max err against the CPU "
+          f"{err:.3g} (tol {P22_ROI_ATOL}); ms on the card (first call, "
+          f"host sweep included) { {k: round(v, 2) for k, v in ms.items()} } "
+          f"[{card}]")
+    return failures
+
+
 def kernel_class(name: str) -> str:
     """Bucket a profiled kernel name for the training step's time split."""
     n = name.lower()
@@ -9552,6 +10119,12 @@ def main() -> int:
     starts.append(("21", time.perf_counter() - t_start))
     # -- phase 21: GPT, BERT and the SD UNet ---------------------------------
     models_phase(torch, np, dev, args, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    starts.append(("22", time.perf_counter() - t_start))
+    # -- phase 22: ResNet-50, the pools and the detection ops -----------------
+    vision_phase(torch, np, dev, args, card)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -3,10 +3,10 @@
 serving host code.
 
     python3 gate_mutants.py [--seed N] [--phase18 | --phase19 | --phase20 |
-                                         --phase21]
+                                         --phase21 | --phase22]
 
-(``--phase18``, ``--phase19``, ``--phase20``, ``--phase21``: only that
-phase's mutants, below.)
+(``--phase18``, ``--phase19``, ``--phase20``, ``--phase21``,
+``--phase22``: only that phase's mutants, below.)
 
 Builds four kernel sources as they are and in broken forms, each form
 from its own copy of the kernel sources in a temporary directory (the
@@ -263,6 +263,24 @@ Phase 21's models (``P21_KERNEL_MUTANTS``, ``P21_MUTANTS``):
 - ``f32 convolution on TF32``: the f32 convolution lets cuDNN take TF32;
   these three by 21(e)'s float64 references
   (``chip_smoke.p21_semantics``).
+
+Phase 22's vision slice and 18(e) (``P22_MUTANTS``, each with its part in
+``P22_PARTS``; ``--phase22`` runs them alone, the original through every
+part first):
+
+- ``a max pool padded with zeros``: the max pool always pads explicitly,
+  with zeros; 22(c)'s float64 gate on signed inputs at the stem's shape;
+- ``adaptive bins off by one``: the adaptive average drops the last row
+  and column of every channel; 22(c);
+- ``BatchNorm statistics frozen inside the replay``: a batch norm under
+  capture skips its running-statistics update; 22(a)'s statistics against
+  the eager twin after each step;
+- ``the fused step skips one of the tensors``: AdamW's fused step leaves
+  out the group's last tensor; 22(b)'s 161-tensor calls against the plain
+  version;
+- ``the fused qkv cut in contiguous blocks``: ``fleet`` cuts GPT's and
+  BERT's fused qkv as one block (rank 0 all of q and half of k); 18(e)
+  in the two ranks, patched in as phase 18's are.
 
 Each variant runs through the kernel's own wrapper (``paged_decode`` and
 ``paged_decode_int8`` for the decode, ``fused_adamw_multi_update`` for
@@ -781,8 +799,8 @@ P18_MUTANTS = {
             "all_reduce(gmax, op=ReduceOp.MAX, group=group)", "pass")]),
     "a rank loads its neighbour's slice": (
         "paddle_tpu_torch.utils.convert", "_cut", [(
-            "np.split(a, n, axis=axis)[rank]",
-            "np.split(a, n, axis=axis)[(rank + 1) % n]")]),
+            "np.split(g, n, axis=axis)[rank]",
+            "np.split(g, n, axis=axis)[(rank + 1) % n]")]),
     "each query head attends with the next kv head": (
         "paddle_tpu_torch.models.llama", "LlamaAttention.forward", [(
             "theta = self.config.rope_theta",
@@ -931,6 +949,44 @@ P21_MUTANTS = {
     "f32 convolution on TF32": (
         "paddle_tpu_torch.nn.functional.conv", "_precision", [(
             "allow_tf32=False", "allow_tf32=True")]),
+}
+# phase 22, in HOST_MUTANTS' form, each with the part of phase 22 (or 18(e),
+# in the two ranks) whose gates must refuse it
+P22_MUTANTS = {
+    "as is": None,
+    "a max pool padded with zeros": (
+        "paddle_tpu_torch.nn.functional.pooling", "_max_pool", [
+            ("tpad = _torch_pads(ks, pads)", "tpad = None"),
+            ("value=_lowest(x.dtype)", "value=0.0")]),
+    "adaptive bins off by one": (
+        "paddle_tpu_torch.nn.functional.pooling", "_adaptive", [(
+            "return _from_channels_first(_AAVG[n](x, size), moved)",
+            "return _from_channels_first(_AAVG[n](\n"
+            "            x[(Ellipsis,) + (slice(0, -1),) * n], size), moved)")]),
+    "BatchNorm statistics frozen inside the replay": (
+        "paddle_tpu_torch.nn.functional.norm", "batch_norm", [(
+            "    with torch.no_grad():",
+            "    if torch.cuda.is_current_stream_capturing():\n"
+            "        return _affine(out, weight, bias, shape)\n"
+            "    with torch.no_grad():")]),
+    "the fused step skips one of the tensors": (
+        "paddle_tpu_torch.optimizer.optimizer", "AdamW._fused_step", [(
+            "ps, pvs, gs, ms, vs, lrs, masters = map(list, zip(*items))",
+            "ps, pvs, gs, ms, vs, lrs, masters = map(list, zip(*items[:-1]))"
+        )]),
+    "the fused qkv cut in contiguous blocks": (
+        "paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers", "_split", [(
+            "parts = x.unflatten(dim, (groups, -1))",
+            "parts = x.unflatten(dim, (1, -1))")]),
+}
+# the part that runs each: "recipe" (22(a)-(b)), "pools" (22(c)) or "ranks"
+# (18(e), the two-rank launch with the variant patched into the ranks)
+P22_PARTS = {
+    "a max pool padded with zeros": ("pools",),
+    "adaptive bins off by one": ("pools",),
+    "BatchNorm statistics frozen inside the replay": ("recipe",),
+    "the fused step skips one of the tensors": ("recipe",),
+    "the fused qkv cut in contiguous blocks": ("ranks",),
 }
 # control_mutants' trace: phase 15's, shortened (the gates count no requests)
 CONTROL_TRACE = dict(n_requests=30, duration_s=5.0)
@@ -1382,6 +1438,63 @@ def p21_mutants(torch, np, dev, args, card, kernels, gen):
     return ok, refused, n + len(P21_MUTANTS) - 1
 
 
+def p22_mutants(torch, np, dev, args, card):
+    """Phase 22's mutants: each through the part whose gates must refuse it
+    (``chip_smoke.p22_recipe``, ``p22_pools`` under cuDNN's deterministic
+    algorithms, or 18(e) in ``chip_smoke.tp_ranks``' two ranks with the
+    variant patched in); the original through all three and 22(d). Returns
+    (ok, refused, mutants counted)."""
+    import tempfile as _tempfile
+
+    parts = {
+        "recipe": lambda: cs.p22_recipe(torch, np, dev, args, card),
+        "pools": lambda: cs.p22_pools(torch, np, dev, args, card),
+        "detection": lambda: cs.p22_detection(torch, np, dev, args, card),
+    }
+    ok, refused = True, []
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in P22_MUTANTS:
+            run = P22_PARTS.get(name, ("recipe", "pools", "detection",
+                                       "ranks"))
+            restore = (lambda: None) if P22_MUTANTS[name] is None or \
+                run == ("ranks",) else host_variant(name, P22_MUTANTS)
+            bad = []
+            try:
+                for part in run:
+                    try:
+                        if part == "ranks":
+                            tmp = Path(_tempfile.mkdtemp(prefix="gm_p22_"))
+                            try:
+                                bad += cs.tp_ranks(
+                                    torch, np, args, card, None, tmp,
+                                    script=Path(__file__).resolve(),
+                                    extra=("--mutant", name), parts="e")
+                            finally:
+                                shutil.rmtree(tmp, ignore_errors=True)
+                        else:
+                            bad += parts[part]()
+                    except Exception as e:  # noqa: BLE001 - a crash refuses
+                        bad.append(f"{part} raised {e!r}")
+            finally:
+                restore()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            if name == "as is":
+                ok &= not bad
+            elif bad:
+                refused.append(f"phase 22: {name}")
+            else:
+                ok = False
+            print(f"p22 {name}: "
+                  f"{'; '.join(b[:300] for b in bad) if bad else 'pass'} -> "
+                  f"{'FAIL' if bad else 'pass'} [{card}]", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    return ok, refused, len(P22_MUTANTS) - 1
+
+
 def deploy_mutants(torch, np, dev, args, card, ids):
     """Every phase-16 variant through the part of phase 16 whose gates must
     refuse it (``chip_smoke.deploy_serving``, ``control_flow_phase``,
@@ -1443,13 +1556,16 @@ def main() -> int:
                     help="only phase 20's fault-tolerant training mutants")
     ap.add_argument("--phase21", action="store_true",
                     help="only phase 21's attention and layer mutants")
+    ap.add_argument("--phase22", action="store_true",
+                    help="only phase 22's vision and 18(e)'s qkv mutants")
     args = ap.parse_args()
 
     import torch
 
     if args.rank17:
-        table = next(t for t in (P20_MUTANTS, P19_MUTANTS, P18_MUTANTS,
-                                 P17_MUTANTS) if args.mutant in t)
+        table = next(t for t in (P22_MUTANTS, P20_MUTANTS, P19_MUTANTS,
+                                 P18_MUTANTS, P17_MUTANTS)
+                     if args.mutant in t)
         if table[args.mutant] is not None:
             host_variant(args.mutant, table)
         return cs.phase17_rank(args.rank17, args.out, args.seed, args.parts,
@@ -1476,7 +1592,7 @@ def main() -> int:
               f"{len(refused)} of {n} mutants: {'; '.join(refused)}")
         return 0 if ok else 1
     for flag, run in (("phase18", p18_mutants), ("phase19", p19_mutants),
-                      ("phase20", p20_mutants)):
+                      ("phase20", p20_mutants), ("phase22", p22_mutants)):
         if getattr(args, flag):
             kernels.build()  # the ranks use the parent's build
             ok, refused, n = run(torch, np, dev, args, card)
@@ -1514,6 +1630,7 @@ def main() -> int:
         results.append(disagg_mutants(torch, np, dev, args, card))
         results.append(control_mutants(torch, np, dev, args, card))
         results.append(p21_mutants(torch, np, dev, args, card, kernels, gen))
+        results.append(p22_mutants(torch, np, dev, args, card))
     finally:
         for lib_name in MUTANTS:
             kernels._libs.pop(lib_name, None)

@@ -15,9 +15,10 @@ wrapper that cut it knows its place, and this module asks it, never the
 shapes: :func:`layer_placements` / :func:`optimizer_placements` read group
 sharding's ``_Shard`` (``distributed/sharding``: the dimension, the whole
 shape, the rank's offset) and a tensor-parallel weight's ``tp_axis`` with
-its ``_tp_shard = (rank, degree)``. :func:`place` wraps the local tensors
-of a state tree as :class:`Placed` leaves (the tensor, its global shape,
-its global offset); :func:`dumps_sharded` writes each as a ``_SHARD_TAG``
+its ``_tp_shard = (rank, degree)`` (a fused qkv's shard, cut in each of
+its ``tp_groups`` parts, is no one block: it raises). :func:`place`
+wraps the local tensors of a state tree as :class:`Placed` leaves (the
+tensor, its global shape, its global offset); :func:`dumps_sharded` writes each as a ``_SHARD_TAG``
 dict {global_shape, dtype, shards by offset}; every other leaf takes
 ``framework.io``'s host form. bf16 travels as raw ``uint16`` with the dtype
 name ``bfloat16`` (the card's machine has no ``ml_dtypes``); the values
@@ -94,6 +95,12 @@ def _place_of(p: torch.Tensor, local_shape, group_sharded=None
     tp = getattr(p, "_tp_shard", None)
     if tp is not None and getattr(p, "is_distributed", False) \
             and len(local_shape) == p.dim():
+        if getattr(p, "tp_groups", 1) > 1:
+            raise ReshardLayoutError(
+                f"a tensor-parallel shard of shape {local_shape} cut in "
+                f"each of {p.tp_groups} parts along axis {p.tp_axis} (a "
+                "fused qkv's q, k and v) is not one block of the whole; "
+                "gather it whole before placing it")
         rank, degree = tp
         axis = p.tp_axis
         whole = list(local_shape)

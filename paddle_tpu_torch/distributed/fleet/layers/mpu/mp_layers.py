@@ -53,12 +53,18 @@ def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return out
 
 
-def _split(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+def _split(x: torch.Tensor, group, dim: int, groups: int = 1) -> torch.Tensor:
+    """The rank's part of ``x`` along ``dim``; with ``groups`` > 1 that
+    dimension is ``groups`` equal parts (a fused qkv's q, k and v), each
+    cut on its own, and the rank's cuts are laid side by side."""
     n = group.nranks
-    if x.shape[dim] % n:
+    dim = dim % x.dim()
+    if x.shape[dim] % (n * groups):
         raise ValueError(f"dimension {dim} of shape {tuple(x.shape)} does not "
-                         f"divide over {n} ranks")
-    return x.chunk(n, dim)[group.rank].contiguous()
+                         f"divide over {n} ranks in {groups} groups")
+    parts = x.unflatten(dim, (groups, -1))
+    return parts.chunk(n, dim + 1)[group.rank].flatten(dim, dim + 1) \
+        .contiguous()
 
 
 def _reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
@@ -203,13 +209,16 @@ def _full_weight_generator(device: torch.device) -> torch.Generator:
         return R.get_generator(device)
 
 
-def shard_parameter_(p: nn.Parameter, axis: int, group) -> nn.Parameter:
-    """Cut ``p`` in place to the rank's slice along ``axis`` and set its
-    shard metadata (see the module's docstring)."""
+def shard_parameter_(p: nn.Parameter, axis: int, group,
+                     groups: int = 1) -> nn.Parameter:
+    """Cut ``p`` in place to the rank's slice along ``axis`` (of each of
+    its ``groups`` parts, see :func:`_split`) and set its shard metadata
+    (see the module's docstring)."""
     with torch.no_grad():
-        p.data = _split(p.data, group, axis)
+        p.data = _split(p.data, group, axis, groups)
     p.is_distributed = True
     p.tp_axis = axis
+    p.tp_groups = groups
     p._tp_shard = (group.rank, group.nranks)
     p._sr_index_base = group.rank * p.numel()
     return p

@@ -13,9 +13,12 @@ input, an ``Embedding`` with ``tp_axis`` 0 a vocab-parallel one, with
 ``tp_axis`` 1 one sharded on the hidden dimension whose output is
 all-gathered); the rest is replicated. A parameter with a ``tp_unit``
 (an attention projection's head width) is cut only into whole units, and
-one the degree cannot cut so raises. The parameter objects and their
-names stay, and fleet knows no model: a model reads its shards off its
-parameters' shapes (the Llama's local head counts) and its head's layer
+one the degree cannot cut so raises; a fused projection with
+``tp_groups`` parts (GPT's and BERT's qkv: q, k and v side by side) is cut
+in each part, so a rank keeps the same heads of q, k and v, bias alike.
+The parameter objects and their names stay, and fleet knows no model: a
+model reads its shards off its parameters' shapes (the local head counts
+of the Llama, GPT and BERT) and its head's layer
 (the vocab-sharded loss). :class:`TensorParallel` broadcasts what is
 replicated and, with dp > 1, averages the gradients over the dp group
 through ``DataParallel``.
@@ -100,18 +103,19 @@ def _tp_layer(module: nn.Module, group):
 
     w = getattr(module, "weight", None)
     axis = getattr(w, "tp_axis", None)
-    if axis is None or w.shape[axis] % group.nranks:
+    groups = getattr(w, "tp_groups", 1)
+    if axis is None or w.shape[axis] % (group.nranks * groups):
         return None
     if isinstance(module, Linear):
         if axis == 1:
             layer = ColumnParallelLinear._from_dense(
                 module, group, gather_output=False)
             if module.bias is not None:
-                shard_parameter_(module.bias, 0, group)
+                shard_parameter_(module.bias, 0, group, groups)
         else:
             layer = RowParallelLinear._from_dense(
                 module, group, input_is_parallel=True)
-        shard_parameter_(w, axis, group)
+        shard_parameter_(w, axis, group, groups)
         layer.weight, layer.bias = w, module.bias
         return layer
     if isinstance(module, Embedding):
@@ -126,19 +130,23 @@ def _tp_layer(module: nn.Module, group):
 def check_whole_units(layers: nn.Module, degree: int) -> None:
     """Raise where the mp ``degree`` cannot cut a parameter with a
     ``tp_unit`` into whole units along its ``tp_axis`` (each rank keeps
-    whole heads; the reference's GSPMD can split inside one, ROADMAP C2)."""
+    whole heads; the reference's GSPMD can split inside one, ROADMAP C2).
+    A fused projection (``tp_groups`` parts, a qkv's q, k and v) is cut
+    in each part, so the degree must divide each part's units."""
     for name, p in layers.named_parameters():
         unit = getattr(p, "tp_unit", None)
         if unit is None or p.tp_axis is None or \
                 getattr(p, "is_distributed", False):
             continue
-        n = p.shape[p.tp_axis] // unit
+        groups = getattr(p, "tp_groups", 1)
+        n = p.shape[p.tp_axis] // (unit * groups)
         if n % degree:
+            per = f" in each of its {groups} parts" if groups > 1 else ""
             raise ValueError(
                 f"tensor parallelism at mp degree {degree}: {name} holds "
-                f"{n} units of {unit} along its tp_axis {p.tp_axis} (heads "
-                "in an attention projection); the degree must divide them, "
-                "as each rank keeps whole units")
+                f"{n} units of {unit}{per} along its tp_axis {p.tp_axis} "
+                "(heads in an attention projection); the degree must divide "
+                "them, as each rank keeps whole units")
 
 
 def place_parameters(layers: nn.Module, mp_group) -> nn.Module:

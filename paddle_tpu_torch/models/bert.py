@@ -22,7 +22,8 @@ from ..base.dtype import to_torch_dtype
 from ..base.random import get_generator
 from ..nn import Dropout, Embedding, LayerList, LayerNorm, Linear
 from ..nn import functional as F
-from .llama import _add
+from .gpt import fuse_qkv_tp_meta
+from .llama import _add, token_loss
 
 __all__ = ["BertConfig", "BertModel", "BertForMaskedLM",
            "BertForSequenceClassification"]
@@ -86,9 +87,10 @@ class BertLayer(nn.Module):
         self.head_dim = h // config.num_attention_heads
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.qkv = Linear(h, 3 * h, **kw)
-        self.qkv.weight.tp_axis = 1
+        fuse_qkv_tp_meta(self.qkv, self.head_dim)
         self.attn_out = Linear(h, h, **kw)
         self.attn_out.weight.tp_axis = 0
+        self.attn_out.weight.tp_unit = self.head_dim
         self.attn_norm = LayerNorm(h, epsilon=eps, device=device, dtype=dtype)
         self.fc1 = Linear(h, config.intermediate_size, **kw)
         self.fc1.weight.tp_axis = 1
@@ -98,13 +100,14 @@ class BertLayer(nn.Module):
         self.dropout = Dropout(config.dropout)
 
     def forward(self, x, attn_mask=None):
-        b, s, h = x.shape
-        qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
+        b, s = x.shape[0], x.shape[1]
+        # the local head count, read off the (maybe tensor-parallel) shard
+        qkv = self.qkv(x).reshape(b, s, 3, -1, self.head_dim)
         out = F.scaled_dot_product_attention(
             qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], attn_mask=attn_mask,
             is_causal=False, training=self.training)
         x = self.attn_norm(_add(x, self.dropout(
-            self.attn_out(out.reshape(b, s, h)))))
+            self.attn_out(out.reshape(b, s, -1)))))
         ffn = self.fc2(F.gelu(self.fc1(x)))
         return self.ffn_norm(_add(x, self.dropout(ffn)))
 
@@ -176,11 +179,11 @@ class BertForMaskedLM(nn.Module):
     def loss(self, input_ids, labels, attention_mask=None,
              token_type_ids=None):
         """The MLM objective: mean cross entropy over the positions whose
-        label is not ``-100`` (the masked tokens)."""
-        logits = self(input_ids, token_type_ids, attention_mask)
-        b, s, v = logits.shape
-        return F.cross_entropy(logits.reshape(b * s, v), labels.reshape(b * s),
-                               ignore_index=-100)
+        label is not ``-100`` (the masked tokens); through
+        ``ParallelCrossEntropy`` where ``fleet``'s ``TensorParallel`` left
+        the logits sharded on the vocabulary."""
+        return token_loss(self(input_ids, token_type_ids, attention_mask),
+                          labels, self.decoder)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -9,7 +9,9 @@ MLP; attention goes through ``nn.functional.scaled_dot_product_attention``
 through the paged cache (the paged-decode kernels on decode steps, float
 or int8 pools) or a dense cache. Every projection carries the reference's
 ``tp_axis`` (column-parallel qkv and fc1, row-parallel out_proj and fc2,
-the vocabulary-parallel embedding).
+the vocabulary-parallel embedding); the fused qkv is cut into whole heads
+of each of q, k and v (``tp_groups``), and the attention reads its local
+head count off its shard.
 
 Under a cache the positions are ``cur_len + arange(s)``; ``cur_len`` is a
 scalar or, on the paged cache, one length per sequence (``[B]``), each row
@@ -28,7 +30,7 @@ from ..base.dtype import to_torch_dtype
 from ..base.random import get_generator
 from ..nn import Dropout, Embedding, LayerList, LayerNorm, Linear
 from ..nn import functional as F
-from .llama import _add
+from .llama import _add, token_loss
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTBlock", "GPTModel",
            "GPTForCausalLM"]
@@ -62,6 +64,17 @@ class GPTConfig:
         return cls(**base)
 
 
+def fuse_qkv_tp_meta(qkv: Linear, head_dim: int) -> None:
+    """Tensor-parallel metadata of a fused qkv projection (``[h, 3h]``,
+    its columns laid out ``(3, heads, head_dim)``): column parallel, cut
+    into whole heads in each of q, k and v (``tp_groups`` 3), so every
+    rank keeps the same heads of all three, weight and bias alike."""
+    qkv.weight.tp_axis, qkv.weight.tp_unit = 1, head_dim
+    for p in (qkv.weight, qkv.bias):
+        if p is not None:
+            p.tp_groups = 3
+
+
 class GPTAttention(nn.Module):
     def __init__(self, config: GPTConfig, *, device, dtype, generator):
         super().__init__()
@@ -71,14 +84,17 @@ class GPTAttention(nn.Module):
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.qkv_proj = Linear(h, 3 * h, **kw)
         self.out_proj = Linear(h, h, **kw)
-        self.qkv_proj.weight.tp_axis = 1  # column parallel
+        fuse_qkv_tp_meta(self.qkv_proj, self.head_dim)
         self.out_proj.weight.tp_axis = 0  # row parallel
+        self.out_proj.weight.tp_unit = self.head_dim
         self.dropout = config.dropout
 
     def forward(self, x, cache=None, cur_len=None):
-        b, s, h = x.shape
-        qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads, self.head_dim)
+        b, s = x.shape[0], x.shape[1]
+        # the local head count, read off the (maybe tensor-parallel) shard
+        qkv = self.qkv_proj(x).reshape(b, s, 3, -1, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        h = q.shape[2] * self.head_dim
         if cache is None:
             out = F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, dropout_p=self.dropout,
@@ -237,10 +253,9 @@ class GPTForCausalLM(nn.Module):
 
     def loss(self, input_ids, labels):
         """Mean token cross entropy of ``self(input_ids)`` against
-        ``labels``."""
-        logits = self(input_ids)
-        b, s, v = logits.shape
-        return F.cross_entropy(logits.reshape(b * s, v), labels.reshape(b * s))
+        ``labels``; through ``ParallelCrossEntropy`` where ``fleet``'s
+        ``TensorParallel`` left the logits sharded on the vocabulary."""
+        return token_loss(self(input_ids), labels, self.lm_head)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

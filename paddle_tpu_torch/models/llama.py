@@ -226,6 +226,29 @@ class LlamaModel(nn.Module):
         return self.norm(x), new_caches
 
 
+def token_loss(logits, labels, head, ignore_index: int = -100):
+    """Mean cross entropy of ``logits`` ``[B, S, V]`` against ``labels``
+    over the tokens whose label is not ``ignore_index``. Where ``head`` is
+    a column-parallel layer that leaves the logits sharded on the
+    vocabulary (``fleet``'s ``TensorParallel``), it runs through
+    ``ParallelCrossEntropy`` over the head's mp group, never gathering
+    them."""
+    b, s, v = logits.shape
+    flat = labels.reshape(b * s)
+    if head is not None and getattr(head.weight, "is_distributed", False):
+        from ..distributed.fleet.layers.mpu import mp_layers as mpu
+
+        if isinstance(head, mpu.ColumnParallelLinear) and \
+                not head.gather_output:
+            ce = mpu.ParallelCrossEntropy(head.model_parallel_group,
+                                          ignore_index=ignore_index)
+            per_token = ce(logits.reshape(b * s, v), flat)
+            valid = (flat != ignore_index).to(per_token.dtype).sum()
+            return per_token.sum() / torch.clamp(valid, min=1.0)
+    return F.cross_entropy(logits.reshape(b * s, v), flat,
+                           ignore_index=ignore_index)
+
+
 class LlamaForCausalLM(nn.Module):
     """``device=None`` builds on the CUDA card (and raises without one);
     pass ``device="cpu"`` for the CPU. Weights are drawn from ``generator``
@@ -303,21 +326,7 @@ class LlamaForCausalLM(nn.Module):
         a column-parallel layer that leaves the logits sharded on the
         vocabulary (``fleet``'s ``TensorParallel``), the loss runs through
         ``ParallelCrossEntropy`` over its mp group, never gathering them."""
-        logits = self(input_ids)
-        b, s, v = logits.shape
-        flat = labels.reshape(b * s)
-        head = self.lm_head
-        if head is None or not head.weight.is_distributed:
-            return F.cross_entropy(logits.reshape(b * s, v), flat)
-        from ..distributed.fleet.layers.mpu import mp_layers as mpu
-
-        if not isinstance(head, mpu.ColumnParallelLinear) or \
-                head.gather_output:
-            return F.cross_entropy(logits.reshape(b * s, v), flat)
-        ce = mpu.ParallelCrossEntropy(head.model_parallel_group)
-        per_token = ce(logits.reshape(b * s, v), flat)
-        valid = (flat != ce.ignore_index).to(per_token.dtype).sum()
-        return per_token.sum() / torch.clamp(valid, min=1.0)
+        return token_loss(self(input_ids), labels, self.lm_head)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -10,7 +10,8 @@ index their sub-layers ``"0"``, ``"1"``, ... as the reference's do, and a
 convolution's weight is ``[out, in / groups, *kernel]`` (transposed: ``[in,
 out / groups, *kernel]``) in both packages, so no array is transposed. A
 tensor-parallel shard (``is_distributed``, with its ``tp_axis``) takes
-its rank's slice of the whole array, so the reference's full arrays load
+its rank's slice of the whole array (of each part of a fused qkv, which
+``fleet`` cuts part by part), so the reference's full arrays load
 into every rank of a tensor-parallel model. The same holds for a pipeline
 stage's stacked parameters (``_pp_rows = (stage, S)``: the stage's V rows
 of the reference's ``[S·V, ...]`` array, which are contiguous) and for an
@@ -28,16 +29,21 @@ import torch
 __all__ = ["load_jax_params", "load_jax_buffers"]
 
 
-def _cut(a: np.ndarray, t: torch.Tensor, shard, axis) -> np.ndarray:
+def _cut(a: np.ndarray, t: torch.Tensor, shard, axis,
+         groups: int = 1) -> np.ndarray:
     """Part ``rank`` of ``n`` of ``a`` along ``axis`` (``shard = (rank,
     n)``), where ``a`` is ``t``'s whole; ``a`` itself otherwise (the
-    caller's shape check names a mismatch)."""
+    caller's shape check names a mismatch). With ``groups`` > 1 the axis
+    is that many equal parts (a fused qkv's q, k and v), each cut alone
+    and the rank's cuts laid side by side, as ``fleet`` cuts the shard."""
     if shard is None or tuple(a.shape) == tuple(t.shape):
         return a
     rank, n = shard
     if a.ndim != t.dim() or a.shape[axis] != n * t.shape[axis]:
         return a
-    return np.split(a, n, axis=axis)[rank]
+    parts = np.split(a, groups, axis=axis)
+    return np.concatenate([np.split(g, n, axis=axis)[rank] for g in parts],
+                          axis=axis)
 
 
 def _tp_slice(t: torch.Tensor, a: np.ndarray) -> np.ndarray:
@@ -48,7 +54,7 @@ def _tp_slice(t: torch.Tensor, a: np.ndarray) -> np.ndarray:
     otherwise, or where it has the tensor's shape already."""
     shard = getattr(t, "_tp_shard", None)
     if shard is not None and getattr(t, "is_distributed", False):
-        a = _cut(a, t, shard, t.tp_axis)
+        a = _cut(a, t, shard, t.tp_axis, getattr(t, "tp_groups", 1))
     a = _cut(a, t, getattr(t, "_pp_rows", None), 0)
     return _cut(a, t, getattr(t, "_ep_shard", None),
                 getattr(t, "ep_axis", None) or 0)

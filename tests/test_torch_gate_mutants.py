@@ -19,7 +19,8 @@ gm = importlib.import_module("gate_mutants")
 
 HOST_TABLES = ("HOST_MUTANTS", "DISAGG_MUTANTS", "LOWP_MUTANTS",
                "CONTROL_MUTANTS", "DEPLOY_MUTANTS", "P17_MUTANTS",
-               "P18_MUTANTS", "P19_MUTANTS", "P20_MUTANTS", "P21_MUTANTS")
+               "P18_MUTANTS", "P19_MUTANTS", "P20_MUTANTS", "P21_MUTANTS",
+               "P22_MUTANTS")
 
 
 def _kernel_texts_once(table, lib):

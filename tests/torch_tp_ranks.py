@@ -410,3 +410,65 @@ def sharding_opt_body(rank, world, arrays, ids, labels, steps):
                        for n, p in model.named_parameters()},
             "moment_shapes": {k: tuple(v.shape) for k, v in
                               opt._accumulators["moment1"].items()}}
+
+
+# ---------------------------------------------------------------------------
+# TensorParallel on GPT and BERT (the fused qkv cut in whole heads)
+
+
+def _full_grouped(t: torch.Tensor, p: torch.Tensor, group) -> np.ndarray:
+    """``t`` (a shard of ``p`` or of its gradient) whole: gathered along
+    ``p``'s ``tp_axis`` and, for a fused qkv (``tp_groups`` parts, each
+    cut alone), each rank's part put back in its place."""
+    if not getattr(p, "is_distributed", False):
+        return t.detach().numpy().copy()
+    axis, groups = p.tp_axis, getattr(p, "tp_groups", 1)
+    whole = _gather(t, group, axis)  # [rank 0's (q, k, v), rank 1's, ...]
+    n = group.nranks
+    parts = np.split(whole, n * groups, axis=axis)
+    return np.concatenate([parts[r * groups + g] for g in range(groups)
+                           for r in range(n)], axis=axis)
+
+
+def tp_gpt_bert_body(rank, world, kind, arrays, ids, labels):
+    """``TensorParallel`` at mp=world on the tiny GPT (``kind`` "gpt") or
+    BERT MLM ("bert"), the reference's whole arrays loaded into the
+    shards: the gathered logits, the loss through the vocab-sharded head,
+    every parameter and gradient gathered whole, the local head counts,
+    and whether the checkpoint's placement refuses the fused qkv shard."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.checkpoint import reshard
+    from paddle_tpu_torch.models import (BertConfig, BertForMaskedLM,
+                                         GPTConfig, GPTForCausalLM)
+    from paddle_tpu_torch.utils import load_jax_params
+
+    hcg = _fleet(1, world)
+    g = hcg.get_model_parallel_group()
+    if kind == "gpt":
+        model = GPTForCausalLM(GPTConfig.tiny(), device="cpu")
+        qkv = model.transformer.h[0].attn.qkv_proj
+    else:
+        model = BertForMaskedLM(BertConfig.tiny(), device="cpu")
+        qkv = model.bert.encoder[0].qkv
+    tp = fleet.distributed_model(model)
+    load_jax_params(model, arrays)
+    res = {"loaded_equal": all(
+        np.array_equal(_full_grouped(p, p, g), arrays[n])
+        for n, p in model.named_parameters())}
+    x, y = torch.from_numpy(ids), torch.from_numpy(labels)
+    res["logits"] = _gather(tp(x), g, -1)
+    loss = tp.loss(x, y)
+    loss.backward()
+    res["loss"] = float(loss.detach())
+    res["grads"] = {n: _full_grouped(p.grad, p, g)
+                    for n, p in model.named_parameters()
+                    if p.grad is not None}
+    res["sharded"] = sorted(n for n, p in model.named_parameters()
+                            if getattr(p, "is_distributed", False))
+    res["qkv_local_cols"] = int(qkv.weight.shape[1])
+    try:
+        reshard.layer_placements(model)
+        res["placement_refused"] = False
+    except reshard.ReshardLayoutError:
+        res["placement_refused"] = True
+    return res
